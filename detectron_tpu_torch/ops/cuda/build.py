@@ -1,0 +1,90 @@
+"""Build the CUDA kernels from csrc/ with nvcc and load them with ctypes.
+
+Each source compiles on its own into a shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), under
+build/detectron_tpu_torch/ at the repository root. A library's file name
+carries a hash of its source and flags, so an edited source rebuilds and an
+unchanged one is reused. build_all() starts one nvcc per missing library,
+all at once, and waits for them. Nothing is built when a module is
+imported: the first launch builds.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "detectron_tpu_torch"
+SOURCES = ("nms_keep_mask.cu", "roi_window_pool.cu")
+# No --use_fast_math: an approximate divide would flip NMS keep bits at
+# the IoU threshold.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_loaded = {}
+
+
+def nvcc_path():
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("building the CUDA kernels needs nvcc (the CUDA "
+                       "toolkit); none found on PATH or in /usr/local/cuda")
+
+
+def library_path(source):
+    src = CSRC / source
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / "{}-{}.so".format(src.stem, digest)
+
+
+def build_all():
+    """Compile every source whose library is missing, in parallel. Returns
+    {source: library path}; raises with nvcc's output if a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for source in SOURCES:
+        target = library_path(source)
+        if target.exists():
+            continue
+        tmp = target.with_name("{}.{}.tmp".format(target.name, os.getpid()))
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        jobs.append((source, target, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for source, target, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append("{}:\n{}".format(source, out))
+        else:
+            os.replace(tmp, target)
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return {source: library_path(source) for source in SOURCES}
+
+
+def load(source, symbol, argtypes):
+    """The C function `symbol` of `source`'s library (built on first use),
+    with its argtypes set and an int return (cudaGetLastError())."""
+    with _lock:
+        fn = _loaded.get((source, symbol))
+        if fn is None:
+            lib = ctypes.CDLL(str(build_all()[source]))
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[(source, symbol)] = fn
+    return fn
+
+
+def check(err, name):
+    if err != 0:
+        raise RuntimeError("{} launch failed: CUDA error {}".format(name, err))

@@ -45,6 +45,12 @@ if not _WRITES:
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA "
+        "kernels); skipped where torch.cuda.is_available() is false")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _bounded_native_state():
     """Free compiled executables between test modules. Monolithic runs
