@@ -1,32 +1,63 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (detectron_tpu_torch) on one GPU.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:
+    python3 chip_smoke.py [--profile-train] [--clip-gradients X]
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. Device and build: the card's name and power limit from nvidia-smi,
-     then every CUDA kernel of the inference path built from csrc/.
-  2. Per-kernel check at the main path's shapes: each kernel's wrapper on
+     then every CUDA kernel (K1-K4) built from csrc/.
+  2. Per-kernel check at the main paths' shapes: each kernel's wrapper on
      CUDA tensors against its plain PyTorch version on the same inputs
-     (K1 exactly; K2/K3 within 2 bf16 ulps), with median CUDA-event times
-     of both.
-  3. A small-input check: the port's detect_graph on the GPU (kernels)
-     against the same function on the CPU (plain versions), in float32 on
-     the tiny 256 x 320 configuration.
-  4. The main path: Mask R-CNN R-50-FPN inference (detect_graph) at full
+     (K1 exactly; K2/K3 within 2 bf16 ulps; K4, whose atomic adds sum
+     overlapping windows in an order that changes from run to run, within
+     1e-5 max|ref| + 1e-6), with median CUDA-event times of both and the
+     least time the card could take for the same work (bound_ms: bytes
+     over 3.35 TB/s or operations over the peak rate of the inputs' type,
+     989 TFLOP/s bf16 and 67 TFLOP/s f32, whichever is larger).
+  3. Checks of whole functions, GPU (kernels) against CPU (plain
+     versions): the RoIAlign ladder's backward (K4 over the base window
+     and each fix-up rung, autograd of the exact gather for slivers) at
+     the training path's box shapes, GPU float32 against CPU float64,
+     each level within 1e-4 of its largest gradient; and in
+     float32: detect_graph on the tiny 256 x 320 configuration, and one
+     Mask R-CNN train_step on 2 x 128 x 160 images with the same sampling
+     draws (a CPU torch.Generator), with cuDNN off and on: losses within
+     1e-3 relative of the CPU float32 step; gradients and the SGD update
+     within 1e-4 of each leaf's largest, against the CPU plain path in
+     float64 run with the float32 step's ReLU signs (a ReLU input within
+     float32 rounding of 0 may take the other side on another device,
+     which moves a gradient by a whole term), and every ReLU input within
+     ACT_REL of the float64 step's.
+  4. The inference main path: Mask R-CNN R-50-FPN detect_graph at full
      width in bfloat16, 2 images of 800 x 1333 in an 832 x 1344 canvas,
      1000 RPN proposals and 100 detections per image, random numpy-init
-     weights calibrated toward a trained detector's output statistics. The
-     launch counters are zeroed just before and read just after; every
-     kernel must have launched.
+     weights calibrated toward a trained detector's output statistics.
+  5. The training main path: Mask R-CNN R-50-FPN train_step at full width,
+     bfloat16 compute with float32 master params, 2 synthetic images in an
+     832 x 1344 canvas (utils/synthetic.synthetic_train_batch), Detectron's
+     settings (RPN 2000/2000, 512 RoIs and 256 anchors per image): one
+     warm-up step, then TRAIN_STEPS timed SGD steps, gradients clipped to
+     a global norm of CLIP_GRADIENTS. The weights are
+     calibrated as in phase 4: uncalibrated RPN deltas decode almost every
+     proposal to a sliver, which the ladder pools by the exact gather, so
+     the fix-up rungs (K3 and their K4 sweeps) would see no traffic.
+  Phases 4 and 5 each zero the launch counters just before and read them
+  just after; every kernel of the path must have launched.
 Prints a {"kernels": [...]} line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+No single PyTorch call computes any of K1-K4 (there is no torchvision), so
+every kernel's library_ms is null. --profile-train adds a torch.profiler
+run of one more training step, printing its device time by kernel, then
+the host time of each stage (forward, backward, update) of 4 more steps.
+--clip-gradients sets phase 5's CLIP_GRADIENTS.
 
 TF32 is off for both cuDNN convolutions and matmuls
 (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 =
-False), so the float32 check of phase 3 runs in full float32.
+False), so the float32 checks of phase 3 run in full float32.
 """
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -39,6 +70,26 @@ BATCH = 2
 CANVAS = (832, 1344)
 IM_INFO = (800.0, 1333.0, 1.6)
 MAIN_RUNS = 3
+TRAIN_STEPS = 3
+# Global-norm gradient clipping of the training main path (the cfg's
+# from-scratch setting, SOLVER.CLIP_GRADIENTS; Detectron's preset has none).
+# From random weights with no trained BN statistics the warm-up step's loss
+# is over a thousand, and without clipping (--clip-gradients 0) its update
+# sends the next step's proposals to NaN on an H100, which stops the run
+# with a device-side index assert in the ladder's level lookup.
+CLIP_GRADIENTS = 10.0
+# H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s, and FLOP/s by
+# operand type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Phase 3 holds every ReLU input of a float32 training step within this
+# share of its call's largest float64 input (the float32 forward's rounding,
+# grown through the body, is ~1e-4 of it at res5 on these inputs).
+ACT_REL = 1e-3
+# Flops of one IoU test in K1 (4 max/min, 4 add/sub for the extents, 2
+# clamps, 1 multiply for the intersection, 2 add/sub for the union, 1
+# divide).
+NMS_PAIR_FLOPS = 14
 
 
 def cuda_ms(fn, reps):
@@ -60,18 +111,30 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def set_cfg(tiny, dtype):
-    from detectron_tpu.core.configs_presets import mask_rcnn_r50_fpn
+def set_cfg(tiny, dtype, extra=()):
     from detectron_tpu_torch.core import config
+    from detectron_tpu_torch.core.configs_presets import mask_rcnn_r50_fpn
 
     config.reset_cfg()
     mask_rcnn_r50_fpn()
-    extra = ["TPU.COMPUTE_DTYPE", dtype]
+    keys = ["TPU.COMPUTE_DTYPE", dtype]
     if tiny:
-        extra += ["TEST.RPN_PRE_NMS_TOP_N", "256",
+        keys += ["TEST.RPN_PRE_NMS_TOP_N", "256",
                   "TEST.RPN_POST_NMS_TOP_N", "64",
-                  "TEST.DETECTIONS_PER_IM", "20"]
-    config.merge_cfg_from_list(extra)
+                  "TEST.DETECTIONS_PER_IM", "20",
+                  "TRAIN.BATCH_SIZE_PER_IM", "64",
+                  "TRAIN.RPN_PRE_NMS_TOP_N", "256",
+                  "TRAIN.RPN_POST_NMS_TOP_N", "64",
+                  "TRAIN.RPN_BATCH_SIZE_PER_IM", "64",
+                  "TPU.MAX_GT_BOXES", "8",
+                  # 3 gt-mask cells per target cell: a RoI equal to its gt
+                  # box (gt boxes are sampled as RoIs) then samples on
+                  # cell centres. With an even ratio it samples midway
+                  # between two cells, where a random mask gives targets
+                  # of 0.5 +- an ulp that the two devices' matmul orders
+                  # round to either side of the 0.5 threshold.
+                  "TPU.GT_MASK_SIZE", "84"]
+    config.merge_cfg_from_list(list(extra) + keys)
     config.assert_and_infer_cfg(make_immutable=False)
 
 
@@ -82,6 +145,66 @@ def make_params(device, dtype, seed=0):
     params = calibrate_detector_params(init.init_model(seed),
                                        np.random.RandomState(seed))
     return bridge.to_torch(params, device, dtype)
+
+
+def bound(nbytes, flops, dtype):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reached_cells(canvas_shape, starts, vy, vx):
+    """Distinct canvas cells (b, y, x) that some RoI's weights reach: row
+    h and column w of a RoI's window with vy[:, :, h] and vx[:, :, w] not
+    all zero. At most the union of the windows; these inputs' cells only."""
+    import torch
+
+    B, Hc, Wc, _ = canvas_shape
+    dev = starts.device
+    rows = vy.ne(0).any(1)                          # (n, WY)
+    cols = vx.ne(0).any(1)                          # (n, WX)
+    y = starts[:, 1, None].long() + torch.arange(rows.shape[1], device=dev)
+    x = starts[:, 2, None].long() + torch.arange(cols.shape[1], device=dev)
+    hit = (rows & (y < Hc))[:, :, None] & (cols & (x < Wc))[:, None, :]
+    flat = (starts[:, 0, None, None].long() * Hc + y[:, :, None]) * Wc + \
+        x[:, None, :]
+    mark = torch.zeros(B * Hc * Wc, dtype=torch.bool, device=dev)
+    mark[flat[hit]] = True
+    return int(mark.sum())
+
+
+def window_bound(canvas_shape, itemsize, starts, vy, vx, accumulate):
+    """Bound of K2/K3 (pool) or K4 (accumulate, a read-modify-write of the
+    f32 gradient canvas) over the RoIs of starts/vy/vx (the active rows
+    only). Bytes: the canvas cells their weights reach (reached_cells)
+    read once, and written once by K4; origins, weights and pooled rows
+    (or cotangent rows) once. Operations: the two contractions over the
+    nonzero weights only, in the cheaper order for each RoI, a multiply
+    and an add each: P nnz(vx) + nnz(vy) cols (x first) or P nnz(vy) +
+    nnz(vx) rows (y first), times 2 C, where rows and cols are the window
+    rows and columns some weight reaches."""
+    C = canvas_shape[-1]
+    rows, P, WY = vy.shape
+    WX = vx.shape[-1]
+    canvas = reached_cells(canvas_shape, starts, vy, vx) * C * itemsize
+    nbytes = canvas * (2 if accumulate else 1) + rows * (
+        12 + P * (WY + WX) * itemsize + P * P * C * itemsize)
+    nz_y, nz_x = vy.ne(0), vx.ne(0)
+    ny, nx = nz_y.sum((1, 2)), nz_x.sum((1, 2))
+    x_first = P * nx + ny * nz_x.any(1).sum(1)
+    y_first = P * ny + nx * nz_y.any(1).sum(1)
+    flops = 2 * C * int(x_first.minimum(y_first).sum())
+    return bound(nbytes, flops, "float32" if itemsize == 4 else "bfloat16")
+
+
+def nms_bound(boxes, valid, keep):
+    """Bound of K1: boxes, valid and keep moved once; one IoU test for
+    every (kept pivot, later valid box) pair of this data."""
+    L, N = valid.shape
+    later_valid = valid.flip(1).cumsum(1).flip(1) - valid.int()
+    pairs = int((later_valid * keep).sum())
+    return bound(L * N * (16 + 1 + 1), pairs * NMS_PAIR_FLOPS, "float32")
 
 
 # ---------------------------------------------------------------------------
@@ -131,8 +254,9 @@ def ladder_inputs(rng, n, pooled, window, device, dtype):
 
 
 def check_kernels(device):
-    """Phase 2. Returns {kernel name: entry} with max_abs_err, ms, plain_ms
-    at the primary shape, and prints one line per checked shape."""
+    """Phase 2. Returns {kernel name: entry} with max_abs_err (over every
+    checked shape), and ms, plain_ms, bound_ms, bound_by at the primary
+    shape; prints one line per checked shape."""
     import torch
 
     from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
@@ -140,18 +264,21 @@ def check_kernels(device):
     rng = np.random.RandomState(0)
     entries = {}
 
-    def record(name, shape, err, ms, plain_ms, primary):
-        print("check {} {}: max_abs_err={} kernel_ms={:.4f} plain_ms={:.4f}"
-              .format(name, shape, err, ms, plain_ms))
+    def record(name, shape, err, ms, plain_ms, bnd, primary):
+        print("check {} {}: max_abs_err={} kernel_ms={:.4f} plain_ms={:.4f} "
+              "bound_ms={:.4f} ({})".format(name, shape, err, ms, plain_ms,
+                                           *bnd))
         e = entries.setdefault(name, {"max_abs_err": 0.0})
         e["max_abs_err"] = max(e["max_abs_err"], float(err))
         if primary:
-            e.update(shape=shape, ms=ms, plain_ms=plain_ms)
+            e.update(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                     bound_by=bnd[1])
 
-    # K1: RPN levels (L = B lanes; N = 1000, and 819 at P6) and the
-    # detection tail (L = B * 80 classes, N = K = 400). Exact.
+    # K1: RPN levels at inference (L = B lanes; N = 1000, and 819 at P6)
+    # and training (N = 2000), and the detection tail (L = B * 80 classes,
+    # N = K = 400). Exact.
     for (L, N), thr in (((BATCH, 1000), 0.7), ((BATCH, 819), 0.7),
-                        ((BATCH * 80, 400), 0.5)):
+                        ((BATCH, 2000), 0.7), ((BATCH * 80, 400), 0.5)):
         boxes, valid = nms_lanes(rng, L, N, device)
         got = nms_kernel.nms_keep_mask(boxes, valid, thr)
         ref = nms_kernel.nms_keep_mask_plain(boxes, valid, thr)
@@ -165,32 +292,37 @@ def check_kernels(device):
                cuda_ms(lambda: nms_kernel.nms_keep_mask(boxes, valid, thr),
                        20),
                cuda_ms(lambda: nms_kernel.nms_keep_mask_plain(
-                   boxes, valid, thr), 3), primary=(N == 1000))
+                   boxes, valid, thr), 3), nms_bound(boxes, valid, ref),
+               primary=(N == 1000))
 
-    def pool_check(name, fn, plain, args, rows, shape, primary):
+    def pool_check(name, fn, plain, args, rows, shape, bnd, primary):
         got = fn(*args)[rows[0]:rows[1]].float()
         ref = plain(*args)[rows[0]:rows[1]].float()
         torch.cuda.synchronize()
         diff = (got - ref).abs()
         # 2 bf16 ulps of each value plus a floor for cancelling sums.
-        bound = ref.abs() * (1.0 / 64) + 1e-3 * float(ref.abs().max())
-        if not bool(torch.isfinite(got).all()) or bool((diff > bound).any()):
+        tol = ref.abs() * (1.0 / 64) + 1e-3 * float(ref.abs().max())
+        if not bool(torch.isfinite(got).all()) or bool((diff > tol).any()):
             raise AssertionError("{} disagrees with its plain version at {}:"
                                  " max_abs_err {}".format(
                                      name, shape, float(diff.max())))
         record(name, shape, float(diff.max()), cuda_ms(lambda: fn(*args), 20),
-               cuda_ms(lambda: plain(*args), 3), primary)
+               cuda_ms(lambda: plain(*args), 3), bnd, primary)
 
     # K2: base sweep, box head (P = 7, N = B * 1000) and mask head (P = 14,
-    # N = B * 100), bf16 on a full-size canvas.
-    for pooled, n in ((7, BATCH * 1000), (14, BATCH * 100)):
+    # N = B * 100) at inference, box (N = B * 512) and mask (N = B * 128)
+    # in training, bf16 on a full-size canvas.
+    for pooled, n in ((7, BATCH * 1000), (14, BATCH * 100),
+                      (7, BATCH * 512), (14, BATCH * 128)):
         canvas, starts, vy, vx, window = ladder_inputs(
             rng, n, pooled, None, device, torch.bfloat16)
         pool_check("roi_window_pool", roi_align_kernel.roi_window_pool,
                    roi_align_kernel.roi_window_pool_plain,
                    (canvas, starts, vy, vx), (0, n),
                    "P={} N={} window={} canvas={}".format(
-                       pooled, n, window, tuple(canvas.shape)), pooled == 7)
+                       pooled, n, window, tuple(canvas.shape)),
+                   window_bound(canvas.shape, 2, starts, vy, vx, False),
+                   (pooled, n) == (7, BATCH * 1000))
 
     # K3: each fix-up rung, 12% of the box RoIs active in a 256-row capacity.
     for wy, wx in ((64, 48), (16, 96), (32, 96)):
@@ -203,12 +335,52 @@ def check_kernels(device):
                        *a, rows=rows),
                    (canvas, starts, vy, vx), rows,
                    "P=7 rows={} of 256 window=({}, {})".format(rows, wy, wx),
+                   window_bound(canvas.shape, 2, *(t[rows[0]:rows[1]] for t in
+                                                   (starts, vy, vx)), False),
                    (wy, wx) == (64, 48))
+
+    # K4: the training backward's window accumulate into the f32 gradient
+    # canvas: base window at box (P = 7, N = B * 512) and mask (P = 14,
+    # N = B * 128) shapes, and the (16, 96) fix-up rung with 12% of a
+    # 1024-row capacity active. Atomic adds: within 1e-5 max|ref| + 1e-6.
+    for pooled, n, window, rows in ((7, BATCH * 512, None, None),
+                                    (14, BATCH * 128, None, None),
+                                    (7, 1024, (16, 96), (0, 123))):
+        canvas, starts, vy, vx, window = ladder_inputs(
+            rng, n, pooled, window, device, torch.float32)
+        ct = torch.randn((n, pooled, pooled, canvas.shape[-1]),
+                         device=device, generator=torch.Generator(
+                             device).manual_seed(n + pooled))
+        zero = torch.zeros_like(canvas)
+        got = roi_align_kernel.roi_window_accum(zero.clone(), starts, ct, vy,
+                                                vx, rows)
+        ref = roi_align_kernel.roi_window_accum_plain(zero.clone(), starts,
+                                                      ct, vy, vx, rows)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tol = 1e-5 * float(ref.abs().max()) + 1e-6
+        shape = "P={} N={} rows={} window={} canvas={}".format(
+            pooled, n, rows or (0, n), window, tuple(canvas.shape))
+        if not bool(torch.isfinite(got).all()) or err > tol or \
+                float(ref.abs().max()) == 0.0:
+            raise AssertionError("K4 roi_window_accum disagrees with its "
+                                 "plain version at {}: max_abs_err {} > {}"
+                                 .format(shape, err, tol))
+        lo, hi = rows or (0, n)
+        record("roi_window_accum", shape, err,
+               cuda_ms(lambda: roi_align_kernel.roi_window_accum(
+                   got, starts, ct, vy, vx, rows), 20),
+               cuda_ms(lambda: roi_align_kernel.roi_window_accum_plain(
+                   ref, starts, ct, vy, vx, rows), 3),
+               window_bound(canvas.shape, 4, *(t[lo:hi] for t in
+                                               (starts, vy, vx)), True),
+               (pooled, rows) == (7, None))
+        del canvas, zero, got, ref
     return entries
 
 
 # ---------------------------------------------------------------------------
-# Phases 3 and 4
+# Phases 3, 4 and 5
 # ---------------------------------------------------------------------------
 
 def match_detections(a, b):
@@ -235,6 +407,78 @@ def match_detections(a, b):
             (cb[:, None] == ca[None, :])
         matched += int(ok.any(1).sum())
     return matched / max(total, 1)
+
+
+def check_ladder_grad(device):
+    """Phase 3: the RoIAlign ladder's backward as the training path runs
+    it (K4 over the base window and each fix-up rung, autograd of the
+    exact gather for slivers), through its autograd Function on `device`
+    in float32, against the same backward on the CPU plain path in
+    float64. The full-width box branch: the P2-P5 pyramid of BATCH images
+    in the CANVAS, 512 RoIs per image of detector-like sizes and aspect
+    ratios, a N(0, 1) cotangent. Each level's gradient within 1e-4 of its
+    largest float64 value: float32 sums (K4's atomic adds and the gather's
+    index_put add in an order that changes from run to run), and float32
+    sample coordinates that the two devices round differently (fused
+    multiply-adds on the card), so a bilinear weight may differ by a few
+    ulps of a coordinate (~3e-5 at P2's 336 columns)."""
+    import torch
+
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.ops import windowed_roi as win
+
+    rng = np.random.RandomState(4)
+    n, C = 512, 256
+    dims = [(CANVAS[0] // s, CANVAS[1] // s) for s in (4, 8, 16, 32)]
+    pyramid = [torch.from_numpy(rng.randn(BATCH, h, w, C).astype(
+        np.float32)).to(device).requires_grad_(True) for h, w in dims]
+    xy = rng.uniform(0, min(CANVAS) * 0.75, (BATCH, n, 2))
+    wh = rng.lognormal(4.5, 0.8, (BATCH, n, 2)).clip(4, 800)
+    rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(
+        np.float32))
+    ct = torch.from_numpy(rng.randn(BATCH, n, 7, 7, C).astype(np.float32))
+    static = ((0.25, 0.125, 0.0625, 0.03125), 7,
+              cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO, cfg.FPN.ROI_MIN_LEVEL,
+              cfg.FPN.ROI_MAX_LEVEL, cfg.FPN.ROI_CANONICAL_SCALE,
+              cfg.FPN.ROI_CANONICAL_LEVEL,
+              tuple(tuple(r) for r in cfg.TPU.ROI_RUNGS))
+
+    # RoIs per route, as the ladder routes them, and how far the device's
+    # float32 base-window weights are from the CPU's.
+    geom = win.ladder_geom(dims, static[-1])
+    flat = rois.reshape(-1, 4)
+    _, _, vy, vx, ok = win.window_params(flat, geom, *static[:-1],
+                                         geom["wy_base"], geom["wx_base"],
+                                         torch.float32)
+    _, _, vy_d, vx_d, _ = win.window_params(flat.to(device), geom,
+                                            *static[:-1], geom["wy_base"],
+                                            geom["wx_base"], torch.float32)
+    weight_diff = max(float((vy_d.cpu() - vy).abs().max()),
+                      float((vx_d.cpu() - vx).abs().max()))
+    covered, rid = win.rung_route(flat, geom, static[0], *static[3:-1])
+    routes = {"base": int(ok.sum()), "sliver": int((~ok & ~covered).sum())}
+    for r, shape in enumerate(geom["fix_rungs"]):
+        routes["rung {}".format(shape)] = int((~ok & covered & (rid == r))
+                                              .sum())
+
+    out = win.multilevel_roi_align_ladder_trainable(
+        pyramid, static[0], rois.to(device), *static[1:])
+    got = torch.autograd.grad(out, pyramid, ct.to(device))
+    ref = win._ladder_backward(ct.double(), rois, dims, *static)
+    # Relative to each level's largest gradient; a level no RoI reaches
+    # must get exact zeros.
+    errs = [float((g.double().cpu() - r).abs().max()) /
+            (float(r.abs().max()) or 1.0) for g, r in zip(got, ref)]
+    print("ladder backward check (float32 {} vs cpu float64, {} x {} canvas, "
+          "{} RoIs, RoIs per route {}): worst diff / max|ref| per level {}; "
+          "largest base-window weight diff, {} vs cpu float32, {:.3e}".format(
+              device, *CANVAS, flat.shape[0], routes,
+              ["{:.3e}".format(e) for e in errs], device, weight_diff))
+    if max(errs) > 1e-4 or routes["sliver"] == 0 or \
+            sum(routes.values()) - routes["base"] - routes["sliver"] == 0:
+        raise AssertionError("the ladder's backward disagrees with its plain "
+                             "version, or missed a route: {} {}".format(
+                                 errs, routes))
 
 
 def check_small_input(device):
@@ -264,6 +508,158 @@ def check_small_input(device):
     if n_cpu == 0 or frac < 0.95 or abs(n_cpu - n_gpu) > 0.05 * n_cpu:
         raise AssertionError("GPU detect_graph disagrees with the CPU plain "
                              "path on the small input")
+
+
+def _flat(tree):
+    from detectron_tpu_torch.parallel import optimizer as opt
+
+    return [t for _, t in opt.flatten(tree)]
+
+
+def _small_train_run(tree, dev, dtype, H, W, masks=None):
+    """One train_step of the tiny configuration on `dev` in `dtype`:
+    ([params, grads, update], each a flat list of CPU float64 tensors, the
+    update being the SGD step p - p' before it is rounded into the params;
+    the losses; the input of every layers.relu call, on the CPU, in call
+    order). With `masks` (bool tensors, one per relu call, in that order),
+    each relu keeps the elements of its mask instead of its positive
+    ones: x * mask, whose gradient is the mask."""
+    import torch
+
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import bridge, layers, train_graph
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.parallel import train_step as ts
+    from detectron_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    cfg.TPU.COMPUTE_DTYPE = str(dtype).split(".")[-1]
+    params = bridge.to_torch(tree, dev, dtype)
+    batch = synthetic_train_batch(BATCH, H, W, dev, np.random.RandomState(2),
+                                  1.0)
+    # N(0, 1) images, not the synthetic N(0, 20): random weights without
+    # trained BN statistics make losses and gradients grow with the input
+    # scale, and this check is about the kernels, not the scale.
+    batch["images"] = batch["images"] / 20.0
+    draws = train_graph.make_draws(torch.Generator().manual_seed(3), BATCH,
+                                   (H, W), cfg.TPU.MAX_GT_BOXES, dev)
+    relu_inputs = []
+
+    def relu(x):
+        relu_inputs.append(x.detach().cpu())
+        if masks is None:
+            return torch.relu(x)
+        m = masks[len(relu_inputs) - 1]
+        if m.shape != x.shape:
+            raise AssertionError("relu call {}: mask {} for input {}".format(
+                len(relu_inputs) - 1, tuple(m.shape), tuple(x.shape)))
+        return x * m.to(x.device, x.dtype)
+
+    plain_relu, layers.relu = layers.relu, relu
+    try:
+        _, parts, grads = ts.loss_and_grads(params, batch, draws)
+    finally:
+        layers.relu = plain_relu
+    _, state, _ = opt.apply_updates(params, grads,
+                                    opt.init_opt_state(params))
+    flat = [[t.detach().double().cpu() for t in _flat(x)]
+            for x in (params, grads, state["momentum"])]
+    return flat, {k: float(v) for k, v in parts.items()}, relu_inputs
+
+
+def relu_flips(inputs, ref):
+    """Two runs' relu inputs, call by call: (elements whose sign (> 0)
+    differs, the largest |ref| at such an element over its call's max|ref|,
+    the largest |input - ref| over its call's max|ref|)."""
+    n, worst, err = 0, 0.0, 0.0
+    for x, r in zip(inputs, ref):
+        x = x.double()
+        scale = float(r.abs().max())
+        if scale == 0.0:
+            continue
+        err = max(err, float((x - r).abs().max()) / scale)
+        flip = (x > 0) != (r > 0)
+        if bool(flip.any()):
+            n += int(flip.sum())
+            worst = max(worst, float(r[flip].abs().max()) / scale)
+    return n, worst, err
+
+
+def check_small_train(device):
+    """Phase 3, training: one float32 train_step on the GPU (kernels)
+    against the same step on the CPU (plain versions), with the same
+    params, batch and sampling draws; gradients against the CPU plain path
+    in float64. The GPU runs once with cuDNN off (PyTorch's own CUDA
+    convolutions) and once with cuDNN, the main path's convolution
+    library. A ReLU whose input lies within float32 rounding of 0 may take
+    the other side on one device (a sign flip): its gradient then moves by
+    a whole term, not by rounding. So each float32 run is held against a
+    float64 run that takes that run's ReLU signs (x * mask), and its ReLU
+    inputs within ACT_REL of the float64 run's (so a flip is only ever at
+    an input that close to 0)."""
+    import torch
+
+    from detectron_tpu_torch.models import init
+    from detectron_tpu_torch.parallel import optimizer as opt
+
+    set_cfg(tiny=True, dtype="float32")
+    H, W = 128, 160
+    tree = init.init_model(1)
+    paths = [path for path, _ in opt.flatten(tree)]
+    runs = {"cpu f64": ("cpu", torch.float64, True),
+            "cpu f32": ("cpu", torch.float32, True),
+            "gpu f32": (device, torch.float32, False),
+            "gpu f32 cudnn": (device, torch.float32, True)}
+    out = {}
+    for name, (dev, dtype, cudnn) in runs.items():
+        torch.backends.cudnn.enabled = cudnn
+        out[name] = _small_train_run(tree, dev, dtype, H, W)
+    torch.backends.cudnn.enabled = True
+    for name in ("cpu f32", "gpu f32", "gpu f32 cudnn"):
+        out["cpu f64, signs of " + name] = _small_train_run(
+            tree, "cpu", torch.float64, H, W,
+            masks=[x > 0 for x in out[name][2]])
+    set_cfg(tiny=True, dtype="float32")
+
+    (_, g64, _), _, relu64 = out["cpu f64"]
+    cpu_loss = out["cpu f32"][1]
+
+    def worst(vals, ref):
+        errs = sorted(((float((a - r).abs().max()) / float(r.abs().max()),
+                        path) for path, a, r in zip(paths, vals, ref)
+                       if float(r.abs().max()) > 0), reverse=True)
+        return errs[0]
+
+    report = {}
+    for name in ("cpu f32", "gpu f32", "gpu f32 cudnn"):
+        (_, g, upd), loss, relu_in = out[name]
+        (_, g_ref, upd_ref), _, _ = out["cpu f64, signs of " + name]
+        report[name] = dict(
+            loss=max(abs(loss[k] - v) / max(abs(v), 1e-12)
+                     for k, v in cpu_loss.items()),
+            flips=relu_flips(relu_in, relu64),
+            grad_f64=worst(g, g64), grad=worst(g, g_ref),
+            update=worst(upd, upd_ref))
+        r = report[name]
+        print("small-input train check (2 x {} x {}), {}: losses {}; max "
+              "relative loss diff vs cpu f32 {:.3e}; ReLU inputs vs cpu f64: "
+              "{} sign flips, largest |input| at a flip / its call's max "
+              "{:.3e}, worst diff / its call's max {:.3e}; "
+              "worst grad diff / max|g| vs cpu f64 {:.3e} {}, vs cpu f64 "
+              "with this run's ReLU signs {:.3e} {}; worst update diff / "
+              "max update vs the latter {:.3e} {}".format(
+                  H, W, name, loss, r["loss"], *r["flips"], *r["grad_f64"],
+                  *r["grad"], *r["update"]))
+    # With its own ReLU signs a float32 step is within ~1e-5 of float64
+    # here (1e-3 to 1e-2 without them); each (the CPU's, and the GPU's
+    # with cuDNN off and on) must be within 1e-4, gradients and update. A
+    # wrong K4 or a wrong convolution backward moves whole terms of the
+    # FPN and body gradients and fails this at any ReLU signs.
+    bad = {k: r for k, r in report.items()
+           if r["loss"] > 1e-3 or r["flips"][2] > ACT_REL or
+           r["grad"][0] > 1e-4 or r["update"][0] > 1e-4}
+    if bad:
+        raise AssertionError("GPU train_step disagrees with the CPU plain "
+                             "path on the small input: {}".format(bad))
 
 
 def run_main_path(device):
@@ -309,7 +705,7 @@ def run_main_path(device):
                 torch.isfinite(out[k]).all()):
             raise AssertionError(k + " has non-finite values")
     per_image = out["valid"].sum(1).tolist()
-    print("main path (Mask R-CNN R-50-FPN, bf16, {} x {} x {}, RPN {} "
+    print("inference path (Mask R-CNN R-50-FPN, bf16, {} x {} x {}, RPN {} "
           "proposals, D={}): {:.3f} img/s over {} batches, valid detections "
           "per image {}, launches {}".format(
               BATCH, *CANVAS, cfg.TEST.RPN_POST_NMS_TOP_N, D,
@@ -323,9 +719,169 @@ def run_main_path(device):
     return launches
 
 
+def run_train_path(device, profile, clip):
+    """Phase 5. Returns the kernels' launch counts over TRAIN_STEPS steps."""
+    import torch
+
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import train_graph
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.parallel import train_step as ts
+    from detectron_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    set_cfg(tiny=False, dtype="bfloat16",
+            extra=["SOLVER.CLIP_GRADIENTS", str(clip)])
+    params = make_params(device, torch.float32)
+    p0 = [t.clone() for t in _flat(params)]
+    opt_state = opt.init_opt_state(params)
+    batch = synthetic_train_batch(BATCH, *CANVAS, device,
+                                  np.random.RandomState(0))
+    gen = torch.Generator().manual_seed(0)
+
+    def draws():
+        return train_graph.make_draws(gen, BATCH, CANVAS,
+                                      cfg.TPU.MAX_GT_BOXES, device)
+
+    def step(params, opt_state):
+        return ts.train_step(params, opt_state, batch, draws())
+
+    t0 = time.perf_counter()
+    params, opt_state, stats = step(params, opt_state)   # warm-up
+    torch.cuda.synchronize()
+    print("train warm-up step: {:.3f} ms, loss {}".format(
+        (time.perf_counter() - t0) * 1e3, float(stats["loss"])))
+
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": roi_align_kernel.roi_window_pool,
+                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg,
+                "roi_window_accum": roi_align_kernel.roi_window_accum}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats_list, marks = [], []
+    for _ in range(TRAIN_STEPS):
+        params, opt_state, stats = step(params, opt_state)
+        stats_list.append(stats)
+        marks.append(time.perf_counter())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    # Host-clock marks between steps (each step synchronizes inside, at
+    # the ladder's torch.nonzero), so these split the run by step.
+    print("train steps, host ms each: {}".format(
+        [round((b - a) * 1e3, 3) for a, b in zip([t0] + marks, marks)]))
+    losses = [{k: round(float(v), 4) for k, v in st.items()}
+              for st in stats_list]
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+
+    moved = sum(not torch.equal(a, b) for a, b in zip(p0, _flat(params)))
+    median = statistics.median(b - a for a, b in zip([t0] + marks, marks))
+    # The mean carries one-off costs of the first steps (the first backward
+    # through the sliver gather spends seconds in PyTorch's first CUDA
+    # index_put); the median step is the steady state.
+    print("train path (Mask R-CNN R-50-FPN, bf16 compute / f32 params, {} x "
+          "{} x {}, RPN {}/{}, {} RoIs/img, CLIP_GRADIENTS {}): median "
+          "{:.3f} ms/step = {:.3f} img/s, mean {:.3f} ms/step = {:.3f} "
+          "img/s over {} steps after 1 warm-up, peak memory {:.2f} GB, {} "
+          "of {} param leaves moved, launches {}".format(
+              BATCH, *CANVAS, cfg.TRAIN.RPN_PRE_NMS_TOP_N,
+              cfg.TRAIN.RPN_POST_NMS_TOP_N, cfg.TRAIN.BATCH_SIZE_PER_IM,
+              cfg.SOLVER.CLIP_GRADIENTS, median * 1e3, BATCH / median,
+              dt / TRAIN_STEPS * 1e3, BATCH * TRAIN_STEPS / dt, TRAIN_STEPS,
+              torch.cuda.max_memory_allocated() / 1e9, moved, len(p0),
+              launches))
+    for i, row in enumerate(losses):
+        print("train step {}: {}".format(i + 2, row))
+    bad = [row for row in losses if not all(np.isfinite(list(row.values())))]
+    if bad:
+        raise AssertionError("non-finite training stats: {}".format(bad))
+    if opt_state["step"] != TRAIN_STEPS + 1:
+        raise AssertionError("opt_state step {} != {}".format(
+            opt_state["step"], TRAIN_STEPS + 1))
+    if moved == 0:
+        raise AssertionError("the training steps changed no param")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError("kernels not launched on the training path: "
+                             + ", ".join(missing))
+    if profile:
+        profile_train_step(step, params, opt_state)
+        stage_times(params, opt_state, batch, draws)
+    return launches
+
+
+def stage_times(params, opt_state, batch, draws, steps=4):
+    """Host ms of each stage of `steps` more training steps: forward
+    (training_losses), backward (torch.autograd.grad over the trainable
+    leaves) and update (apply_updates), each ended by a synchronize."""
+    import torch
+
+    from detectron_tpu_torch.models import train_graph
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.parallel import train_step as ts
+
+    for i in range(steps):
+        d = draws()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, leaves = ts.grad_leaves(params)
+        total, _ = train_graph.training_losses(p, batch, d)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = ts.grads_of(total, p, leaves)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        params, opt_state, _ = opt.apply_updates(params, grads, opt_state)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        print("stage times, step {} after the profiled one: forward {:.3f} "
+              "ms, backward {:.3f} ms, update {:.3f} ms".format(
+                  i + 1, (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+
+
+def profile_train_step(step, params, opt_state):
+    """torch.profiler over one more training step: the step's wall time,
+    the device time summed over its kernels (device events only, so no
+    time is counted twice under the ops that launched it), the device's
+    idle share, and the top kernels and ops by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print("profile of one train step: wall {:.3f} ms, device busy {:.3f} ms "
+          "(sum over kernels), idle share {:.3f}".format(
+              wall, busy, 1 - busy / wall))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
+        print("  kernel {:9.3f} ms {:6d} calls  {}".format(
+            e.self_device_time_total / 1e3, e.count, e.key[:90]))
+    ops = [e for e in events if e.device_type == DeviceType.CPU]
+    for e in sorted(ops, key=lambda e: -e.cpu_time_total)[:15]:
+        print("  op {:9.3f} ms cpu total {:6d} calls  {}".format(
+            e.cpu_time_total / 1e3, e.count, e.key[:90]))
+
+
 def main():
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile-train", action="store_true",
+                    help="profile one more training step and time its "
+                    "stages")
+    ap.add_argument("--clip-gradients", type=float, default=CLIP_GRADIENTS,
+                    help="SOLVER.CLIP_GRADIENTS of the training main path "
+                    "(0: no clipping)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; "
                          "torch.cuda.is_available() is false")
@@ -350,8 +906,11 @@ def main():
 
     set_cfg(tiny=False, dtype="bfloat16")
     entries = check_kernels(device)
+    check_ladder_grad(device)
     check_small_input(device)
-    launches = run_main_path(device)
+    check_small_train(device)
+    inference = run_main_path(device)
+    training = run_train_path(device, args.profile_train, args.clip_gradients)
 
     meta = {
         "nms_keep_mask": ("detectron_tpu_torch/csrc/nms_keep_mask.cu",
@@ -361,14 +920,22 @@ def main():
         "roi_window_pool_seg": (
             "detectron_tpu_torch/csrc/roi_window_pool.cu",
             "detectron_tpu/ops/pallas/roi_align_kernel.py:304"),
+        "roi_window_accum": (
+            "detectron_tpu_torch/csrc/roi_window_accum.cu",
+            "detectron_tpu/ops/pallas/roi_align_kernel.py:458"),
     }
-    kernels = [{"name": name, "route": "cuda", "status": "ok", "source": src,
-                "replaces": rep, "launches": launches[name],
-                "max_abs_err": entries[name]["max_abs_err"],
-                "ms": entries[name]["ms"],
-                "plain_ms": entries[name]["plain_ms"],
-                "shape": entries[name]["shape"]}
-               for name, (src, rep) in meta.items()]
+    kernels = []
+    for name, (src, rep) in meta.items():
+        e = entries[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": training[name],
+            "launches_by_path": {"inference": inference.get(name, 0),
+                                 "training": training[name]},
+            "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+            "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+            "bound_by": e["bound_by"], "library_ms": None,
+            "shape": e["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,8 @@ def detect_graph(params, images, im_info):
       (B, D, M, M); D = TEST.DETECTIONS_PER_IM."""
     features, scales = mb.forward_features(params, images)
     rpn_outs = mb.forward_rpn(params, features)
-    rois, _, roi_valid = mb.generate_proposals(rpn_outs, features, im_info)
+    rois, _, roi_valid = mb.generate_proposals(rpn_outs, features, im_info,
+                                                False)
     return _detect_tail(params, features, scales, rois, roi_valid, im_info)
 
 

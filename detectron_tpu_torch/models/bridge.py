@@ -1,4 +1,4 @@
-"""Params bridge: a JAX-layout params tree of numpy arrays -> torch tensors.
+"""Params bridge: a JAX-layout params tree of numpy arrays <-> torch tensors.
 
 The tree keeps detectron_tpu's keys (Caffe2 blob names, nested dicts and
 lists); only the leaves change layout:
@@ -17,7 +17,9 @@ lists); only the leaves change layout:
   carried as it is.
 
 A JAX tree is bridged after np.asarray on each leaf; the numpy tree from
-models/init.init_model is already in that form.
+models/init.init_model is already in that form. to_jax_layout is the exact
+inverse, back to numpy arrays in the JAX layout (for comparing gradients and
+updated params with the JAX package, or writing a checkpoint in its format).
 """
 
 import numpy as np
@@ -42,11 +44,13 @@ def _leaf(path, a):
     return a
 
 
-def to_torch(tree, device="cpu", dtype=torch.float32, _path=()):
-    """Bridge a numpy params tree to torch tensors on `device` in `dtype`
-    (the compute dtype: every layer casts its params to the activation
-    dtype, as detectron_tpu's layers do, so bridging in that dtype makes
-    the per-layer cast a no-op)."""
+def to_torch(tree, device, dtype=torch.float32, _path=()):
+    """Bridge a numpy params tree to torch tensors on `device` ("cuda" on
+    the card, "cpu" only where the caller asks for it) in `dtype` (the
+    compute dtype for inference: every layer casts its params to the
+    activation dtype, as detectron_tpu's layers do, so bridging in that
+    dtype makes the per-layer cast a no-op; float32 master params for
+    training)."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device, dtype, _path + (k,))
                 for k, v in tree.items()}
@@ -55,3 +59,31 @@ def to_torch(tree, device="cpu", dtype=torch.float32, _path=()):
                 for i, v in enumerate(tree)]
     return torch.from_numpy(_leaf(_path, tree)).to(device=device,
                                                    dtype=dtype)
+
+
+def _jax_leaf(path, t):
+    a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
+    if path[-1] == "w" and a.ndim == 4:
+        if "deconv" in path:
+            return np.ascontiguousarray(a.transpose(2, 3, 0, 1)[::-1, ::-1])
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    if path[-1] == "w" and path[-3:-1] == ("box_head", "fc6"):
+        rows, hidden = a.shape
+        P = cfg.FAST_RCNN.ROI_XFORM_RESOLUTION
+        C = rows // (P * P)
+        return np.ascontiguousarray(
+            a.reshape(P, P, C, hidden).transpose(2, 0, 1, 3)
+            .reshape(rows, hidden))
+    return np.ascontiguousarray(a)
+
+
+def to_jax_layout(tree, _path=()):
+    """The inverse of to_torch: a tree of torch tensors (params or
+    gradients) -> float32 numpy arrays in the JAX layout (HWIO conv
+    kernels, the flipped deconv kernel, Caffe2 (C, P, P) fc6 rows).
+    to_jax_layout(to_torch(t, "cpu")) == t exactly for float32 leaves."""
+    if isinstance(tree, dict):
+        return {k: to_jax_layout(v, _path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_jax_layout(v, _path + (i,)) for i, v in enumerate(tree)]
+    return _jax_leaf(_path, tree)

@@ -61,3 +61,14 @@ def max_pool(x, window=3, stride=2, padding=1):
 
 def relu(x):
     return torch.relu(x)
+
+
+def stop_gradient(tree):
+    """A params (sub)tree with every tensor detached, as jax.lax.stop_gradient
+    does: frozen params enter the forward as constants and get no
+    gradient."""
+    if isinstance(tree, dict):
+        return {k: stop_gradient(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [stop_gradient(v) for v in tree]
+    return tree.detach()

@@ -2,7 +2,10 @@
 model_builder.py: forward_features :120-139, forward_rpn :142-144,
 generate_proposals :147-235, roi_feature_transform :297-320 on its
 FPN / pallas / ladder branch, forward_box_outputs :386-420), for the
-R-50-FPN body with a multilevel RPN and the 2-MLP box head.
+R-50-FPN body with a multilevel RPN and the 2-MLP box head. Every piece
+serves inference and training: the RoIAlign ladder is differentiable
+w.r.t. the features (kernel K4 in its backward), and proposals are
+detached.
 
 Params are the bridged tree (models/bridge.py); activations are NHWC in the
 compute dtype cfg.TPU.COMPUTE_DTYPE.
@@ -13,15 +16,20 @@ import torch
 from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.models import fast_rcnn_heads
 from detectron_tpu_torch.models import fpn as fpn_mod
+from detectron_tpu_torch.models import layers as L
 from detectron_tpu_torch.models import resnet
 from detectron_tpu_torch.models import rpn as rpn_mod
 from detectron_tpu_torch.ops import nms as nms_ops
 from detectron_tpu_torch.ops import windowed_roi as win_ops
 
 
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                   # The port's CPU reference precision (parity checks).
+                   "float64": torch.float64}
+
+
 def compute_dtype():
-    return torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else \
-        torch.float32
+    return _COMPUTE_DTYPES[cfg.TPU.COMPUTE_DTYPE]
 
 
 def _check_path_supported():
@@ -35,9 +43,12 @@ def forward_features(params, images):
     ([P2, ..., P6], scales)."""
     _check_path_supported()
     _, num_stages = resnet.body_spec(cfg.MODEL.CONV_BODY)
-    outs = resnet.apply_body(params["body"], images.to(compute_dtype()),
-                             num_stages)
-    return fpn_mod.apply_fpn(params["fpn"], outs)
+    body_p, fpn_p = params["body"], params["fpn"]
+    if cfg.TRAIN.FREEZE_CONV_BODY:
+        # The whole conv body, FPN included, trains no parameters.
+        body_p, fpn_p = L.stop_gradient(body_p), L.stop_gradient(fpn_p)
+    outs = resnet.apply_body(body_p, images.to(compute_dtype()), num_stages)
+    return fpn_mod.apply_fpn(fpn_p, outs)
 
 
 def forward_rpn(params, features):
@@ -46,17 +57,19 @@ def forward_rpn(params, features):
 
 
 @torch.no_grad()
-def generate_proposals(rpn_outs, features, im_info):
-    """Test-time proposals for the whole batch (the TEST.RPN_* settings).
-    Returns (rois (B, R, 4), roi_scores (B, R), valid (B, R)),
-    R = TEST.RPN_POST_NMS_TOP_N.
+def generate_proposals(rpn_outs, features, im_info, training):
+    """Proposals for the whole batch, from the TRAIN.RPN_* settings when
+    `training`, else the TEST.RPN_* ones. Returns (rois (B, R, 4),
+    roi_scores (B, R), valid (B, R)), R = the phase's RPN_POST_NMS_TOP_N
+    (at most the number of slots). Never differentiable: the reference's
+    proposals are host numpy, and NMS has no gradient.
 
     Per level: top-k preselection, decode, clip, min-size filter, then NMS
     (kernel K1) in one of two forms, as in the JAX package: the keep-mask
     form when post_n covers every slot of the level, else the compacted
     form truncating survivors to post_n."""
     _check_path_supported()
-    phase = cfg.TEST
+    phase = cfg.TRAIN if training else cfg.TEST
     pre_n, post_n = phase.RPN_PRE_NMS_TOP_N, phase.RPN_POST_NMS_TOP_N
     nms_thresh, min_size = phase.RPN_NMS_THRESH, phase.RPN_MIN_SIZE
     im_info = im_info.to(torch.float32)
@@ -95,8 +108,9 @@ def generate_proposals(rpn_outs, features, im_info):
 
 def roi_feature_transform(features, scales, rois, resolution,
                           sampling_ratio, method="RoIAlign"):
-    """FPN RoIAlign through the window-rung ladder. features: [P2, ...];
-    rois (B, R, 4). Returns (B, R, P, P, C) in (p, q) order."""
+    """FPN RoIAlign through the window-rung ladder, differentiable w.r.t.
+    the features. features: [P2, ...]; rois (B, R, 4). Returns
+    (B, R, P, P, C) in (p, q) order."""
     if method != "RoIAlign" or cfg.TPU.ROI_IMPL != "pallas" or \
             not cfg.TPU.ROI_LADDER or cfg.TPU.ROI_LADDER_NARROW:
         raise NotImplementedError(
@@ -105,7 +119,7 @@ def roi_feature_transform(features, scales, rois, resolution,
             "ROI_LADDER_NARROW off)")
     lo = fpn_mod.lowest_backbone_lvl()
     k_min, k_max = cfg.FPN.ROI_MIN_LEVEL, cfg.FPN.ROI_MAX_LEVEL
-    return win_ops.multilevel_roi_align_ladder(
+    return win_ops.multilevel_roi_align_ladder_trainable(
         list(features[k_min - lo:k_max - lo + 1]),
         tuple(scales[k_min - lo:k_max - lo + 1]), rois, resolution,
         sampling_ratio, k_min, k_max, cfg.FPN.ROI_CANONICAL_SCALE,

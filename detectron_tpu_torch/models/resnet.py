@@ -1,8 +1,11 @@
 """ResNet conv body, Detectron semantics (port of detectron_tpu/models/
-resnet.py, its XLA path: resnet.py:80-116 and :210-300).
+resnet.py, its XLA path: resnet.py:45-56, :80-116 and :210-300).
 
-Frozen BN is AffineChannel; RESNETS.STRIDE_1X1 picks the Caffe (stride on
-the 1x1) or torch (stride on the 3x3) bottleneck. GroupNorm, ResNeXt
+Frozen BN is AffineChannel, whose params never get a gradient; the stem
+and the stages up to RESNETS.FREEZE_AT are frozen too (their params enter
+the forward detached, as stop_gradient does in the JAX package).
+RESNETS.STRIDE_1X1 picks the Caffe (stride on the 1x1) or torch (stride on
+the 3x3) bottleneck. GroupNorm, ResNeXt
 groups, res5 dilation and the TPU-only stems (S2D_STEM, S2D_INPUT,
 FUSED_RES2) are not ported yet: check_body_supported raises on them.
 """
@@ -45,33 +48,47 @@ def check_body_supported():
             + ", ".join(on))
 
 
+def _affine(p, x):
+    """AffineChannel with frozen (detached) params."""
+    return L.affine_channel(L.stop_gradient(p), x)
+
+
 def apply_bottleneck(p, x, stride):
     s1 = stride if cfg.RESNETS.STRIDE_1X1 else 1
     s3 = 1 if cfg.RESNETS.STRIDE_1X1 else stride
     h = L.conv2d(p["branch2a"], x, stride=s1, padding=0)
-    h = L.relu(L.affine_channel(p["branch2a_bn"], h))
+    h = L.relu(_affine(p["branch2a_bn"], h))
     h = L.conv2d(p["branch2b"], h, stride=s3, padding=1)
-    h = L.relu(L.affine_channel(p["branch2b_bn"], h))
+    h = L.relu(_affine(p["branch2b_bn"], h))
     h = L.conv2d(p["branch2c"], h, stride=1, padding=0)
-    h = L.affine_channel(p["branch2c_bn"], h)
+    h = _affine(p["branch2c_bn"], h)
     if "branch1" in p:
-        sc = L.affine_channel(
-            p["branch1_bn"], L.conv2d(p["branch1"], x, stride=stride,
-                                      padding=0))
+        sc = _affine(p["branch1_bn"],
+                     L.conv2d(p["branch1"], x, stride=stride, padding=0))
     else:
         sc = x
     return L.relu(h + sc)
 
 
 def apply_body(p, x, num_stages):
-    """x: (B, H, W, 3). Returns the per-stage outputs [res2, ..., resN]."""
+    """x: (B, H, W, 3). Returns the per-stage outputs [res2, ..., resN].
+    Stages <= RESNETS.FREEZE_AT (2-indexed; the stem is stage 1) take
+    detached params."""
     check_body_supported()
-    h = L.conv2d(p["conv1"], x, stride=2, padding=3)
-    h = L.relu(L.affine_channel(p["res_conv1_bn"], h))
+    freeze_at = cfg.RESNETS.FREEZE_AT
+    if freeze_at not in (0, 2, 3, 4, 5):
+        raise ValueError("RESNETS.FREEZE_AT must be 0, 2, 3, 4 or 5, got "
+                         "{}".format(freeze_at))
+    conv1 = L.stop_gradient(p["conv1"]) if freeze_at >= 2 else p["conv1"]
+    h = L.conv2d(conv1, x, stride=2, padding=3)
+    h = L.relu(_affine(p["res_conv1_bn"], h))
     h = L.max_pool(h, window=3, stride=2, padding=1)
     outs = []
     for s in range(num_stages):
-        for i, bp in enumerate(p["res{}".format(s + 2)]):
+        sp = p["res{}".format(s + 2)]
+        if freeze_at >= s + 2:
+            sp = L.stop_gradient(sp)
+        for i, bp in enumerate(sp):
             h = apply_bottleneck(bp, h, (1 if s == 0 else 2) if i == 0 else 1)
         outs.append(h)
     return outs

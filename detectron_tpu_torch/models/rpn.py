@@ -5,9 +5,9 @@ collect_proposals :147-157, fpn_anchor_config), batched over images.
 
 import torch
 
-from detectron_tpu.ops import anchors as anchor_ops
 from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.models import layers as L
+from detectron_tpu_torch.ops import anchors as anchor_ops
 from detectron_tpu_torch.ops import box_ops
 from detectron_tpu_torch.ops import topk as topk_ops
 
@@ -21,8 +21,7 @@ def apply_rpn_head(p, feat):
 
 
 def level_anchors(stride, sizes, aspect_ratios, feat_h, feat_w, device):
-    """The (H*W*A, 4) anchor field of one level (ops/anchors.py, shared
-    with the JAX package)."""
+    """The (H*W*A, 4) anchor field of one level (ops/anchors.py)."""
     return torch.from_numpy(anchor_ops.anchor_field(
         stride, sizes, aspect_ratios, feat_h, feat_w)).to(device)
 

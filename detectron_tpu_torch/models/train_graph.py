@@ -1,0 +1,167 @@
+"""The training forward: features -> RPN -> proposals -> RoI sampling ->
+heads -> losses (port of detectron_tpu/models/train_graph.py: _all_anchors
+:31-53, training_losses :56-175), for the box and mask branches.
+
+Batch layout (padded static shapes, tensors on one device):
+  images      (B, H, W, 3)  BGR, mean-subtracted, zero-padded
+  im_info     (B, 3)        [scaled_h, scaled_w, scale]
+  gt_boxes    (B, G, 4)     scaled coords, non-crowd
+  gt_classes  (B, G)        int32 contiguous category ids (1..C-1)
+  gt_valid    (B, G)        bool
+  crowd_boxes (B, K, 4), crowd_valid (B, K)
+  gt_masks    (B, G, Mh, Mw) (only with MASK_ON)
+
+The JAX step draws its sampling uniforms from a key inside the graph; here
+they are an argument, `draws`, made by make_draws from an explicit CPU
+torch.Generator: a CPU run and a GPU run with the same generator seed
+sample the same anchors and RoIs.
+"""
+
+import torch
+
+from detectron_tpu_torch.core.config import cfg
+from detectron_tpu_torch.models import losses as L
+from detectron_tpu_torch.models import mask_rcnn_heads
+from detectron_tpu_torch.models import model_builder as mb
+from detectron_tpu_torch.models import rpn as rpn_mod
+from detectron_tpu_torch.models import targets as T
+
+
+def _check_supported():
+    if not cfg.RPN.RPN_ON:
+        raise NotImplementedError("not ported yet (ROADMAP Queue A item "
+                                  "14): Fast R-CNN training from "
+                                  "precomputed proposals")
+    if cfg.MODEL.KEYPOINTS_ON:
+        raise NotImplementedError("not ported yet (ROADMAP Queue A item "
+                                  "14): keypoint targets and losses")
+
+
+def _level_size(n, lvl):
+    """Feature size at FPN level lvl (stride 2**lvl) of an input side n:
+    every stride-2 layer of the body (7x7/2 stem, 3x3/2 pool, the stride-2
+    1x1 or 3x3 of res3-5) and P6's [::2] map n to (n - 1) // 2 + 1."""
+    for _ in range(lvl):
+        n = (n - 1) // 2 + 1
+    return n
+
+
+def draw_sizes(image_hw, num_gt):
+    """(A_tot, R + G) for images of (H, W): the anchor count over the RPN
+    levels and the RoI candidates per image (the proposals that
+    generate_proposals returns in training, plus the gt boxes)."""
+    A = len(cfg.FPN.RPN_ASPECT_RATIOS)
+    pre_n = cfg.TRAIN.RPN_PRE_NMS_TOP_N
+    post_n = cfg.TRAIN.RPN_POST_NMS_TOP_N
+    n_anchors = 0
+    n_props = 0
+    for lvl in range(cfg.FPN.RPN_MIN_LEVEL, cfg.FPN.RPN_MAX_LEVEL + 1):
+        n = _level_size(image_hw[0], lvl) * _level_size(image_hw[1], lvl) * A
+        n_anchors += n
+        k = min(pre_n, n)
+        n_props += k if post_n >= k else post_n
+    return n_anchors, min(post_n, n_props) + num_gt
+
+
+def make_draws(generator, batch_size, image_hw, num_gt, device):
+    """The step's sampling uniforms in [0, 1), float32, drawn on the CPU
+    from `generator` and moved to `device`: rpn_fg, rpn_bg (B, A_tot) and
+    roi_fg, roi_bg (B, R + G)."""
+    n_anchors, n_rois = draw_sizes(image_hw, num_gt)
+    draws = {}
+    for name, n in (("rpn_fg", n_anchors), ("rpn_bg", n_anchors),
+                    ("roi_fg", n_rois), ("roi_bg", n_rois)):
+        draws[name] = torch.rand((batch_size, n), generator=generator,
+                                 dtype=torch.float32).to(device)
+    return draws
+
+
+def _all_anchors(rpn_outs):
+    """The anchor fields of every RPN level concatenated (A_tot, 4), with
+    the logits (B, A_tot) and deltas (B, A_tot, 4) in the same order."""
+    anchors, logits, deltas = [], [], []
+    for (cls_logits, bbox_pred), (_, stride, size) in zip(
+            rpn_outs, rpn_mod.fpn_anchor_config()):
+        B, H, W, A = cls_logits.shape
+        anchors.append(rpn_mod.level_anchors(
+            stride, (size,), cfg.FPN.RPN_ASPECT_RATIOS, H, W,
+            cls_logits.device))
+        logits.append(cls_logits.reshape(B, H * W * A))
+        deltas.append(bbox_pred.reshape(B, H * W * A, 4))
+    return (torch.cat(anchors, dim=0), torch.cat(logits, dim=1),
+            torch.cat(deltas, dim=1))
+
+
+def _check_draws(draws, name, shape):
+    if tuple(draws[name].shape) != shape:
+        raise ValueError("draws[{!r}] has shape {}, the step needs {}".format(
+            name, tuple(draws[name].shape), shape))
+
+
+def training_losses(params, batch, draws):
+    """Returns (total_loss, dict of the losses and accuracy_cls), all
+    float32 scalars on the batch's device."""
+    _check_supported()
+    images, im_info = batch["images"], batch["im_info"]
+    B = images.shape[0]
+    im_info = im_info.to(torch.float32)
+    features, scales = mb.forward_features(params, images)
+    rpn_outs = mb.forward_rpn(params, features)
+
+    # RPN losses over the sampled anchors.
+    anchors, rpn_logits, rpn_deltas = _all_anchors(rpn_outs)
+    for name in ("rpn_fg", "rpn_bg"):
+        _check_draws(draws, name, (B, anchors.shape[0]))
+    tgt = T.rpn_targets(anchors, batch["gt_boxes"], batch["gt_valid"],
+                        im_info[:, :2], draws["rpn_fg"], draws["rpn_bg"])
+    loss_rpn_cls, loss_rpn_bbox = L.rpn_losses(
+        rpn_logits.reshape(-1), rpn_deltas.reshape(-1, 4),
+        tgt["labels"].reshape(-1), tgt["bbox_targets"].reshape(-1, 4),
+        tgt["fg"].reshape(-1))
+    out = {"loss_rpn_cls": loss_rpn_cls, "loss_rpn_bbox": loss_rpn_bbox}
+
+    # Proposals (detached) and RoI sampling.
+    rois, _, prop_valid = mb.generate_proposals(rpn_outs, features, im_info,
+                                                True)
+    n_rois = rois.shape[1] + batch["gt_boxes"].shape[1]
+    for name in ("roi_fg", "roi_bg"):
+        _check_draws(draws, name, (B, n_rois))
+    sampled = T.sample_rois(rois, prop_valid, batch["gt_boxes"],
+                            batch["gt_classes"], batch["gt_valid"],
+                            batch["crowd_boxes"], batch["crowd_valid"],
+                            draws["roi_fg"], draws["roi_bg"])
+
+    # Box head.
+    cls_logits, bbox_pred, _ = mb.forward_box_outputs(
+        params, features, scales, sampled["rois"])
+    S = sampled["rois"].shape[1]
+    out["loss_cls"], out["loss_bbox"], out["accuracy_cls"] = \
+        L.fast_rcnn_losses(cls_logits.reshape(B * S, -1),
+                           bbox_pred.reshape(B * S, -1),
+                           sampled["labels"].reshape(-1),
+                           sampled["valid"].reshape(-1),
+                           sampled["bbox_targets"].reshape(-1, 4),
+                           sampled["fg"].reshape(-1))
+
+    # Mask branch on the fg-first slice of the sampled RoIs.
+    if cfg.MODEL.MASK_ON:
+        fg_cap = int(round(cfg.TRAIN.FG_FRACTION * cfg.TRAIN.BATCH_SIZE_PER_IM))
+        mask_rois = sampled["rois"][:, :fg_cap]
+        roi_feat = mb.roi_feature_transform(
+            features, scales, mask_rois, cfg.MRCNN.ROI_XFORM_RESOLUTION,
+            cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO, cfg.MRCNN.ROI_XFORM_METHOD)
+        mh = mask_rcnn_heads.apply_mask_head(
+            params["mask_head"],
+            roi_feat.reshape((B * fg_cap,) + roi_feat.shape[2:]))
+        mlogits = mask_rcnn_heads.apply_mask_outputs(params["mask_outs"], mh)
+        res = cfg.MRCNN.RESOLUTION
+        mtgt, mw = T.mask_targets(mask_rois, sampled["fg"][:, :fg_cap],
+                                  sampled["gt_idx"][:, :fg_cap],
+                                  batch["gt_boxes"], batch["gt_masks"], res)
+        out["loss_mask"] = L.mask_rcnn_losses(
+            mlogits.reshape(B * fg_cap, res, res, -1),
+            mtgt.reshape(B * fg_cap, res, res),
+            sampled["labels"][:, :fg_cap].reshape(-1), mw.reshape(-1))
+
+    total = sum(v for k, v in out.items() if k.startswith("loss_"))
+    return total, out

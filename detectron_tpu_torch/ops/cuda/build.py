@@ -20,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "detectron_tpu_torch"
-SOURCES = ("nms_keep_mask.cu", "roi_window_pool.cu")
+SOURCES = ("nms_keep_mask.cu", "roi_window_pool.cu", "roi_window_accum.cu")
 # No --use_fast_math: an approximate divide would flip NMS keep bits at
 # the IoU threshold.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

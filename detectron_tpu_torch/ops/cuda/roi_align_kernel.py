@@ -1,4 +1,6 @@
-"""K2 / K3: windowed RoIAlign pooling (kernel csrc/roi_window_pool.cu).
+"""K2 / K3: windowed RoIAlign pooling (kernel csrc/roi_window_pool.cu), and
+K4: its transpose, the window accumulate of the RoIAlign backward (kernel
+csrc/roi_window_accum.cu).
 
 roi_window_pool replaces detectron_tpu/ops/pallas/roi_align_kernel.py ::
 roi_window_pool (the ladder's base sweep) and roi_window_pool_seg replaces
@@ -11,6 +13,15 @@ each RoI row n:
 
 with both sums in f32 and the result in the canvas dtype. Bound by the
 window reads (hundreds of KB per RoI against a few MFLOP).
+
+roi_window_accum replaces ::roi_window_accum_seg: for each RoI row n of an
+active range, in f32 and in place,
+
+    canvas_grad[b, y0 + h, x0 + w, c] += sum_p vy[n, p, h]
+                                         * sum_q vx[n, q, w] * ct[n, p, q, c]
+
+with overlapping windows summed (atomic adds on the card, so the order of
+the sum, and its last bits, change from run to run).
 """
 
 import ctypes
@@ -22,6 +33,12 @@ from detectron_tpu_torch.ops.cuda import build
 MAX_POOLED = 16
 MAX_WINDOW = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _acc_dtype(dtype):
+    """The plain versions' accumulation type: float32, or float64 for a
+    float64 input (CPU checks such as torch.autograd.gradcheck)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def roi_window_pool_plain(canvas, starts, vy, vx, rows=None):
@@ -39,8 +56,9 @@ def roi_window_pool_plain(canvas, starts, vy, vx, rows=None):
     ys = s[:, 1:2] + torch.arange(WY, device=dev)
     xs = s[:, 2:3] + torch.arange(WX, device=dev)
     win = canvas[s[:, 0, None, None], ys[:, :, None], xs[:, None, :]]
-    t1 = torch.einsum("nph,nhwc->npwc", vy[lo:hi].float(), win.float())
-    out[lo:hi] = torch.einsum("nqw,npwc->npqc", vx[lo:hi].float(),
+    acc = _acc_dtype(canvas.dtype)
+    t1 = torch.einsum("nph,nhwc->npwc", vy[lo:hi].to(acc), win.to(acc))
+    out[lo:hi] = torch.einsum("nqw,npwc->npqc", vx[lo:hi].to(acc),
                               t1).to(canvas.dtype)
     return out
 
@@ -105,5 +123,85 @@ def roi_window_pool_seg(canvas, starts, vy, vx, rows):
     return out
 
 
+def roi_window_accum_plain(canvas_grad, starts, ct, vy, vx, rows=None,
+                           chunk=128):
+    """Plain PyTorch version of K4, in place: per RoI, the window gradient
+    einsum("ph,pqc,qw->hwc") scattered into canvas_grad with index_put_
+    (accumulate=True), `chunk` rows at a time. Cells past the canvas edge
+    are dropped. Returns canvas_grad."""
+    B, Hc, Wc, C = canvas_grad.shape
+    N, P, WY = vy.shape
+    WX = vx.shape[2]
+    lo, hi = (0, N) if rows is None else rows
+    dev = canvas_grad.device
+    dy = torch.arange(WY, device=dev)
+    dx = torch.arange(WX, device=dev)
+    for s in range(lo, hi, chunk):
+        e = min(hi, s + chunk)
+        st = starts[s:e].long()
+        acc = _acc_dtype(canvas_grad.dtype)
+        u = torch.einsum("nqw,npqc->npwc", vx[s:e].to(acc), ct[s:e].to(acc))
+        d = torch.einsum("nph,npwc->nhwc", vy[s:e].to(acc), u)
+        ys = (st[:, 1:2] + dy)[:, :, None].expand(-1, WY, WX)
+        xs = (st[:, 2:3] + dx)[:, None, :].expand(-1, WY, WX)
+        img = st[:, 0, None, None].expand(-1, WY, WX)
+        inside = (ys < Hc) & (xs < Wc)
+        canvas_grad.index_put_((img[inside], ys[inside], xs[inside]),
+                               d[inside].to(canvas_grad.dtype),
+                               accumulate=True)
+    return canvas_grad
+
+
+def roi_window_accum(canvas_grad, starts, ct, vy, vx, rows=None):
+    """K4: accumulate the window gradients of rows [lo, hi) = `rows`
+    (default all) into canvas_grad (B, Hc, Wc, C) float32, in place.
+    starts (N, 3) int32 [img, y0, x0]; ct (N, P, P, C), vy (N, P, WY) and
+    vx (N, P, WX) float32. Returns canvas_grad."""
+    if canvas_grad.device.type == "cpu":
+        return roi_window_accum_plain(canvas_grad, starts, ct, vy, vx, rows)
+    name = "roi_window_accum"
+    if not all(t.is_cuda and t.device == canvas_grad.device
+               for t in (starts, ct, vy, vx)):
+        raise ValueError(name + ": all inputs must be on one CUDA device "
+                         "(or all on the CPU)")
+    if any(t.dtype != torch.float32 for t in (canvas_grad, ct, vy, vx)) or \
+            starts.dtype != torch.int32:
+        raise TypeError(name + ": canvas_grad/ct/vy/vx must be float32 and "
+                        "starts int32; got {} {} {} {} {}".format(
+                            canvas_grad.dtype, ct.dtype, vy.dtype, vx.dtype,
+                            starts.dtype))
+    B, Hc, Wc, C = canvas_grad.shape
+    N, P, WY = vy.shape
+    WX = vx.shape[2]
+    if starts.shape != (N, 3) or vx.shape[:2] != (N, P) or \
+            ct.shape != (N, P, P, C):
+        raise ValueError(name + ": starts {} / ct {} / vy {} / vx {} / canvas "
+                         "{} disagree".format(
+                             tuple(starts.shape), tuple(ct.shape),
+                             tuple(vy.shape), tuple(vx.shape),
+                             tuple(canvas_grad.shape)))
+    if P > MAX_POOLED or WY > MAX_WINDOW or WX > MAX_WINDOW:
+        raise ValueError(name + ": pooled <= {} and windows <= {} only, got "
+                         "P={} window=({}, {})".format(
+                             MAX_POOLED, MAX_WINDOW, P, WY, WX))
+    lo, hi = (0, N) if rows is None else tuple(rows)
+    if not 0 <= lo <= hi <= N:
+        raise ValueError(name + ": rows ({}, {}) outside [0, {}]".format(
+            lo, hi, N))
+    if not all(t.is_contiguous() for t in (canvas_grad, starts, ct, vy, vx)):
+        raise ValueError(name + " needs contiguous inputs")
+    fn = build.load("roi_window_accum.cu", "roi_window_accum_launch",
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                    + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(canvas_grad.device).cuda_stream
+    err = fn(canvas_grad.data_ptr(), starts.data_ptr(), ct.data_ptr(),
+             vy.data_ptr(), vx.data_ptr(), B, Hc, Wc, C, lo, hi, WY, WX, P,
+             stream)
+    build.check(err, name)
+    roi_window_accum.launches += int(hi > lo)
+    return canvas_grad
+
+
 roi_window_pool.launches = 0
 roi_window_pool_seg.launches = 0
+roi_window_accum.launches = 0

@@ -1,6 +1,8 @@
 """Windowed multilevel RoIAlign with the window-rung ladder (port of
 detectron_tpu/ops/windowed_roi.py :: window_params :64-162, _rung_route
-:234-257 and multilevel_roi_align_pallas_ladder :451-650).
+:234-257, multilevel_roi_align_pallas_ladder :451-650 and its trainable
+form multilevel_roi_align_ladder_trainable / _ladder_trainable_bwd
+:653-879).
 
 The FPN levels are stacked row-wise into one zero-padded canvas per image,
 so a RoI's neighbourhood at any level is one contiguous window. Each RoI
@@ -24,7 +26,7 @@ import torch
 
 from detectron_tpu_torch.ops import multilevel_roi as ml
 from detectron_tpu_torch.ops.cuda.roi_align_kernel import (
-    roi_window_pool, roi_window_pool_seg)
+    roi_window_accum, roi_window_pool, roi_window_pool_seg)
 
 
 # Window x origins are rounded down to this; the base window's +8 x slack
@@ -215,3 +217,94 @@ def multilevel_roi_align_ladder(pyramid, scales, rois, pooled,
             rois_flat[idx], img_idx[idx], pooled, sampling_ratio, k_min,
             k_max, canonical_scale, canonical_level)
     return out.reshape(B, R, pooled, pooled, C)
+
+
+def _ladder_backward(ct, rois, dims, scales, pooled, sampling_ratio, k_min,
+                     k_max, canonical_scale, canonical_level, rungs):
+    """Gradient of multilevel_roi_align_ladder w.r.t. each pyramid level,
+    in float32 (float64 for a float64 cotangent): ct (B, R, P, P, C) is the
+    output cotangent."""
+    B, R = rois.shape[:2]
+    n = B * R
+    C = ct.shape[-1]
+    geom = ladder_geom(dims, rungs)
+    dev = ct.device
+    rois_flat = rois.reshape(n, 4).to(torch.float32)
+    img_idx = torch.arange(B, dtype=torch.int32,
+                           device=dev).repeat_interleave(R)
+    # Weights and sums in float32 whatever the forward dtype (float64 for a
+    # float64 cotangent, for gradcheck): the forward's bf16 weight rounding
+    # is a forward-value detail, as in _ladder_trainable_bwd.
+    acc = torch.float64 if ct.dtype == torch.float64 else torch.float32
+    ct_flat = ct.reshape(n, pooled, pooled, C).to(acc)
+
+    def params(r, wy, wx):
+        return window_params(r, geom, scales, pooled, sampling_ratio, k_min,
+                             k_max, canonical_scale, canonical_level, wy, wx,
+                             acc)
+
+    def starts_of(img, sy, sx):
+        return torch.stack([img, sy, sx], dim=-1).contiguous()
+
+    canvas = torch.zeros((B, geom["Hc"], geom["Wc"], C), dtype=acc,
+                         device=dev)
+    sy, sx, vy, vx, ok = params(rois_flat, geom["wy_base"], geom["wx_base"])
+    # With no fix-up rungs the forward kept the base window's result for
+    # every RoI, so every cotangent goes through the base window.
+    d_base = ct_flat if not geom["fix_rungs"] else torch.where(
+        ok[:, None, None, None], ct_flat, 0.0)
+    roi_window_accum(canvas, starts_of(img_idx, sy, sx),
+                     d_base.contiguous(), vy, vx)
+    if geom["fix_rungs"]:
+        need = ~ok
+        covered, rid = rung_route(rois_flat, geom, scales, k_min, k_max,
+                                  canonical_scale, canonical_level)
+        for r, (wy_r, wx_r) in enumerate(geom["fix_rungs"]):
+            idx = torch.nonzero(need & covered & (rid == r)).flatten()
+            if idx.numel() == 0:
+                continue
+            fsy, fsx, fvy, fvx, _ = params(rois_flat[idx], wy_r, wx_r)
+            roi_window_accum(canvas, starts_of(img_idx[idx], fsy, fsx),
+                             ct_flat[idx].contiguous(), fvy, fvx)
+        idx = torch.nonzero(need & ~covered).flatten()
+        if idx.numel():
+            with torch.enable_grad():
+                cz = torch.zeros_like(canvas, requires_grad=True)
+                out = ml.multilevel_roi_align_canvas_flat(
+                    cz, dims, geom["row_off_l"], [0] * len(dims), scales,
+                    rois_flat[idx], img_idx[idx], pooled, sampling_ratio,
+                    k_min, k_max, canonical_scale, canonical_level)
+                canvas += torch.autograd.grad(out, cz, ct_flat[idx])[0]
+    return [canvas[:, r0:r0 + H, :W]
+            for (H, W), r0 in zip(dims, geom["row_off_l"])]
+
+
+class _LadderRoIAlign(torch.autograd.Function):
+    """multilevel_roi_align_ladder, differentiable w.r.t. the pyramid."""
+
+    @staticmethod
+    def forward(ctx, rois, static, *pyramid):
+        ctx.static = static
+        ctx.dims = [(f.shape[1], f.shape[2]) for f in pyramid]
+        ctx.dtype = pyramid[0].dtype
+        ctx.save_for_backward(rois)
+        return multilevel_roi_align_ladder(list(pyramid), static[0], rois,
+                                           *static[1:])
+
+    @staticmethod
+    def backward(ctx, ct):
+        rois, = ctx.saved_tensors
+        d_pyr = _ladder_backward(ct, rois, ctx.dims, *ctx.static)
+        return (None, None) + tuple(d.to(ctx.dtype) for d in d_pyr)
+
+
+def multilevel_roi_align_ladder_trainable(pyramid, scales, rois, pooled,
+                                          sampling_ratio, k_min, k_max,
+                                          canonical_scale, canonical_level,
+                                          rungs):
+    """multilevel_roi_align_ladder (same arguments and result) with a
+    backward to the pyramid through kernel K4. The RoIs are treated as
+    constants (proposals are detached, as in the reference)."""
+    static = (tuple(scales), pooled, sampling_ratio, k_min, k_max,
+              canonical_scale, canonical_level, tuple(rungs))
+    return _LadderRoIAlign.apply(rois.detach(), static, *pyramid)

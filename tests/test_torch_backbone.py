@@ -12,33 +12,31 @@ import numpy as np
 import pytest
 import torch
 
-from __graft_entry__ import _tiny_cfg
-from detectron_tpu.core import config as jax_config
 from detectron_tpu.models import model_builder as jax_mb
 from detectron_tpu_torch.models import bridge
 from detectron_tpu_torch.models import model_builder as port_mb
+from test_torch_util import set_cfgs
 
 torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")
 def jax_params():
-    _tiny_cfg(batch=2)
+    set_cfgs()
     return jax_mb.init_model(jax.random.PRNGKey(0))
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
                                        ("bfloat16", 5e-2)])
 def test_forward_features_matches_jax(jax_params, dtype, tol):
-    _tiny_cfg(batch=2)
-    jax_config.merge_cfg_from_list(["TPU.COMPUTE_DTYPE", dtype])
+    set_cfgs(extra=["TPU.COMPUTE_DTYPE", dtype])
     images = np.random.RandomState(0).randn(2, 256, 320, 3).astype(
         np.float32) * 20.0
     # A fresh function per dtype: jit traces read the global cfg.
     ref, ref_scales = jax.jit(lambda p, x: jax_mb.forward_features(p, x))(
         jax_params, jnp.asarray(images))
-    params = bridge.to_torch(jax.tree.map(np.asarray, jax_params),
-                             dtype=getattr(torch, dtype))
+    params = bridge.to_torch(jax.tree.map(np.asarray, jax_params), "cpu",
+                             getattr(torch, dtype))
     with torch.no_grad():
         got, scales = port_mb.forward_features(params,
                                                torch.from_numpy(images))

@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 import torch
 
-from __graft_entry__ import _tiny_cfg
 from detectron_tpu.models import fast_rcnn_heads as jax_heads
 from detectron_tpu.models import layers as jax_layers
 from detectron_tpu.models import model_builder as jax_mb
@@ -22,13 +21,14 @@ from detectron_tpu_torch.models import bridge
 from detectron_tpu_torch.models import init as port_init
 from detectron_tpu_torch.models import layers as port_layers
 from detectron_tpu_torch.utils import synthetic as port_synthetic
+from test_torch_util import set_cfgs
 
 torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")
 def jax_tree():
-    _tiny_cfg(batch=2)
+    set_cfgs()
     return jax.tree.map(np.asarray, jax_mb.init_model(jax.random.PRNGKey(0)))
 
 
@@ -39,7 +39,7 @@ def _leaves(tree):
 def test_numpy_init_tree_matches_jax(jax_tree):
     """Same keys and shapes; the same fill per leaf (constants equal, random
     fills with the same spread)."""
-    _tiny_cfg(batch=2)
+    set_cfgs()
     ours = port_init.init_model(0)
     assert jax.tree.structure(ours) == jax.tree.structure(jax_tree)
     for (path, a), (_, b) in zip(_leaves(ours), _leaves(jax_tree)):
@@ -51,8 +51,8 @@ def test_numpy_init_tree_matches_jax(jax_tree):
 
 
 def test_every_leaf_bridged(jax_tree):
-    _tiny_cfg(batch=2)
-    tt = bridge.to_torch(jax_tree)
+    set_cfgs()
+    tt = bridge.to_torch(jax_tree, "cpu")
     assert jax.tree.structure(
         jax.tree.map(lambda t: 0, tt)) == jax.tree.structure(
         jax.tree.map(lambda a: 0, jax_tree))
@@ -75,6 +75,17 @@ def test_every_leaf_bridged(jax_tree):
     assert n == len(_leaves(jax_tree)) > 200
 
 
+def test_to_jax_layout_inverts_to_torch(jax_tree):
+    """to_jax_layout(to_torch(t, "cpu")) is t exactly, for the full R-50-FPN
+    Mask R-CNN tree."""
+    set_cfgs()
+    back = bridge.to_jax_layout(bridge.to_torch(jax_tree, "cpu"))
+    assert jax.tree.structure(back) == jax.tree.structure(jax_tree)
+    for (path, a), (_, b) in zip(_leaves(back), _leaves(jax_tree)):
+        assert a.dtype == np.float32 and a.shape == b.shape, path
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("k,pad", [(2, 0), (4, 1)])
 def test_deconv_through_bridge_matches_jax(k, pad, dtype):
@@ -88,7 +99,8 @@ def test_deconv_through_bridge_matches_jax(k, pad, dtype):
     ref = jax_layers.conv_transpose2d(
         jax.tree.map(jnp.asarray, p), jnp.asarray(x, jd), stride=2,
         torch_padding=pad)
-    tp = bridge.to_torch({"mask_head": {"deconv": p}})["mask_head"]["deconv"]
+    tp = bridge.to_torch({"mask_head": {"deconv": p}},
+                         "cpu")["mask_head"]["deconv"]
     got = port_layers.conv_transpose2d(
         tp, torch.from_numpy(x).to(getattr(torch, dtype)), stride=2,
         torch_padding=pad)
@@ -101,13 +113,13 @@ def test_deconv_through_bridge_matches_jax(k, pad, dtype):
 def test_fc6_rows_match_jax(jax_tree):
     """The bridged fc6 on (p, q, c)-flattened features equals JAX's
     _fc_on_nhwc on the Caffe2-ordered weight."""
-    _tiny_cfg(batch=2)
+    set_cfgs()
     p = {"w": jax_tree["box_head"]["fc6"]["w"],
          "b": np.random.RandomState(0).randn(1024).astype(np.float32)}
     x = np.random.RandomState(1).randn(3, 7, 7, 256).astype(np.float32)
     ref = jax_heads._fc_on_nhwc(jax.tree.map(jnp.asarray, p),
                                 jnp.asarray(x))
-    tp = bridge.to_torch({"box_head": {"fc6": p}})["box_head"]["fc6"]
+    tp = bridge.to_torch({"box_head": {"fc6": p}}, "cpu")["box_head"]["fc6"]
     got = port_layers.fc(tp, torch.from_numpy(x).reshape(3, -1))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-4)
@@ -128,16 +140,16 @@ def test_calibration_matches_jax(jax_tree):
     ("TPU.FUSED_RES2", "True"),
 ])
 def test_init_raises_for_models_not_ported(setting):
-    from detectron_tpu.core import config
-
-    _tiny_cfg(batch=2)
-    config.merge_cfg_from_list(list(setting))
+    set_cfgs(extra=list(setting))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         port_init.init_model(0)
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, detectron_tpu_torch.core.test, chip_smoke; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+    code = ("import sys, detectron_tpu_torch.core.test, chip_smoke, "
+            "detectron_tpu_torch.parallel.train_step; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "bad = [m for m in sys.modules if m.split('.')[0] == "
+            "'detectron_tpu']; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=Path(__file__).resolve().parents[1])

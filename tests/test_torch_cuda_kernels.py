@@ -1,7 +1,9 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions, on
 the card: K1 keep masks exactly, K2/K3 to 1e-5 relative in float32 and 2
-bf16 ulps in bfloat16 (both sum in f32, in different orders). Every test
-skips where no CUDA device is present. On a machine with an NVIDIA GPU (no
+bf16 ulps in bfloat16 (both sum in f32, in different orders), K4 within
+1e-5 max|ref| + 1e-6 (its atomic adds sum overlapping windows in an order
+that changes from run to run). Every test skips where no CUDA device is
+present. On a machine with an NVIDIA GPU (no
 JAX needed, so without the suite's conftest):
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py
@@ -83,6 +85,31 @@ def test_roi_window_pool_matches_plain(device, P, WY, WX, rows, dtype):
                                atol=rtol * float(ref.abs().max()))
 
 
+@pytest.mark.parametrize("P,WY,WX,rows", [(7, 32, 48, None),
+                                          (14, 32, 48, None),
+                                          (7, 64, 48, (3, 17)),
+                                          (14, 32, 96, (0, 5)),
+                                          (16, 96, 128, (2, 4))])
+def test_roi_window_accum_matches_plain(device, P, WY, WX, rows):
+    """Overlapping windows (24 RoIs on a 2 x 120 x 200 canvas), windows
+    running past the canvas edge, and an active row range."""
+    canvas, starts, vy, vx = _pool_inputs(P * WX, 24, P, WY, WX,
+                                          torch.float32, device)
+    starts[::5, 1] = canvas.shape[1] - WY // 2
+    ct = torch.randn((24, P, P, canvas.shape[-1]), device=device,
+                     generator=torch.Generator(device).manual_seed(P))
+    base = torch.randn(canvas.shape, device=device,
+                       generator=torch.Generator(device).manual_seed(1))
+    got = base.clone()
+    before = rk.roi_window_accum.launches
+    assert rk.roi_window_accum(got, starts, ct, vy, vx, rows) is got
+    assert rk.roi_window_accum.launches == before + 1
+    ref = rk.roi_window_accum_plain(base.clone(), starts, ct, vy, vx, rows)
+    torch.cuda.synchronize()
+    bound = 1e-5 * float(ref.abs().max()) + 1e-6
+    assert float((got - ref).abs().max()) <= bound
+
+
 def test_wrappers_raise_instead_of_falling_back(device):
     canvas, starts, vy, vx = _pool_inputs(0, 8, 7, 32, 48, torch.float32,
                                           device)
@@ -94,6 +121,13 @@ def test_wrappers_raise_instead_of_falling_back(device):
         rk.roi_window_pool(canvas, starts,
                            vy.transpose(1, 2).contiguous().transpose(1, 2),
                            vx)
+    ct = torch.zeros((8, 7, 7, 80), device=device)
+    with pytest.raises(TypeError):
+        rk.roi_window_accum(canvas.bfloat16(), starts, ct, vy, vx)
+    with pytest.raises(ValueError):
+        rk.roi_window_accum(canvas, starts, ct[:, :6], vy, vx)
+    with pytest.raises(ValueError):
+        rk.roi_window_accum(canvas, starts, ct, vy, vx, rows=(0, 9))
     boxes, valid = _lanes(0, 2, 3000, device)
     with pytest.raises(ValueError):
         nms_kernel.nms_keep_mask(boxes, valid, 0.5)

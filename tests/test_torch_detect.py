@@ -28,13 +28,12 @@ import numpy as np
 import pytest
 import torch
 
-from __graft_entry__ import _tiny_cfg
-from detectron_tpu.core import config as jax_config
 from detectron_tpu.core import test as jax_test
 from detectron_tpu.models import model_builder as jax_mb
 from detectron_tpu_torch.core import test as port_test
 from detectron_tpu_torch.models import bridge
 from detectron_tpu_torch.utils.synthetic import calibrate_detector_params
+from test_torch_util import set_cfgs
 
 torch.set_num_threads(2)
 
@@ -48,7 +47,7 @@ def _images(scale):
 
 @pytest.fixture(scope="module")
 def tree():
-    _tiny_cfg(batch=2)
+    set_cfgs()
     t = jax.tree.map(np.array, jax_mb.init_model(jax.random.PRNGKey(0)))
     return calibrate_detector_params(t, np.random.RandomState(0))
 
@@ -121,7 +120,7 @@ def test_nms_and_limit_matches_jax(R, D, n_above):
             idx = rng.choice(R, n, replace=False)
             scores[b, c, idx] = rng.uniform(0.05, 1.0, n)
     scores[0, 2, :10] = 0.5   # equal scores: the tie order must agree
-    _tiny_cfg(batch=2)
+    set_cfgs()
     ref = jax.jit(jax_test.nms_and_limit_graph, static_argnums=2)(
         jnp.asarray(boxes), jnp.asarray(scores), D)
     got = port_test.nms_and_limit_graph(torch.from_numpy(boxes),
@@ -136,10 +135,9 @@ def test_detect_tail_teacher_forced(tree, jax_stages, overflow,
     """JAX intermediates into the port's box head, _detect_tail and
     mask_graph. With overflow, R = 256 proposals and a boosted class-1
     bias put > K = 128 boxes of one class over SCORE_THRESH."""
-    _tiny_cfg(batch=2)
+    set_cfgs(extra=["TEST.RPN_POST_NMS_TOP_N", "256"] if overflow else ())
     params = jax.tree.map(np.array, tree)
     if overflow:
-        jax_config.merge_cfg_from_list(["TEST.RPN_POST_NMS_TOP_N", "256"])
         params["box_outs"]["cls_score"]["b"][1] += 6.0
         jax_stages = jax.jit(lambda *a: _jax_stages(*a))
 
@@ -157,7 +155,7 @@ def test_detect_tail_teacher_forced(tree, jax_stages, overflow,
     monkeypatch.setattr(port_test.nms_ops, "nms_batched_sorted_mask", spy)
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
     got = port_test._detect_tail(
-        bridge.to_torch(params), [t(f) for f in feats],
+        bridge.to_torch(params, "cpu"), [t(f) for f in feats],
         [1.0 / 2 ** lvl for lvl in range(2, 7)], t(rois), t(valid),
         t(IM_INFO))
     R = rois.shape[1]
@@ -167,11 +165,11 @@ def test_detect_tail_teacher_forced(tree, jax_stages, overflow,
 
 @pytest.mark.parametrize("scale,mask_atol", [(0.3, 1e-3), (20.0, 1e-2)])
 def test_detect_graph_end_to_end(tree, jax_stages, scale, mask_atol):
-    _tiny_cfg(batch=2)
+    set_cfgs()
     images = _images(scale)
     ref = _np(jax_stages(jax.tree.map(jnp.asarray, tree),
                          jnp.asarray(images), jnp.asarray(IM_INFO))[3])
-    got = port_test.detect_graph(bridge.to_torch(tree),
+    got = port_test.detect_graph(bridge.to_torch(tree, "cpu"),
                                  torch.from_numpy(images),
                                  torch.from_numpy(IM_INFO))
     assert set(got) == set(ref)

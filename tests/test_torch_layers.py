@@ -52,7 +52,7 @@ def test_conv2d(k, stride, pad, dil, bias, dtype):
     jp, jx, p, tx = _inputs(k + stride + dil, (2, 11, 13, 6), params, dtype)
     ref = jax_layers.conv2d(jp, jx, stride=stride, padding=pad,
                             dilation=dil)
-    got = port_layers.conv2d(bridge.to_torch({"conv": p})["conv"], tx,
+    got = port_layers.conv2d(bridge.to_torch({"conv": p}, "cpu")["conv"], tx,
                              stride=stride, padding=pad, dilation=dil)
     _close(got, ref, dtype)
 
@@ -63,7 +63,7 @@ def test_conv_transpose2d(dtype):
                                               "b": (5,)}, dtype)
     ref = jax_layers.conv_transpose2d(jp, jx, stride=2, torch_padding=0)
     got = port_layers.conv_transpose2d(
-        bridge.to_torch({"deconv": p})["deconv"], tx, stride=2,
+        bridge.to_torch({"deconv": p}, "cpu")["deconv"], tx, stride=2,
         torch_padding=0)
     _close(got, ref, dtype)
 
@@ -71,14 +71,14 @@ def test_conv_transpose2d(dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fc(dtype):
     jp, jx, p, tx = _inputs(2, (9, 12), {"w": (12, 7), "b": (7,)}, dtype)
-    _close(port_layers.fc(bridge.to_torch(p), tx), jax_layers.fc(jp, jx),
+    _close(port_layers.fc(bridge.to_torch(p, "cpu"), tx), jax_layers.fc(jp, jx),
            dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_affine_channel(dtype):
     jp, jx, p, tx = _inputs(3, (2, 4, 5, 6), {"s": (6,), "b": (6,)}, dtype)
-    _close(port_layers.affine_channel(bridge.to_torch(p), tx),
+    _close(port_layers.affine_channel(bridge.to_torch(p, "cpu"), tx),
            jax_layers.affine_channel(jp, jx), dtype)
 
 

@@ -12,12 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from __graft_entry__ import _tiny_cfg
-from detectron_tpu.core import config as jax_config
 from detectron_tpu.models import model_builder as jax_mb
 from detectron_tpu.ops import topk as jax_topk
 from detectron_tpu_torch.models import model_builder as port_mb
 from detectron_tpu_torch.ops import topk as port_topk
+from test_torch_util import set_cfgs
 
 torch.set_num_threads(2)
 
@@ -60,9 +59,8 @@ def _rpn_outs(seed, H, W, A=3, B=2):
 
 @pytest.mark.parametrize("post_n", [64, 256])
 def test_generate_proposals_matches_jax(post_n):
-    _tiny_cfg(batch=2)
-    jax_config.merge_cfg_from_list(
-        ["TEST.RPN_POST_NMS_TOP_N", str(post_n), "TEST.RPN_MIN_SIZE", "2"])
+    set_cfgs(extra=["TEST.RPN_POST_NMS_TOP_N", str(post_n),
+                    "TEST.RPN_MIN_SIZE", "2"])
     outs = _rpn_outs(post_n, 256, 320)
     im_info = np.array([[250.0, 310.0, 1.0], [190.0, 280.0, 1.5]],
                        np.float32)
@@ -72,7 +70,7 @@ def test_generate_proposals_matches_jax(post_n):
         jnp.asarray(im_info))
     got = port_mb.generate_proposals(
         [(torch.from_numpy(c), torch.from_numpy(b)) for c, b in outs], None,
-        torch.from_numpy(im_info))
+        torch.from_numpy(im_info), False)
     rois, scores, valid = (np.asarray(a) for a in ref)
     assert got[0].shape == (2, post_n, 4)
     np.testing.assert_array_equal(got[2].numpy(), valid)

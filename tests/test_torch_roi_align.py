@@ -161,11 +161,11 @@ def test_ladder_matches_jax_and_exact_gather(pooled, dtype):
 def test_roi_feature_transform_matches_jax():
     """model_builder.roi_feature_transform (FPN, pallas ladder default) of
     both packages on the tiny cfg's pyramid geometry."""
-    from __graft_entry__ import _tiny_cfg
     from detectron_tpu.models import model_builder as jax_mb
     from detectron_tpu_torch.models import model_builder as port_mb
+    from test_torch_util import set_cfgs
 
-    _tiny_cfg(batch=2)
+    set_cfgs()
     rng = np.random.RandomState(0)
     feats = [rng.randn(2, 256 // s, 320 // s, 8).astype(np.float32)
              for s in (4, 8, 16, 32, 64)]
