@@ -6,21 +6,26 @@ Run from the repository root:
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. Device and build: the card's name and power limit from nvidia-smi,
-     then every CUDA kernel (K1-K4) built from csrc/.
+     then every CUDA kernel (K1-K6) built from csrc/.
   2. Per-kernel check at the main paths' shapes: each kernel's wrapper on
      CUDA tensors against its plain PyTorch version on the same inputs
-     (K1 exactly; K2/K3 within 2 bf16 ulps; K4, whose atomic adds sum
-     overlapping windows in an order that changes from run to run, within
-     1e-5 max|ref| + 1e-6), with median CUDA-event times of both and the
-     least time the card could take for the same work (bound_ms: bytes
-     over 3.35 TB/s or operations over the peak rate of the inputs' type,
-     989 TFLOP/s bf16 and 67 TFLOP/s f32, whichever is larger).
+     (K1 and K5 exactly; K2/K3 within 2 bf16 ulps; K4, whose atomic adds
+     sum overlapping windows in an order that changes from run to run,
+     within 1e-5 max|ref| + 1e-6; K6 in bf16 within 2^-7 |ref| + 2^-6
+     max|ref| with under 20% of the elements differing, in f32 within
+     1e-5 max|ref|), with median CUDA-event times of both
+     and the least time the card could take for the same work (bound_ms:
+     bytes over 3.35 TB/s or operations over the peak rate of the inputs'
+     type, 989 TFLOP/s bf16 and 67 TFLOP/s f32, whichever is larger). A
+     yardstick line times the port's unfused stem post-ops + res2 stage
+     (cuDNN) beside K5 + K6 on the same input.
   3. Checks of whole functions, GPU (kernels) against CPU (plain
      versions): the RoIAlign ladder's backward (K4 over the base window
      and each fix-up rung, autograd of the exact gather for slivers) at
      the training path's box shapes, GPU float32 against CPU float64,
      each level within 1e-4 of its largest gradient; and in
-     float32: detect_graph on the tiny 256 x 320 configuration, and one
+     float32: detect_graph on the tiny 256 x 320 configuration, with
+     TPU.FUSED_RES2 off and on (on: the "auto" mode, K6 in f32), and one
      Mask R-CNN train_step on 2 x 128 x 160 images with the same sampling
      draws (a CPU torch.Generator), with cuDNN off and on: losses within
      1e-3 relative of the CPU float32 step; gradients and the SGD update
@@ -42,19 +47,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      calibrated as in phase 4: uncalibrated RPN deltas decode almost every
      proposal to a sliver, which the ladder pools by the exact gather, so
      the fix-up rungs (K3 and their K4 sweeps) would see no traffic.
-  Phases 4 and 5 each zero the launch counters just before and read them
-  just after; every kernel of the path must have launched.
+  6. The TPU.FUSED_RES2 inference path: phase 4 with TPU.FUSED_RES2 on,
+     so the stem post-ops and res2 run as K5 then K6 (the "packed" mode);
+     then phase 4's path and this one in turns on the same inputs, and a
+     torch.profiler batch of each (device busy time, idle share).
+  Phases 4, 5 and 6 each zero the launch counters just before and read
+  them just after; every kernel of the path must have launched.
 Prints a {"kernels": [...]} line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-No single PyTorch call computes any of K1-K4 (there is no torchvision), so
-every kernel's library_ms is null. --profile-train adds a torch.profiler
+No single PyTorch call computes any of K1-K6 (there is no torchvision),
+so every kernel's library_ms is null. --profile-train adds a torch.profiler
 run of one more training step, printing its device time by kernel, then
 the host time of each stage (forward, backward, update) of 4 more steps.
 --clip-gradients sets phase 5's CLIP_GRADIENTS.
 
 TF32 is off for both cuDNN convolutions and matmuls
 (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 =
-False), so the float32 checks of phase 3 run in full float32.
+False), so the float32 checks of phases 2 and 3 run in full float32.
 """
 
 import argparse
@@ -90,6 +99,13 @@ ACT_REL = 1e-3
 # clamps, 1 multiply for the intersection, 2 add/sub for the union, 1
 # divide).
 NMS_PAIR_FLOPS = 14
+FUSED_RES2 = ["TPU.FUSED_RES2", "True"]
+# Multiply-adds per pixel of the res2 stage (64 -> 256): block 0 is
+# 4,096 + 36,864 + 16,384 + 16,384 (branch2a, 2b, 2c, branch1), blocks 1
+# and 2 are 16,384 + 36,864 + 16,384 each.
+RES2_MACS = 4096 + 36864 + 2 * 16384 + 2 * (2 * 16384 + 36864)
+RES2_WEIGHTS = RES2_MACS      # one weight per multiply-add of a pixel
+RES2_BIASES = 3 * (64 + 64 + 256)
 
 
 def cuda_ms(fn, reps):
@@ -376,7 +392,132 @@ def check_kernels(device):
                                                (starts, vy, vx)), True),
                (pooled, rows) == (7, None))
         del canvas, zero, got, ref
+
+    check_fused_kernels(device, rng, record)
     return entries
+
+
+def bf16_close(got, ref):
+    """K6's bf16 tolerance: |got - ref| within 2^-7 |ref| + 2^-6 max|ref|
+    (an ulp of the value plus 2 to 4 at the top magnitude), and under 20%
+    of the elements differing. The kernel and cuDNN sum in other orders,
+    so a bf16 rounding may fall the other way, later convs carry that on,
+    and a residual add that cancels keeps its operands' ulps; a systematic
+    rounding fault would move about half the elements. Returns (ok,
+    max_abs_err, share differing)."""
+    import torch
+
+    d = (got.float() - ref.float()).abs()
+    top = float(ref.float().abs().max())
+    ok = bool((d <= 2.0 ** -7 * ref.float().abs() + 2.0 ** -6 * top).all()) \
+        and bool(torch.isfinite(got).all())
+    share = float((d > 0).float().mean())
+    return ok and share < 0.2, float(d.max()), share
+
+
+def res2_stage(params, device, rng):
+    """The model's res2 params with random affines, so the fold and the
+    zero halo (relu(bias) != 0 outside the image) are exercised."""
+    import torch
+
+    stage = params["body"]["res2"]
+    for bp in stage:
+        for k in [k for k in bp if k.endswith("_bn")]:
+            c = bp[k]["s"].shape[0]
+            bp[k] = {"s": torch.tensor(rng.uniform(0.5, 1.5, c),
+                                       dtype=torch.float32, device=device),
+                     "b": torch.tensor(rng.uniform(-0.3, 0.3, c),
+                                       dtype=torch.float32, device=device)}
+    return stage
+
+
+def check_fused_kernels(device, rng, record):
+    """Phase 2, K5 and K6 at the TPU.FUSED_RES2 path's full-width shapes:
+    the stem conv's output (B, 416, 672, 64) and res2's input
+    (B, 208, 336, 64), bf16; K6 also in f32 at the phase-3 tiny canvas's
+    res2 shape (B, 64, 80, 64). Prints the yardstick: the port's unfused
+    stem post-ops + res2 (cuDNN convs) beside K5 + K6."""
+    import torch
+
+    from detectron_tpu_torch.models import layers as L
+    from detectron_tpu_torch.models import resnet
+    from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
+
+    gen = torch.Generator(device).manual_seed(5)
+    Hp, Wp = CANVAS[0] // 2, CANVAS[1] // 2
+    x = (torch.randn((BATCH, Hp, Wp, 64), generator=gen, device=device)
+         * 2.0).to(torch.bfloat16)
+    s = torch.tensor(rng.uniform(0.5, 1.5, 64), dtype=torch.float32,
+                     device=device)
+    b = torch.tensor(rng.uniform(-0.5, 0.5, 64), dtype=torch.float32,
+                     device=device)
+    got = fk.stem_pool(x, s, b)
+    ref = fk.stem_pool_plain(x, s, b)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("K5 stem_pool disagrees with its plain version "
+                             "at {}: {} elements".format(
+                                 tuple(x.shape), int((got != ref).sum())))
+    # Bytes: x read once, the pooled output written once, s and b. Ops: a
+    # multiply, an add and a ReLU per input element, 8 max per output.
+    record("stem_pool", "x={} bf16 -> {}".format(tuple(x.shape),
+                                                  tuple(got.shape)),
+           0.0, cuda_ms(lambda: fk.stem_pool(x, s, b), 20),
+           cuda_ms(lambda: fk.stem_pool_plain(x, s, b), 3),
+           bound(2 * (x.numel() + got.numel()) + 2 * 64 * 4,
+                 3 * x.numel() + 8 * got.numel(), "float32"), True)
+
+    params = make_params(device, torch.bfloat16)
+    stage = res2_stage(params, device, rng)
+    for dtype, shape in ((torch.bfloat16, (BATCH, Hp // 2, Wp // 2, 64)),
+                         (torch.float32, (BATCH, 64, 80, 64))):
+        h = torch.randn(shape, generator=gen, device=device).relu().to(dtype)
+        folded = fk.fold_res2_weights(stage, dtype)
+        got = fk.fused_res2(h, folded)
+        ref = fk.fused_res2_plain(h, folded)
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            ok, err, share = bf16_close(got, ref)
+        else:
+            err = float((got - ref).abs().max())
+            ok = bool(torch.isfinite(got).all()) and \
+                err <= 1e-5 * float(ref.abs().max())
+            share = float(((got - ref) != 0).float().mean())
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        if not ok:
+            raise AssertionError("K6 fused_res2 disagrees with its plain "
+                                 "version at {} {}: max_abs_err {}, share "
+                                 "differing {}".format(shape, name, err,
+                                                       share))
+        pixels = shape[0] * shape[1] * shape[2]
+        item = h.element_size()
+        record("fused_res2", "x={} {} (share differing {:.4f}, max|ref| "
+               "{:.3f})".format(shape, name, share,
+                                float(ref.float().abs().max())),
+               err, cuda_ms(lambda: fk.fused_res2(h, folded), 20),
+               cuda_ms(lambda: fk.fused_res2_plain(h, folded), 3),
+               bound(pixels * (64 + 256) * item + RES2_WEIGHTS * item
+                     + RES2_BIASES * 4, 2 * RES2_MACS * pixels,
+                     "bfloat16" if dtype == torch.bfloat16 else "float32"),
+               dtype == torch.bfloat16)
+
+    # Yardstick (not library_ms: no single PyTorch call computes K5 or
+    # K6): the port's unfused path on the same stem-conv output.
+    bn = params["body"]["res_conv1_bn"]
+
+    def unfused():
+        y = L.max_pool(L.relu(resnet._affine(bn, x)), 3, 2, 1)
+        for bp in stage:
+            y = resnet.apply_bottleneck(bp, y, 1)
+        return y
+
+    def fused():
+        return fk.fused_res2(fk.stem_pool(x, bn["s"], bn["b"]),
+                             fk.fold_res2_weights(stage, torch.bfloat16))
+
+    print("yardstick at x={} bf16: unfused stem post-ops + res2 (cuDNN) "
+          "{:.4f} ms; K5 + fold + K6 {:.4f} ms".format(
+              tuple(x.shape), cuda_ms(unfused, 20), cuda_ms(fused, 20)))
 
 
 # ---------------------------------------------------------------------------
@@ -481,13 +622,16 @@ def check_ladder_grad(device):
                                  errs, routes))
 
 
-def check_small_input(device):
-    """Phase 3: GPU kernels vs CPU plain versions, tiny float32 config."""
+def check_small_input(device, extra=()):
+    """Phase 3: GPU kernels vs CPU plain versions, tiny float32 config
+    (with the cfg keys `extra`). With TPU.FUSED_RES2 the GPU run must
+    launch K6 (the "auto" mode in float32)."""
     import torch
 
     from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
 
-    set_cfg(tiny=True, dtype="float32")
+    set_cfg(tiny=True, dtype="float32", extra=extra)
     rng = np.random.RandomState(1)
     # x0.3, not the main path's x20: random weights without trained BN
     # statistics grow activations through the body, and larger inputs
@@ -495,19 +639,27 @@ def check_small_input(device):
     images = rng.randn(BATCH, 256, 320, 3).astype(np.float32) * 0.3
     im_info = np.array([[250.0, 310.0, 1.0]] * BATCH, np.float32)
     outs = {}
+    k6 = fk.fused_res2.launches
     for dev in ("cpu", device):
         params = make_params(dev, torch.float32)
         outs[dev] = {k: v.cpu() for k, v in det.detect_graph(
             params, torch.from_numpy(images).to(dev),
             torch.from_numpy(im_info).to(dev)).items()}
+    k6 = fk.fused_res2.launches - k6
     cpu, gpu = outs["cpu"], outs[device]
     frac = match_detections(gpu, cpu)
     n_cpu, n_gpu = int(cpu["valid"].sum()), int(gpu["valid"].sum())
-    print("small-input check (float32, 2 x 256 x 320): valid cpu={} gpu={} "
-          "matched={:.4f}".format(n_cpu, n_gpu, frac))
+    print("small-input check (float32, 2 x 256 x 320{}): valid cpu={} "
+          "gpu={} matched={:.4f}, K6 launches {}".format(
+              "".join(", {} {}".format(*extra[i:i + 2])
+                      for i in range(0, len(extra), 2)),
+              n_cpu, n_gpu, frac, k6))
     if n_cpu == 0 or frac < 0.95 or abs(n_cpu - n_gpu) > 0.05 * n_cpu:
         raise AssertionError("GPU detect_graph disagrees with the CPU plain "
                              "path on the small input")
+    if k6 != int(FUSED_RES2[0] in extra):
+        raise AssertionError("K6 launched {} times in the small-input "
+                             "check".format(k6))
 
 
 def _flat(tree):
@@ -662,27 +814,75 @@ def check_small_train(device):
                              "path on the small input: {}".format(bad))
 
 
-def run_main_path(device):
-    """Phase 4. Returns the kernels' launch counts over MAIN_RUNS batches."""
+def main_inputs(device):
+    """The inference main path's bf16 params and images (and im_info)."""
     import torch
 
-    from detectron_tpu_torch.core import test as det
-    from detectron_tpu_torch.core.config import cfg
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
-
-    set_cfg(tiny=False, dtype="bfloat16")
     params = make_params(device, torch.bfloat16)
     rng = np.random.RandomState(0)
     images = torch.from_numpy(
         rng.randn(BATCH, *CANVAS, 3).astype(np.float32) * 20.0).to(
             device, torch.bfloat16)
     im_info = torch.tensor([IM_INFO] * BATCH, device=device)
+    return params, images, im_info
+
+
+def compare_fused_inference(device):
+    """Phase 6, continued: the inference main path with TPU.FUSED_RES2 off
+    and on in turns (off, on, on, off), MAIN_RUNS batches each after a
+    warm-up batch, on the same params and images, then one profiled batch
+    of each: host ms per batch, device busy time and idle share."""
+    import torch
+
+    from detectron_tpu_torch.core import test as det
+
+    params, images, im_info = main_inputs(device)
+
+    def batch():
+        return det.detect_graph(params, images, im_info)
+
+    times = {False: [], True: []}
+    for fused in (False, True, True, False):
+        set_cfg(tiny=False, dtype="bfloat16",
+                extra=FUSED_RES2 if fused else ())
+        batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MAIN_RUNS):
+            batch()
+        torch.cuda.synchronize()
+        times[fused].append((time.perf_counter() - t0) / MAIN_RUNS * 1e3)
+    print("inference in turns (off, on, on, off), host ms per batch of {} "
+          "over {} batches: TPU.FUSED_RES2 off {}, on {}".format(
+              BATCH, MAIN_RUNS, [round(t, 3) for t in times[False]],
+              [round(t, 3) for t in times[True]]))
+    for fused in (False, True):
+        set_cfg(tiny=False, dtype="bfloat16",
+                extra=FUSED_RES2 if fused else ())
+        profile_call("one inference batch, TPU.FUSED_RES2 {}".format(fused),
+                     batch, n_kernels=12, n_ops=0)
+
+
+def run_main_path(device, extra=()):
+    """Phase 4 (or, with extra = FUSED_RES2, phase 6). Returns the kernels'
+    launch counts over MAIN_RUNS batches."""
+    import torch
+
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+
+    set_cfg(tiny=False, dtype="bfloat16", extra=extra)
+    params, images, im_info = main_inputs(device)
     det.detect_graph(params, images, im_info)   # warm-up (cuDNN plans)
     torch.cuda.synchronize()
 
     wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
                 "roi_window_pool": roi_align_kernel.roi_window_pool,
                 "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
+    if cfg.TPU.FUSED_RES2:
+        wrappers.update(stem_pool=fk.stem_pool, fused_res2=fk.fused_res2)
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -706,9 +906,10 @@ def run_main_path(device):
             raise AssertionError(k + " has non-finite values")
     per_image = out["valid"].sum(1).tolist()
     print("inference path (Mask R-CNN R-50-FPN, bf16, {} x {} x {}, RPN {} "
-          "proposals, D={}): {:.3f} img/s over {} batches, valid detections "
-          "per image {}, launches {}".format(
+          "proposals, D={}{}): {:.3f} img/s over {} batches, valid "
+          "detections per image {}, launches {}".format(
               BATCH, *CANVAS, cfg.TEST.RPN_POST_NMS_TOP_N, D,
+              ", TPU.FUSED_RES2" if cfg.TPU.FUSED_RES2 else "",
               BATCH * MAIN_RUNS / dt, MAIN_RUNS, per_image, launches))
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -806,7 +1007,7 @@ def run_train_path(device, profile, clip):
         raise AssertionError("kernels not launched on the training path: "
                              + ", ".join(missing))
     if profile:
-        profile_train_step(step, params, opt_state)
+        profile_call("one train step", lambda: step(params, opt_state))
         stage_times(params, opt_state, batch, draws)
     return launches
 
@@ -840,11 +1041,11 @@ def stage_times(params, opt_state, batch, draws, steps=4):
                   i + 1, (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
 
 
-def profile_train_step(step, params, opt_state):
-    """torch.profiler over one more training step: the step's wall time,
-    the device time summed over its kernels (device events only, so no
-    time is counted twice under the ops that launched it), the device's
-    idle share, and the top kernels and ops by device time."""
+def profile_call(label, fn, n_kernels=20, n_ops=15):
+    """torch.profiler over one call of fn: its wall time, the device time
+    summed over its kernels (device events only, so no time is counted
+    twice under the ops that launched it), the device's idle share, and
+    the top kernels and ops by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -853,20 +1054,21 @@ def profile_train_step(step, params, opt_state):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, opt_state)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    print("profile of one train step: wall {:.3f} ms, device busy {:.3f} ms "
-          "(sum over kernels), idle share {:.3f}".format(
-              wall, busy, 1 - busy / wall))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
+    print("profile of {}: wall {:.3f} ms, device busy {:.3f} ms (sum over "
+          "kernels), idle share {:.3f}".format(label, wall, busy,
+                                               1 - busy / wall))
+    for e in sorted(kernels,
+                    key=lambda e: -e.self_device_time_total)[:n_kernels]:
         print("  kernel {:9.3f} ms {:6d} calls  {}".format(
             e.self_device_time_total / 1e3, e.count, e.key[:90]))
     ops = [e for e in events if e.device_type == DeviceType.CPU]
-    for e in sorted(ops, key=lambda e: -e.cpu_time_total)[:15]:
+    for e in sorted(ops, key=lambda e: -e.cpu_time_total)[:n_ops]:
         print("  op {:9.3f} ms cpu total {:6d} calls  {}".format(
             e.cpu_time_total / 1e3, e.count, e.key[:90]))
 
@@ -903,14 +1105,21 @@ def main():
     print("build: {} kernels in {:.1f} s ({})".format(
         len(libs), time.perf_counter() - t0,
         ", ".join(p.name for p in libs.values())))
+    for source, log in build.LOGS.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("ptxas {}: {}".format(source, line.strip()))
 
     set_cfg(tiny=False, dtype="bfloat16")
     entries = check_kernels(device)
     check_ladder_grad(device)
     check_small_input(device)
+    check_small_input(device, FUSED_RES2)
     check_small_train(device)
     inference = run_main_path(device)
     training = run_train_path(device, args.profile_train, args.clip_gradients)
+    fused = run_main_path(device, FUSED_RES2)
+    compare_fused_inference(device)
 
     meta = {
         "nms_keep_mask": ("detectron_tpu_torch/csrc/nms_keep_mask.cu",
@@ -923,15 +1132,24 @@ def main():
         "roi_window_accum": (
             "detectron_tpu_torch/csrc/roi_window_accum.cu",
             "detectron_tpu/ops/pallas/roi_align_kernel.py:458"),
+        "stem_pool": ("detectron_tpu_torch/csrc/stem_pool.cu",
+                      "detectron_tpu/ops/pallas/fused_stem_kernel.py:473"),
+        "fused_res2": ("detectron_tpu_torch/csrc/fused_res2.cu",
+                       "detectron_tpu/ops/pallas/fused_stem_kernel.py:328"),
     }
     kernels = []
     for name, (src, rep) in meta.items():
         e = entries[name]
+        by_path = {"inference": inference.get(name, 0),
+                   "training": training.get(name, 0),
+                   "inference_fused_res2": fused.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": training[name],
-            "launches_by_path": {"inference": inference.get(name, 0),
-                                 "training": training[name]},
+            # The path each kernel is on: training for K1-K4 (which runs
+            # all four), the TPU.FUSED_RES2 inference path for K5 and K6.
+            "launches": by_path["training"] or by_path[
+                "inference_fused_res2"],
+            "launches_by_path": by_path,
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": None,

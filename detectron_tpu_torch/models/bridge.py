@@ -16,6 +16,12 @@ lists); only the leaves change layout:
 - every other leaf (FC `w` in (in, out), biases, AffineChannel s/b) is
   carried as it is.
 
+Bridged in a dtype narrower than float32, the stem's AffineChannel and
+res2 stay float32: the TPU.FUSED_RES2 path folds them from float32 values,
+as the JAX package does (ops/cuda/fused_stem_kernel.py); every other path
+casts them to the activation dtype in its layers, so their values there do
+not change.
+
 A JAX tree is bridged after np.asarray on each leaf; the numpy tree from
 models/init.init_model is already in that form. to_jax_layout is the exact
 inverse, back to numpy arrays in the JAX layout (for comparing gradients and
@@ -26,6 +32,10 @@ import numpy as np
 import torch
 
 from detectron_tpu_torch.core.config import cfg
+
+
+# Subtrees that the fused res2 path folds from float32 values.
+_FOLDED = (("body", "res_conv1_bn"), ("body", "res2"))
 
 
 def _leaf(path, a):
@@ -57,6 +67,8 @@ def to_torch(tree, device, dtype=torch.float32, _path=()):
     if isinstance(tree, (list, tuple)):
         return [to_torch(v, device, dtype, _path + (i,))
                 for i, v in enumerate(tree)]
+    if _path[:2] in _FOLDED and dtype.itemsize < 4:
+        dtype = torch.float32
     return torch.from_numpy(_leaf(_path, tree)).to(device=device,
                                                    dtype=dtype)
 

@@ -1,17 +1,24 @@
 """ResNet conv body, Detectron semantics (port of detectron_tpu/models/
-resnet.py, its XLA path: resnet.py:45-56, :80-116 and :210-300).
+resnet.py: resnet.py:45-56, :80-116 and :210-300, with the TPU.FUSED_RES2
+branch :232-291).
 
 Frozen BN is AffineChannel, whose params never get a gradient; the stem
 and the stages up to RESNETS.FREEZE_AT are frozen too (their params enter
 the forward detached, as stop_gradient does in the JAX package).
 RESNETS.STRIDE_1X1 picks the Caffe (stride on the 1x1) or torch (stride on
-the 3x3) bottleneck. GroupNorm, ResNeXt
-groups, res5 dilation and the TPU-only stems (S2D_STEM, S2D_INPUT,
-FUSED_RES2) are not ported yet: check_body_supported raises on them.
+the 3x3) bottleneck. With TPU.FUSED_RES2, the stem post-ops and res2 run
+through kernels K5 and K6 (ops/cuda/fused_stem_kernel.py) under the JAX
+package's gates, with the fused path's own rounding; on the CPU their
+plain versions. GroupNorm, ResNeXt groups, res5 dilation and the s2d stems
+(S2D_STEM, S2D_INPUT) are not ported yet: check_body_supported raises on
+them.
 """
+
+import torch
 
 from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.models import layers as L
+from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
 
 # (n2, n3, n4, n5) block counts
 BLOCK_COUNTS = {
@@ -39,8 +46,7 @@ def check_body_supported():
            "RESNETS.WIDTH_PER_GROUP != 64": cfg.RESNETS.WIDTH_PER_GROUP != 64,
            "RESNETS.RES5_DILATION != 1": cfg.RESNETS.RES5_DILATION != 1,
            "TPU.S2D_STEM": cfg.TPU.S2D_STEM,
-           "TPU.S2D_INPUT": cfg.TPU.S2D_INPUT,
-           "TPU.FUSED_RES2": cfg.TPU.FUSED_RES2}
+           "TPU.S2D_INPUT": cfg.TPU.S2D_INPUT}
     on = [k for k, v in off.items() if v]
     if on:
         raise NotImplementedError(
@@ -70,6 +76,24 @@ def apply_bottleneck(p, x, stride):
     return L.relu(h + sc)
 
 
+def _fused_mode(p, h, freeze_at, num_stages):
+    """The JAX package's TPU.FUSED_RES2 gates (resnet.py:239-257) on the
+    raw stem-conv output h: "packed" (K5, then K6), "auto" (the unfused
+    stem post-ops, then K6) or None (the unfused path). Its on_tpu gate is
+    left out: the port runs the fused semantics on every device."""
+    if not (cfg.TPU.FUSED_RES2 and freeze_at >= 2 and num_stages >= 1):
+        return None
+    Hp, Wp = h.shape[1], h.shape[2]
+    ty = fk.pick_ty(Hp // 2, Wp // 2) if Hp % 2 == 0 and Wp % 2 == 0 \
+        else None
+    if ty is None or cfg.RESNETS.USE_GN or cfg.RESNETS.NUM_GROUPS != 1 or \
+            not fk.res2_params_supported(p["res2"]):
+        return None
+    if h.dtype == torch.bfloat16 and Hp % (2 * ty) == 0 and Wp % 32 == 0:
+        return "packed"
+    return "auto"
+
+
 def apply_body(p, x, num_stages):
     """x: (B, H, W, 3). Returns the per-stage outputs [res2, ..., resN].
     Stages <= RESNETS.FREEZE_AT (2-indexed; the stem is stage 1) take
@@ -81,13 +105,24 @@ def apply_body(p, x, num_stages):
                          "{}".format(freeze_at))
     conv1 = L.stop_gradient(p["conv1"]) if freeze_at >= 2 else p["conv1"]
     h = L.conv2d(conv1, x, stride=2, padding=3)
-    h = L.relu(_affine(p["res_conv1_bn"], h))
-    h = L.max_pool(h, window=3, stride=2, padding=1)
+    fused = _fused_mode(p, h, freeze_at, num_stages)
+    if fused == "packed":
+        bn = L.stop_gradient(p["res_conv1_bn"])
+        h = fk.stem_pool(h.contiguous(), bn["s"].float(), bn["b"].float())
+    else:
+        h = L.relu(_affine(p["res_conv1_bn"], h))
+        h = L.max_pool(h, window=3, stride=2, padding=1)
     outs = []
     for s in range(num_stages):
         sp = p["res{}".format(s + 2)]
         if freeze_at >= s + 2:
             sp = L.stop_gradient(sp)
+        if s == 0 and fused is not None:
+            # freeze_at >= 2 (a gate), so no gradient reaches the stage.
+            h = fk.fused_res2(h.contiguous(),
+                              fk.fold_res2_weights(sp, h.dtype))
+            outs.append(h)
+            continue
         for i, bp in enumerate(sp):
             h = apply_bottleneck(bp, h, (1 if s == 0 else 2) if i == 0 else 1)
         outs.append(h)

@@ -20,14 +20,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "detectron_tpu_torch"
-SOURCES = ("nms_keep_mask.cu", "roi_window_pool.cu", "roi_window_accum.cu")
+SOURCES = ("nms_keep_mask.cu", "roi_window_pool.cu", "roi_window_accum.cu",
+           "stem_pool.cu", "fused_res2.cu")
 # No --use_fast_math: an approximate divide would flip NMS keep bits at
-# the IoU threshold.
+# the IoU threshold. -Xptxas -v reports each kernel's registers, shared
+# memory and spills (kept in LOGS).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded = {}
+# nvcc's output for each source built by this process.
+LOGS = {}
 
 
 def nvcc_path():
@@ -62,6 +66,7 @@ def build_all():
     errors = []
     for source, target, tmp, proc in jobs:
         out, _ = proc.communicate()
+        LOGS[source] = out
         if proc.returncode != 0:
             errors.append("{}:\n{}".format(source, out))
         else:

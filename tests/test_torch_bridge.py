@@ -137,7 +137,7 @@ def test_calibration_matches_jax(jax_tree):
 @pytest.mark.parametrize("setting", [
     ("FAST_RCNN.ROI_BOX_HEAD", "fast_rcnn_heads.roi_Xconv1fc_head"),
     ("MRCNN.ROI_MASK_HEAD", "mask_rcnn_heads.mask_rcnn_fcn_head_v1up"),
-    ("TPU.FUSED_RES2", "True"),
+    ("TPU.S2D_STEM", "True"),
 ])
 def test_init_raises_for_models_not_ported(setting):
     set_cfgs(extra=list(setting))
@@ -147,7 +147,8 @@ def test_init_raises_for_models_not_ported(setting):
 
 def test_port_imports_no_jax():
     code = ("import sys, detectron_tpu_torch.core.test, chip_smoke, "
-            "detectron_tpu_torch.parallel.train_step; "
+            "detectron_tpu_torch.parallel.train_step, "
+            "detectron_tpu_torch.ops.cuda.fused_stem_kernel; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "bad = [m for m in sys.modules if m.split('.')[0] == "
             "'detectron_tpu']; assert not bad, bad")
