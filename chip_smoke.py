@@ -9,12 +9,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      then every CUDA kernel (K1-K6) built from csrc/.
   2. Per-kernel check at the main paths' shapes: each kernel's wrapper on
      CUDA tensors against its plain PyTorch version on the same inputs
-     (K1 and K5 exactly; K2/K3 within 2 bf16 ulps; K4, whose atomic adds
+     (K1, the IoU bitmask then a one-warp scan per lane, at the RPN's
+     five levels stacked into one call as both paths launch it, one level
+     alone and the per-class tail; K2/K3, which pool only the canvas
+     cells their weights reach, at the box and mask heads' base windows
+     and each fix-up rung. K1 and K5 exactly; K2/K3 within 2 bf16 ulps;
+     K4, whose atomic adds
      sum overlapping windows in an order that changes from run to run,
      within 1e-5 max|ref| + 1e-6; K6 in bf16 within 2^-7 |ref| + 2^-6
      max|ref| with under 20% of the elements differing, in f32 within
-     1e-5 max|ref|), with median CUDA-event times of both
-     and the least time the card could take for the same work (bound_ms:
+     1e-5 max|ref|), with median CUDA-event times of both (one call
+     between two events, so a small kernel's time includes its wrapper's
+     host time), the kernel's device time alone (device_ms, torch.profiler
+     over 10 calls), and the least time the card could take for the same
+     work (bound_ms:
      bytes over 3.35 TB/s or operations over the peak rate of the inputs'
      type, 989 TFLOP/s bf16 and 67 TFLOP/s f32, whichever is larger). A
      yardstick line times the port's unfused stem post-ops + res2 stage
@@ -53,7 +61,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      torch.profiler batch of each (device busy time, idle share).
   Phases 4, 5 and 6 each zero the launch counters just before and read
   them just after; every kernel of the path must have launched.
-Prints a {"kernels": [...]} line, then as the last line
+Prints a {"kernels": [...]} line (each kernel's launches on its own path:
+the inference main path for K1-K3, training for K4, the TPU.FUSED_RES2
+path for K5/K6; launches_by_path has all three), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No single PyTorch call computes any of K1-K6 (there is no torchvision),
 so every kernel's library_ms is null. --profile-train adds a torch.profiler
@@ -127,6 +137,26 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=10):
+    """Device milliseconds of one fn() call: the time of the kernels it
+    launches, summed from torch.profiler's device events over reps calls
+    after one warm-up call, over reps. Unlike cuda_ms it leaves out the
+    host time of the wrapper between launches, which exceeds a small
+    kernel's own time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
 def set_cfg(tiny, dtype, extra=()):
     from detectron_tpu_torch.core import config
     from detectron_tpu_torch.core.configs_presets import mask_rcnn_r50_fpn
@@ -188,6 +218,27 @@ def reached_cells(canvas_shape, starts, vy, vx):
     mark = torch.zeros(B * Hc * Wc, dtype=torch.bool, device=dev)
     mark[flat[hit]] = True
     return int(mark.sum())
+
+
+def roi_reach_cells(canvas_shape, starts, vy, vx):
+    """Canvas cells K2/K3 read RoI by RoI: for each RoI, the rows from its
+    first to its last nonzero vy row times the columns from its first to
+    its last nonzero vx column, clipped at the canvas edge. Overlapping
+    RoIs each count their shared cells, which reached_cells counts once."""
+    import torch
+
+    _, Hc, Wc, _ = canvas_shape
+
+    def span(nonzero, origin, edge):
+        idx = torch.arange(nonzero.shape[1], device=nonzero.device)
+        lo = torch.where(nonzero, idx, nonzero.shape[1]).min(1).values
+        hi = torch.minimum(torch.where(nonzero, idx, -1).max(1).values,
+                           edge - 1 - origin.long())
+        return (hi - lo + 1).clamp(min=0)
+
+    rows = span(vy.ne(0).any(1), starts[:, 1], Hc)
+    cols = span(vx.ne(0).any(1), starts[:, 2], Wc)
+    return int((rows * cols).sum())
 
 
 def window_bound(canvas_shape, itemsize, starts, vy, vx, accumulate):
@@ -280,38 +331,56 @@ def check_kernels(device):
     rng = np.random.RandomState(0)
     entries = {}
 
-    def record(name, shape, err, ms, plain_ms, bnd, primary):
-        print("check {} {}: max_abs_err={} kernel_ms={:.4f} plain_ms={:.4f} "
-              "bound_ms={:.4f} ({})".format(name, shape, err, ms, plain_ms,
-                                           *bnd))
+    def record(name, shape, err, fn, plain, bnd, primary):
+        """Times the kernel's wrapper fn (CUDA events per call, and device
+        time alone) and its plain version, and prints and keeps them."""
+        ms, dev, plain_ms = cuda_ms(fn, 20), device_ms(fn), cuda_ms(plain, 3)
+        print("check {} {}: max_abs_err={} kernel_ms={:.4f} device_ms={:.4f} "
+              "plain_ms={:.4f} bound_ms={:.4f} ({})".format(
+                  name, shape, err, ms, dev, plain_ms, *bnd))
         e = entries.setdefault(name, {"max_abs_err": 0.0})
         e["max_abs_err"] = max(e["max_abs_err"], float(err))
         if primary:
-            e.update(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
-                     bound_by=bnd[1])
+            e.update(shape=shape, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                     bound_ms=bnd[0], bound_by=bnd[1])
 
-    # K1: RPN levels at inference (L = B lanes; N = 1000, and 819 at P6)
-    # and training (N = 2000), and the detection tail (L = B * 80 classes,
-    # N = K = 400). Exact.
-    for (L, N), thr in (((BATCH, 1000), 0.7), ((BATCH, 819), 0.7),
-                        ((BATCH, 2000), 0.7), ((BATCH * 80, 400), 0.5)):
-        boxes, valid = nms_lanes(rng, L, N, device)
+    # K1: the RPN's five levels stacked into one call, as the paths launch
+    # it (L = 5B lanes; inference N = 1000, training N = 2000; P6's lanes
+    # hold 819 boxes), one level alone (L = B; N = 1000, 819 at P6, 2000),
+    # and the detection tail (L = B * 80 classes, N = K = 400). Exact.
+    # The stacked shapes draw from a generator of their own, so that the
+    # other shapes' inputs stay those of earlier runs.
+    stack_rng = np.random.RandomState(10)
+    for (L, N), thr, stacked in (((BATCH, 1000), 0.7, False),
+                                 ((BATCH, 819), 0.7, False),
+                                 ((BATCH, 2000), 0.7, False),
+                                 ((BATCH * 80, 400), 0.5, False),
+                                 ((5 * BATCH, 1000), 0.7, True),
+                                 ((5 * BATCH, 2000), 0.7, True)):
+        boxes, valid = nms_lanes(stack_rng if stacked else rng, L, N, device)
+        if stacked:
+            valid[-BATCH:, 819:] = False
         got = nms_kernel.nms_keep_mask(boxes, valid, thr)
         ref = nms_kernel.nms_keep_mask_plain(boxes, valid, thr)
         torch.cuda.synchronize()
         err = int((got != ref).sum())
+        shape = "L={} N={}{}".format(
+            L, N, " (5 RPN levels stacked, P6 lanes 819)" if stacked else "")
         if err:
             raise AssertionError("K1 nms_keep_mask disagrees with its plain "
-                                 "version at L={} N={}: {} keep bits"
-                                 .format(L, N, err))
-        record("nms_keep_mask", "L={} N={}".format(L, N), err,
-               cuda_ms(lambda: nms_kernel.nms_keep_mask(boxes, valid, thr),
-                       20),
-               cuda_ms(lambda: nms_kernel.nms_keep_mask_plain(
-                   boxes, valid, thr), 3), nms_bound(boxes, valid, ref),
-               primary=(N == 1000))
+                                 "version at {}: {} keep bits".format(shape,
+                                                                      err))
+        record("nms_keep_mask", shape, err,
+               lambda: nms_kernel.nms_keep_mask(boxes, valid, thr),
+               lambda: nms_kernel.nms_keep_mask_plain(boxes, valid, thr),
+               nms_bound(boxes, valid, ref),
+               primary=(stacked and N == 1000))
 
     def pool_check(name, fn, plain, args, rows, shape, bnd, primary):
+        reach = roi_reach_cells(args[0].shape, *(t[rows[0]:rows[1]]
+                                                 for t in args[1:]))
+        shape += " (read RoI by RoI: {:.1f} MB of canvas)".format(
+            reach * args[0].shape[-1] * args[0].element_size() / 1e6)
         got = fn(*args)[rows[0]:rows[1]].float()
         ref = plain(*args)[rows[0]:rows[1]].float()
         torch.cuda.synchronize()
@@ -322,8 +391,8 @@ def check_kernels(device):
             raise AssertionError("{} disagrees with its plain version at {}:"
                                  " max_abs_err {}".format(
                                      name, shape, float(diff.max())))
-        record(name, shape, float(diff.max()), cuda_ms(lambda: fn(*args), 20),
-               cuda_ms(lambda: plain(*args), 3), bnd, primary)
+        record(name, shape, float(diff.max()), lambda: fn(*args),
+               lambda: plain(*args), bnd, primary)
 
     # K2: base sweep, box head (P = 7, N = B * 1000) and mask head (P = 14,
     # N = B * 100) at inference, box (N = B * 512) and mask (N = B * 128)
@@ -384,10 +453,10 @@ def check_kernels(device):
                                  .format(shape, err, tol))
         lo, hi = rows or (0, n)
         record("roi_window_accum", shape, err,
-               cuda_ms(lambda: roi_align_kernel.roi_window_accum(
-                   got, starts, ct, vy, vx, rows), 20),
-               cuda_ms(lambda: roi_align_kernel.roi_window_accum_plain(
-                   ref, starts, ct, vy, vx, rows), 3),
+               lambda: roi_align_kernel.roi_window_accum(
+                   got, starts, ct, vy, vx, rows),
+               lambda: roi_align_kernel.roi_window_accum_plain(
+                   ref, starts, ct, vy, vx, rows),
                window_bound(canvas.shape, 4, *(t[lo:hi] for t in
                                                (starts, vy, vx)), True),
                (pooled, rows) == (7, None))
@@ -462,8 +531,8 @@ def check_fused_kernels(device, rng, record):
     # multiply, an add and a ReLU per input element, 8 max per output.
     record("stem_pool", "x={} bf16 -> {}".format(tuple(x.shape),
                                                   tuple(got.shape)),
-           0.0, cuda_ms(lambda: fk.stem_pool(x, s, b), 20),
-           cuda_ms(lambda: fk.stem_pool_plain(x, s, b), 3),
+           0.0, lambda: fk.stem_pool(x, s, b),
+           lambda: fk.stem_pool_plain(x, s, b),
            bound(2 * (x.numel() + got.numel()) + 2 * 64 * 4,
                  3 * x.numel() + 8 * got.numel(), "float32"), True)
 
@@ -494,8 +563,8 @@ def check_fused_kernels(device, rng, record):
         record("fused_res2", "x={} {} (share differing {:.4f}, max|ref| "
                "{:.3f})".format(shape, name, share,
                                 float(ref.float().abs().max())),
-               err, cuda_ms(lambda: fk.fused_res2(h, folded), 20),
-               cuda_ms(lambda: fk.fused_res2_plain(h, folded), 3),
+               err, lambda: fk.fused_res2(h, folded),
+               lambda: fk.fused_res2_plain(h, folded),
                bound(pixels * (64 + 256) * item + RES2_WEIGHTS * item
                      + RES2_BIASES * 4, 2 * RES2_MACS * pixels,
                      "bfloat16" if dtype == torch.bfloat16 else "float32"),
@@ -860,7 +929,7 @@ def compare_fused_inference(device):
         set_cfg(tiny=False, dtype="bfloat16",
                 extra=FUSED_RES2 if fused else ())
         profile_call("one inference batch, TPU.FUSED_RES2 {}".format(fused),
-                     batch, n_kernels=12, n_ops=0)
+                     batch, n_kernels=20, n_ops=0)
 
 
 def run_main_path(device, extra=()):
@@ -1137,6 +1206,13 @@ def main():
         "fused_res2": ("detectron_tpu_torch/csrc/fused_res2.cu",
                        "detectron_tpu/ops/pallas/fused_stem_kernel.py:328"),
     }
+    # The path each kernel's launches are read from: the main (inference)
+    # path for K1-K3, training for K4, TPU.FUSED_RES2 inference for K5/K6.
+    path_of = {"nms_keep_mask": "inference", "roi_window_pool": "inference",
+               "roi_window_pool_seg": "inference",
+               "roi_window_accum": "training",
+               "stem_pool": "inference_fused_res2",
+               "fused_res2": "inference_fused_res2"}
     kernels = []
     for name, (src, rep) in meta.items():
         e = entries[name]
@@ -1145,13 +1221,10 @@ def main():
                    "inference_fused_res2": fused.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            # The path each kernel is on: training for K1-K4 (which runs
-            # all four), the TPU.FUSED_RES2 inference path for K5 and K6.
-            "launches": by_path["training"] or by_path[
-                "inference_fused_res2"],
+            "launches": by_path[path_of[name]],
             "launches_by_path": by_path,
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-            "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+            "device_ms": e["device_ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": None,
             "shape": e["shape"]})
     print(json.dumps({"kernels": kernels}))

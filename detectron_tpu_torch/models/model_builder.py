@@ -64,34 +64,37 @@ def generate_proposals(rpn_outs, features, im_info, training):
     (at most the number of slots). Never differentiable: the reference's
     proposals are host numpy, and NMS has no gradient.
 
-    Per level: top-k preselection, decode, clip, min-size filter, then NMS
-    (kernel K1) in one of two forms, as in the JAX package: the keep-mask
-    form when post_n covers every slot of the level, else the compacted
-    form truncating survivors to post_n."""
+    Per level: top-k preselection, decode, clip, min-size filter; then NMS
+    of every level's lanes in one K1 call (nms_stacked_mask), and per level
+    one of two forms, as in the JAX package: the keep-mask form when post_n
+    covers every slot of the level, else the compacted form truncating
+    survivors to post_n."""
     _check_path_supported()
     phase = cfg.TRAIN if training else cfg.TEST
     pre_n, post_n = phase.RPN_PRE_NMS_TOP_N, phase.RPN_POST_NMS_TOP_N
     nms_thresh, min_size = phase.RPN_NMS_THRESH, phase.RPN_MIN_SIZE
     im_info = im_info.to(torch.float32)
 
-    level_boxes, level_scores, level_valid = [], [], []
+    prepped = []
     for (cls_logits, bbox_pred), (_, stride, size) in zip(
             rpn_outs, rpn_mod.fpn_anchor_config()):
         _, H, W, _ = cls_logits.shape
         anchors = rpn_mod.level_anchors(stride, (size,),
                                         cfg.FPN.RPN_ASPECT_RATIOS, H, W,
                                         cls_logits.device)
-        boxes_b, scores_b = rpn_mod.proposals_prep(
-            cls_logits, bbox_pred, anchors, im_info, min_size, pre_n)
+        prepped.append(rpn_mod.proposals_prep(
+            cls_logits, bbox_pred, anchors, im_info, min_size, pre_n))
+    keeps = nms_ops.nms_stacked_mask([b for b, _ in prepped],
+                                     [s for _, s in prepped], nms_thresh)
+
+    level_boxes, level_scores, level_valid = [], [], []
+    for (boxes_b, scores_b), keep in zip(prepped, keeps):
         if post_n >= boxes_b.shape[1]:
-            keep = nms_ops.nms_batched_sorted_mask(boxes_b, scores_b,
-                                                   nms_thresh)
             b = boxes_b * keep[..., None]
             s = torch.where(keep, scores_b, -torch.inf)
             valid = keep
         else:
-            idx, valid = nms_ops.nms_batched_sorted(boxes_b, scores_b,
-                                                    nms_thresh, post_n)
+            idx, valid = nms_ops.compact_keep(keep, post_n)
             b = torch.gather(boxes_b, 1, idx[..., None].expand(-1, -1, 4)) \
                 * valid[..., None]
             s = torch.where(valid, torch.gather(scores_b, 1, idx),

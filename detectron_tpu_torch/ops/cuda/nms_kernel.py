@@ -1,10 +1,11 @@
 """K1: batched greedy NMS keep mask (kernel csrc/nms_keep_mask.cu).
 
 Replaces detectron_tpu/ops/pallas/nms_kernel.py::nms_keep_mask. Bounded by
-the sequential pivot chain (one barrier per alive pivot), not by memory:
-one CTA runs one lane with the lane staged in shared memory, so a lane
-holds at most MAX_BOXES boxes (17 bytes each, under the 48 KB static
-shared-memory limit).
+the latency of the serial pivot recurrence, not by memory: the kernel
+first computes every IoU bit of a lane in parallel into a 64-bit mask
+(scratch the wrapper allocates, (L, N, ceil(N / 64)) int64), then one warp
+per lane scans it with the lane's removed mask in registers, one word per
+thread, so a lane holds at most MAX_BOXES = 32 x 64 boxes.
 """
 
 import ctypes
@@ -63,12 +64,14 @@ def nms_keep_mask(boxes, valid, thr):
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("nms_keep_mask needs contiguous inputs")
     fn = build.load("nms_keep_mask.cu", "nms_keep_mask_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     keep = torch.empty((L, N), dtype=torch.bool, device=boxes.device)
+    mask = torch.empty((L, N, -(-N // 64)), dtype=torch.int64,
+                       device=boxes.device)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), L, N,
-             float(thr), stream)
+    err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+             mask.data_ptr(), L, N, float(thr), stream)
     nms_keep_mask.launches += int(L > 0 and N > 0)
     build.check(err, "nms_keep_mask")
     return keep

@@ -12,7 +12,8 @@ each RoI row n:
                       * canvas[b, y0 + h, x0 + w, c],  (b, y0, x0) = starts[n]
 
 with both sums in f32 and the result in the canvas dtype. Bound by the
-window reads (hundreds of KB per RoI against a few MFLOP).
+bytes of the canvas cells each RoI's nonzero weights reach, which the
+kernel finds from vy and vx and reads once per RoI and channel tile.
 
 roi_window_accum replaces ::roi_window_accum_seg: for each RoI row n of an
 active range, in f32 and in place,

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from detectron_tpu_torch.ops import nms as nms_ops
+from detectron_tpu_torch.ops import windowed_roi as win
 from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
 from detectron_tpu_torch.ops.cuda import nms_kernel
 from detectron_tpu_torch.ops.cuda import roi_align_kernel as rk
@@ -48,8 +50,12 @@ def _lanes(seed, L, N, device):
 
 @pytest.mark.parametrize("L,N,thr", [(1, 1, 0.5), (3, 64, 0.5),
                                      (2, 1000, 0.7), (161, 400, 0.5),
-                                     (4, 2048, 0.3)])
+                                     (4, 2048, 0.3), (3, 65, 0.5),
+                                     (2, 819, 0.7), (10, 2000, 0.7)])
 def test_nms_keep_mask_matches_plain(device, L, N, thr):
+    """Random lanes with invalid holes mid-lane, repeated boxes (IoU
+    exactly 1) and a tail of invalid slots; N not a multiple of 64 (65,
+    819) and the largest N."""
     boxes, valid = _lanes(L + N, L, N, device)
     before = nms_kernel.nms_keep_mask.launches
     got = nms_kernel.nms_keep_mask(boxes, valid, thr)
@@ -58,9 +64,50 @@ def test_nms_keep_mask_matches_plain(device, L, N, thr):
     assert torch.equal(got, ref)
 
 
-def _pool_inputs(seed, N, P, WY, WX, dtype, device, C=80):
+def test_nms_keep_mask_edge_lanes(device):
+    """A lane with no valid box, one with a single valid box first, one
+    with a single valid box last, one of identical boxes, one whose
+    second and third 64-box blocks are all invalid, and one of boxes that
+    touch without overlapping (IoU 0) or overlap by a +1 pixel."""
+    L, N = 6, 300
+    boxes, valid = _lanes(7, L, N, device)
+    valid[:] = True
+    valid[0] = False
+    valid[1, 1:] = False
+    valid[2, :-1] = False
+    boxes[3] = boxes[3, :1]
+    valid[4, 64:192] = False
+    x = torch.arange(N, device=device, dtype=torch.float32) * 10.0
+    boxes[5] = torch.stack([x, x * 0, x + 9.0 + (x % 20 == 0), x * 0 + 9],
+                           -1)
+    got = nms_kernel.nms_keep_mask(boxes, valid, 0.0)
+    ref = nms_kernel.nms_keep_mask_plain(boxes, valid, 0.0)
+    assert torch.equal(got, ref)
+    assert not got[0].any() and got[1, 0] and got[2, -1]
+    assert int(got[3].sum()) == 1 and not got[4, 64:192].any()
+    for thr in (0.3, 0.7):
+        assert torch.equal(nms_kernel.nms_keep_mask(boxes, valid, thr),
+                           nms_kernel.nms_keep_mask_plain(boxes, valid, thr))
+
+
+def test_nms_stacked_lanes_of_different_lengths(device):
+    """The RPN's stacked call: groups of B = 2 lanes of N = 1000, 819 and
+    65 boxes padded to 1000 with invalid slots, in one launch, give each
+    group's keep mask exactly."""
+    groups = [_lanes(N, 2, N, device) for N in (1000, 819, 65)]
+    scores = [torch.where(v, torch.linspace(1, 0, v.shape[1], device=device),
+                          -torch.inf) for _, v in groups]
+    before = nms_kernel.nms_keep_mask.launches
+    got = nms_ops.nms_stacked_mask([b for b, _ in groups], scores, 0.7)
+    assert nms_kernel.nms_keep_mask.launches == before + 1
+    for (b, v), k in zip(groups, got):
+        assert torch.equal(k, nms_kernel.nms_keep_mask_plain(b, v, 0.7))
+
+
+def _pool_inputs(seed, N, P, WY, WX, dtype, device, C=80, Hc=120,
+                 Wc=200):
     rng = np.random.RandomState(seed)
-    B, Hc, Wc = 2, 120, 200
+    B = 2
     canvas = torch.tensor(rng.randn(B, Hc, Wc, C), dtype=dtype,
                           device=device)
     starts = torch.tensor(np.stack(
@@ -72,13 +119,26 @@ def _pool_inputs(seed, N, P, WY, WX, dtype, device, C=80):
     return canvas, starts, vy, vx
 
 
+def _close(got, ref, dtype):
+    """1e-5 relative in float32, 2 bf16 ulps in bfloat16, each with a
+    floor of that share of max|ref| for cancelling sums."""
+    got, ref = got.float(), ref.float()
+    rtol = 1e-5 if dtype == torch.float32 else 1.0 / 64
+    torch.testing.assert_close(got, ref, rtol=rtol,
+                               atol=rtol * float(ref.abs().max()))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("P,WY,WX,rows", [(7, 32, 48, None),
-                                          (14, 32, 48, None),
-                                          (7, 64, 48, (3, 17)),
-                                          (14, 16, 96, (0, 5))])
-def test_roi_window_pool_matches_plain(device, P, WY, WX, rows, dtype):
-    args = _pool_inputs(P + WY, 24, P, WY, WX, dtype, device)
+@pytest.mark.parametrize("P,WY,WX,rows,C", [(7, 32, 48, None, 80),
+                                            (14, 32, 48, None, 80),
+                                            (7, 64, 48, (3, 17), 80),
+                                            (14, 16, 96, (0, 5), 80),
+                                            (7, 32, 48, None, 35)])
+def test_roi_window_pool_matches_plain(device, P, WY, WX, rows, C, dtype):
+    """Dense random weights; C = 35 takes the kernel's element-wise copy
+    (rows of 70 or 140 bytes admit no 16-byte copies) and a partial
+    channel tile."""
+    args = _pool_inputs(P + WY, 24, P, WY, WX, dtype, device, C=C)
     if rows is None:
         got = rk.roi_window_pool(*args)
         ref = rk.roi_window_pool_plain(*args)
@@ -86,11 +146,81 @@ def test_roi_window_pool_matches_plain(device, P, WY, WX, rows, dtype):
     else:
         got = rk.roi_window_pool_seg(*args, rows)
         ref = rk.roi_window_pool_plain(*args, rows=rows)
-    got = got[rows[0]:rows[1]].float()
-    ref = ref[rows[0]:rows[1]].float()
-    rtol = 1e-5 if dtype == torch.float32 else 1.0 / 64
-    torch.testing.assert_close(got, ref, rtol=rtol,
-                               atol=rtol * float(ref.abs().max()))
+    _close(got[rows[0]:rows[1]], ref[rows[0]:rows[1]], dtype)
+
+
+def _ladder_pool_inputs(seed, n, pooled, window, dtype, device, C=64):
+    """The ladder's sparse weights, as on the main path: a 2-image canvas
+    from a random P2-P5 pyramid of a 256 x 320 image, and
+    windowed_roi.window_params of n RoIs of detector-like sizes at
+    `window` (None: the base window)."""
+    rng = np.random.RandomState(seed)
+    dims = [(256 // s, 320 // s) for s in (4, 8, 16, 32)]
+    pyramid = [torch.tensor(rng.randn(2, h, w, C), dtype=dtype,
+                            device=device) for h, w in dims]
+    geom = win.ladder_geom(dims, ((32, 40), (64, 48), (16, 96), (32, 96),
+                                  (128, 128)))
+    canvas = win.build_canvas(pyramid, geom)
+    wy, wx = window or (geom["wy_base"], geom["wx_base"])
+    xy = rng.uniform(0, 280, (n, 2))
+    wh = rng.lognormal(3.5, 0.8, (n, 2)).clip(2, 300)
+    rois = torch.tensor(np.concatenate([xy, xy + wh], 1),
+                        dtype=torch.float32, device=device)
+    sy, sx, vy, vx, _ = win.window_params(
+        rois, geom, (0.25, 0.125, 0.0625, 0.03125), pooled, 2, 2, 5, 224, 4,
+        wy, wx, dtype)
+    img = torch.tensor(rng.randint(0, 2, n), dtype=torch.int32,
+                       device=device)
+    return canvas, torch.stack([img, sy, sx], -1).contiguous(), vy, vx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,window,rows", [(7, None, None),
+                                           (14, None, None),
+                                           (7, (64, 48), (2, 30)),
+                                           (7, (16, 96), (0, 40)),
+                                           (7, (32, 96), (4, 9)),
+                                           (16, (128, 128), (0, 12))])
+def test_roi_window_pool_sparse_weights(device, P, window, rows, dtype):
+    """The ladder's own weights (each pooled row reaches a few window rows
+    and columns), with one RoI whose vy is all zero and one whose vx is:
+    those pool to exact zeros."""
+    canvas, starts, vy, vx = _ladder_pool_inputs(P + len(rows or ()), 40, P,
+                                                 window, dtype, device)
+    vy[3] = 0
+    vx[5] = 0
+    before = (rk.roi_window_pool.launches, rk.roi_window_pool_seg.launches)
+    if rows is None:
+        rows = (0, 40)
+        got = rk.roi_window_pool(canvas, starts, vy, vx)
+        assert rk.roi_window_pool.launches == before[0] + 1
+    else:
+        got = rk.roi_window_pool_seg(canvas, starts, vy, vx, rows)
+        assert rk.roi_window_pool_seg.launches == before[1] + 1
+    ref = rk.roi_window_pool_plain(canvas, starts, vy, vx, rows)
+    lo, hi = rows
+    _close(got[lo:hi], ref[lo:hi], dtype)
+    for k in (3, 5):
+        if lo <= k < hi:
+            assert not got[k].any()
+    assert got[lo:hi].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,WY,WX", [(7, 32, 48), (16, 128, 128)])
+def test_roi_window_pool_clips_at_the_canvas_edge(device, P, WY, WX, dtype):
+    """Windows that run past the canvas's bottom and right edges, dense
+    weights: the kernel skips the cells past the edge, which is the plain
+    version on the canvas padded with zeros. Also the wrapper's limits
+    (P = 16, a 128 x 128 window)."""
+    canvas, starts, vy, vx = _pool_inputs(WY + P, 12, P, WY, WX, dtype,
+                                          device, C=48, Hc=140, Wc=150)
+    Hc, Wc = canvas.shape[1:3]
+    starts[:, 1] = torch.arange(12, device=device) % 4 * (Hc - WY // 2) // 3
+    starts[:, 2] = torch.arange(12, device=device) // 4 * (Wc - WX // 3) // 2
+    padded = torch.nn.functional.pad(canvas, (0, 0, 0, WX, 0, WY))
+    _close(rk.roi_window_pool(canvas, starts, vy, vx),
+           rk.roi_window_pool_plain(padded, starts, vy, vx), dtype)
 
 
 @pytest.mark.parametrize("P,WY,WX,rows", [(7, 32, 48, None),
