@@ -11,11 +11,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      CUDA tensors against its plain PyTorch version on the same inputs
      (K1, the IoU bitmask then a one-warp scan per lane, at the RPN's
      five levels stacked into one call as both paths launch it, one level
-     alone and the per-class tail; K2/K3, which pool only the canvas
-     cells their weights reach, at the box and mask heads' base windows
-     and each fix-up rung. K1 and K5 exactly; K2/K3 within 2 bf16 ulps;
-     K4, whose atomic adds
-     sum overlapping windows in an order that changes from run to run,
+     alone, the per-class tail, and the default cfg's long lanes (12000
+     boxes, stacked and one level alone); K2/K3, which pool only the
+     canvas cells their weights reach, at the box and mask heads' base
+     windows and each fix-up rung; K4, their transpose over the same
+     reach, at the training path's box, mask and rung shapes. K1 and K5
+     exactly; K2/K3 within 2 bf16 ulps; K4, whose vector reductions sum
+     overlapping windows in an order that changes from run to run,
      within 1e-5 max|ref| + 1e-6; K6 in bf16 within 2^-7 |ref| + 2^-6
      max|ref| with under 20% of the elements differing, in f32 within
      1e-5 max|ref|), with median CUDA-event times of both (one call
@@ -58,7 +60,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   6. The TPU.FUSED_RES2 inference path: phase 4 with TPU.FUSED_RES2 on,
      so the stem post-ops and res2 run as K5 then K6 (the "packed" mode);
      then phase 4's path and this one in turns on the same inputs, and a
-     torch.profiler batch of each (device busy time, idle share).
+     torch.profiler batch of each (device busy time, idle share, the top
+     kernels and the port's own kernels by device time).
   Phases 4, 5 and 6 each zero the launch counters just before and read
   them just after; every kernel of the path must have launched.
 Prints a {"kernels": [...]} line (each kernel's launches on its own path:
@@ -67,8 +70,9 @@ path for K5/K6; launches_by_path has all three), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No single PyTorch call computes any of K1-K6 (there is no torchvision),
 so every kernel's library_ms is null. --profile-train adds a torch.profiler
-run of one more training step, printing its device time by kernel, then
-the host time of each stage (forward, backward, update) of 4 more steps.
+run of one more training step, printing its device time by kernel and
+K4's launches in it, then the host time of each stage (forward, backward,
+update) of 4 more steps.
 --clip-gradients sets phase 5's CLIP_GRADIENTS.
 
 TF32 is off for both cuDNN convolutions and matmuls
@@ -116,6 +120,9 @@ FUSED_RES2 = ["TPU.FUSED_RES2", "True"]
 RES2_MACS = 4096 + 36864 + 2 * 16384 + 2 * (2 * 16384 + 36864)
 RES2_WEIGHTS = RES2_MACS      # one weight per multiply-add of a pixel
 RES2_BIASES = 3 * (64 + 64 + 256)
+# Names of the port's CUDA kernels (csrc/*.cu), as the profiler lists them.
+PORT_KERNELS = ("nms_iou_mask_kernel", "nms_scan", "roi_window_pool_kernel",
+                "roi_window_accum_kernel", "stem_pool", "fused_res2")
 
 
 def cuda_ms(fn, reps):
@@ -278,7 +285,9 @@ def nms_bound(boxes, valid, keep):
 # Phase 2 inputs at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def nms_lanes(rng, L, N, device):
+def nms_lanes(rng, L, N, device, cut=True):
+    """L lanes of N random boxes, 97% valid; with `cut`, the lanes end at
+    a random index past N / 2 (invalid slots after it)."""
     import torch
 
     x1 = rng.uniform(0, 1300, (L, N))
@@ -286,7 +295,8 @@ def nms_lanes(rng, L, N, device):
     wh = rng.uniform(8, 300, (L, N, 2))
     boxes = np.stack([x1, y1, x1 + wh[..., 0], y1 + wh[..., 1]], -1)
     valid = rng.rand(L, N) < 0.97
-    valid[:, rng.randint(N // 2, N):] = False
+    if cut:
+        valid[:, rng.randint(N // 2, N):] = False
     return (torch.from_numpy(boxes.astype(np.float32)).to(device),
             torch.from_numpy(valid).to(device))
 
@@ -347,25 +357,38 @@ def check_kernels(device):
     # K1: the RPN's five levels stacked into one call, as the paths launch
     # it (L = 5B lanes; inference N = 1000, training N = 2000; P6's lanes
     # hold 819 boxes), one level alone (L = B; N = 1000, 819 at P6, 2000),
-    # and the detection tail (L = B * 80 classes, N = K = 400). Exact.
-    # The stacked shapes draw from a generator of their own, so that the
-    # other shapes' inputs stay those of earlier runs.
+    # and the detection tail (L = B * 80 classes, N = K = 400). Then the
+    # long lanes of the default cfg (RPN_PRE_NMS_TOP_N 12000, which the
+    # preset lowers): the five levels stacked, P2-P4 at 12000 boxes, P5 at
+    # 3276 and P6 at 819, and one level of 12000, each lane valid to its
+    # end. Exact. The stacked and the long shapes draw from generators of
+    # their own, so that the other shapes' inputs stay those of earlier
+    # runs.
     stack_rng = np.random.RandomState(10)
-    for (L, N), thr, stacked in (((BATCH, 1000), 0.7, False),
-                                 ((BATCH, 819), 0.7, False),
-                                 ((BATCH, 2000), 0.7, False),
-                                 ((BATCH * 80, 400), 0.5, False),
-                                 ((5 * BATCH, 1000), 0.7, True),
-                                 ((5 * BATCH, 2000), 0.7, True)):
-        boxes, valid = nms_lanes(stack_rng if stacked else rng, L, N, device)
-        if stacked:
-            valid[-BATCH:, 819:] = False
+    long_rng = np.random.RandomState(11)
+    for (L, N), thr, levels in (((BATCH, 1000), 0.7, None),
+                                ((BATCH, 819), 0.7, None),
+                                ((BATCH, 2000), 0.7, None),
+                                ((BATCH * 80, 400), 0.5, None),
+                                ((5 * BATCH, 1000), 0.7, (1000,) * 4 + (819,)),
+                                ((5 * BATCH, 2000), 0.7, (2000,) * 4 + (819,)),
+                                ((5 * BATCH, 12000), 0.7,
+                                 (12000,) * 3 + (3276, 819)),
+                                ((BATCH, 12000), 0.7, (12000,))):
+        long_lane = N > 2048
+        boxes, valid = nms_lanes(long_rng if long_lane else
+                                 stack_rng if levels else rng, L, N, device,
+                                 cut=not long_lane)
+        for i, n in enumerate(levels or ()):
+            valid[i * BATCH:(i + 1) * BATCH, n:] = False
         got = nms_kernel.nms_keep_mask(boxes, valid, thr)
         ref = nms_kernel.nms_keep_mask_plain(boxes, valid, thr)
         torch.cuda.synchronize()
         err = int((got != ref).sum())
-        shape = "L={} N={}{}".format(
-            L, N, " (5 RPN levels stacked, P6 lanes 819)" if stacked else "")
+        shape = "L={} N={}".format(L, N)
+        if levels and len(levels) == 5:
+            shape += " (5 RPN levels stacked, lanes of {})".format(
+                "/".join(str(n) for n in levels))
         if err:
             raise AssertionError("K1 nms_keep_mask disagrees with its plain "
                                  "version at {}: {} keep bits".format(shape,
@@ -374,7 +397,8 @@ def check_kernels(device):
                lambda: nms_kernel.nms_keep_mask(boxes, valid, thr),
                lambda: nms_kernel.nms_keep_mask_plain(boxes, valid, thr),
                nms_bound(boxes, valid, ref),
-               primary=(stacked and N == 1000))
+               primary=(levels is not None and N == 1000))
+        del boxes, valid, got, ref
 
     def pool_check(name, fn, plain, args, rows, shape, bnd, primary):
         reach = roi_reach_cells(args[0].shape, *(t[rows[0]:rows[1]]
@@ -1030,17 +1054,21 @@ def run_train_path(device, profile, clip):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    stats_list, marks = [], []
+    stats_list, marks, k4_marks = [], [], []
     for _ in range(TRAIN_STEPS):
         params, opt_state, stats = step(params, opt_state)
         stats_list.append(stats)
         marks.append(time.perf_counter())
+        k4_marks.append(roi_align_kernel.roi_window_accum.launches)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     # Host-clock marks between steps (each step synchronizes inside, at
     # the ladder's torch.nonzero), so these split the run by step.
-    print("train steps, host ms each: {}".format(
-        [round((b - a) * 1e3, 3) for a, b in zip([t0] + marks, marks)]))
+    print("train steps, host ms each: {}; K4 launches each: {} (one per "
+          "ladder route with RoIs: the box and mask base windows and each "
+          "fix-up rung that this step's RoIs reach)".format(
+              [round((b - a) * 1e3, 3) for a, b in zip([t0] + marks, marks)],
+              [b - a for a, b in zip([0] + k4_marks, k4_marks)]))
     losses = [{k: round(float(v), 4) for k, v in st.items()}
               for st in stats_list]
     launches = {name: fn.launches for name, fn in wrappers.items()}
@@ -1076,7 +1104,10 @@ def run_train_path(device, profile, clip):
         raise AssertionError("kernels not launched on the training path: "
                              + ", ".join(missing))
     if profile:
+        k4 = roi_align_kernel.roi_window_accum.launches
         profile_call("one train step", lambda: step(params, opt_state))
+        print("K4 launches in the profiled step: {}".format(
+            roi_align_kernel.roi_window_accum.launches - k4))
         stage_times(params, opt_state, batch, draws)
     return launches
 
@@ -1132,10 +1163,14 @@ def profile_call(label, fn, n_kernels=20, n_ops=15):
     print("profile of {}: wall {:.3f} ms, device busy {:.3f} ms (sum over "
           "kernels), idle share {:.3f}".format(label, wall, busy,
                                                1 - busy / wall))
-    for e in sorted(kernels,
-                    key=lambda e: -e.self_device_time_total)[:n_kernels]:
-        print("  kernel {:9.3f} ms {:6d} calls  {}".format(
-            e.self_device_time_total / 1e3, e.count, e.key[:90]))
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        # The top n_kernels, and the port's own kernels (csrc/) wherever
+        # they rank.
+        if i < n_kernels or any(k in e.key for k in PORT_KERNELS):
+            print("  kernel {:9.3f} ms {:6d} calls  {}{}".format(
+                e.self_device_time_total / 1e3, e.count, e.key[:90],
+                "" if i < n_kernels else "  (rank {})".format(i + 1)))
     ops = [e for e in events if e.device_type == DeviceType.CPU]
     for e in sorted(ops, key=lambda e: -e.cpu_time_total)[:n_ops]:
         print("  op {:9.3f} ms cpu total {:6d} calls  {}".format(

@@ -5,35 +5,54 @@
 // N boxes in descending score order: a valid box is kept unless a kept,
 // earlier box of its lane overlaps it with IoU > thr (Detectron's +1 rule).
 // Invalid boxes never pivot and never survive; each lane stops at its last
-// valid index, so invalid holes mid-lane are safe.
+// valid index, so invalid holes mid-lane are safe. N has no cap of its own.
 //
 // What bounds it on the card: the greedy recurrence is serial in the pivot,
 // and its latency, not bytes or operations, sets the time. A barrier per
 // pivot would chain up to N barriers on L CTAs (2 CTAs on 132 SMs for an
 // RPN level), so the serial part runs in one warp without barriers.
 //
-// Design: two kernels in one call, through an (L, N, ceil(N / 64)) 64-bit
-// scratch mask that the caller allocates.
+// Design: two kernels in one call, through an (L, N, nw) 64-bit scratch
+// mask that the caller allocates, nw = ceil(N / 64) words per row.
 //  1. nms_iou_mask_kernel, all the IoUs in parallel: one 64-thread CTA per
-//     (lane, 64-row block, 64-column block), column block >= row block. The
-//     column block's boxes and areas sit in shared memory; thread r of the
-//     CTA writes one word for row i: bit k set iff j = 64 * block + k > i,
-//     j is valid and IoU(i, j) > thr. A CTA whose row block or column block
-//     holds no valid box returns at once, and so does an invalid row: the
-//     scan uses only the rows of alive pivots, and a stale word of a column
-//     block with no valid box can only mark boxes that are never kept.
-//  2. nms_scan_kernel, the serial part without barriers: one warp per lane
-//     holds the lane's "removed" mask in registers, one word per thread
-//     (N <= 2048 -> <= 32 words). Block k's slab of mask rows (64 rows,
-//     words k..) is copied into shared memory with cp.async two blocks
-//     ahead of its use (three slabs), so no pivot waits on a global load.
-//     The owner of word k resolves the block's 64 pivots alone, from the
-//     64 diagonal words held in registers, in an unrolled chain of a bit
-//     test and a masked AND per pivot; the block's alive pivots are
-//     broadcast with __shfl_sync, and every later word ORs in their rows
-//     (independent loads, in any order: OR is order-free). The lane's
-//     valid bytes are loaded all at once before the ballots that pack
-//     them. keep = valid & ~removed.
+//     (lane, 64-row block, 64-column block), column block >= row block, on
+//     grid (L, nw, nw) (grid.y and grid.z reach 65,535 blocks: N up to 4.2
+//     M boxes). The column block's boxes and areas sit in shared memory;
+//     thread r of the CTA writes one word for row i: bit k set iff
+//     j = 64 * block + k > i, j is valid and IoU(i, j) > thr. A CTA whose
+//     row block or column block holds no valid box returns at once, and so
+//     does an invalid row: the scan uses only the rows of alive pivots, and
+//     a stale word of a column block with no valid box can only mark boxes
+//     that are never kept.
+//  2. The scan, the serial part without barriers, in one of two kernels.
+//     Short lanes (N <= 2048, nw <= 32), nms_scan_kernel: one warp per lane
+//     holds the lane's "removed" mask in registers, one word per thread.
+//     Block k's slab of mask rows (64 rows, words k..) is copied into
+//     shared memory with cp.async two blocks ahead of its use (three slabs,
+//     at most 48 KB), so no pivot waits on a global load. The owner of word
+//     k resolves the block's 64 pivots alone, from the 64 diagonal words
+//     held in registers, in an unrolled chain of a bit test and a masked
+//     AND per pivot; the block's alive pivots are broadcast with
+//     __shfl_sync, and every later word ORs in their rows (independent
+//     loads, in any order: OR is order-free). The lane's valid bytes are
+//     loaded all at once before the ballots that pack them.
+//     Long lanes (nw > 32), nms_scan_long_kernel: the removed mask and the
+//     valid words live in shared memory (16 bytes per word: 3 KB at N =
+//     12000), and the blocks go in groups of 32. Warp 0 scans a group
+//     exactly as the short kernel scans a lane, with the group's 32 words
+//     in registers (thread t owns word k0 + t) and slabs of the group's
+//     words only (64 rows x 32 words, 16 KB; three in flight, 48 KB for any
+//     N). The words past the group wait for the group's end: then all 32
+//     warps OR the rows of the group's alive pivots into them, a thread per
+//     (word, eighth of the group's blocks), reading its column of those
+//     rows (a warp reads 256 contiguous bytes of a row) with unconditional
+//     loads, 16 in flight, and merging with a shared atomicOr; no barrier
+//     inside the group. What bounds a long lane: the scan's chain per
+//     block as for short lanes, plus the flush's reads, the rows' words
+//     past their group (~N nw / 2 words, from L2). The
+//     shared memory, 48 KB + 16 nw bytes, caps nw at 11,392 words (N <=
+//     729,088), where one lane's (N, nw) scratch takes 66 GB.
+//     keep = valid & ~removed.
 //
 // The IoU is computed in f32 exactly as the Pallas kernel writes it, with
 // round-to-nearest intrinsics so that no multiply-add is contracted: the
@@ -46,8 +65,13 @@
 namespace {
 
 constexpr int kBlock = 64;      // boxes per row / column block (one word)
-constexpr int kMaxWords = 32;   // 2048 boxes per lane
+constexpr int kMaxWords = 32;   // short lanes: 2048 boxes, a word a thread
 constexpr int kStages = 3;      // mask slabs in flight in the scan
+constexpr int kLongWarps = 32;  // long lanes: the scan warp and 31 helpers
+constexpr int kFlushWords = 128;  // words a flush pass covers
+// Long lanes' shared memory: the slabs, then removed and valid words.
+constexpr int kLongSlabBytes =
+    kStages * kBlock * kMaxWords * static_cast<int>(sizeof(unsigned long long));
 
 __device__ __forceinline__ float box_area(float x1, float y1, float x2,
                                           float y2) {
@@ -65,8 +89,8 @@ nms_iou_mask_kernel(const float* __restrict__ boxes,
                     unsigned long long* __restrict__ mask, int n, int nw,
                     float thr) {
   const int lane = blockIdx.x;
-  const int rb = blockIdx.y / nw;
-  const int cb = blockIdx.y % nw;
+  const int rb = blockIdx.y;
+  const int cb = blockIdx.z;
   if (cb < rb) return;
   __shared__ float4 sbox[kBlock];
   __shared__ float sarea[kBlock];
@@ -225,25 +249,189 @@ nms_scan_kernel(const unsigned long long* __restrict__ mask,
     lk[j] = static_cast<uint8_t>((kept[j / kBlock] >> (j % kBlock)) & 1);
 }
 
+// Long lanes (nw > kMaxWords): see the source note. One CTA of kLongWarps
+// warps per lane; warp 0 scans each group of 32 blocks, then all warps
+// carry the group's alive rows into the words past it.
+__global__ void __launch_bounds__(32 * kLongWarps)
+nms_scan_long_kernel(const unsigned long long* __restrict__ mask,
+                     const uint8_t* __restrict__ valid,
+                     uint8_t* __restrict__ keep, int n, int nw) {
+  constexpr int kThreads = 32 * kLongWarps;
+  constexpr int kSlabWords = kBlock * kMaxWords;
+  constexpr int kSlices = kThreads / kFlushWords;
+  extern __shared__ unsigned long long smem[];
+  unsigned long long* slab = smem;                       // kStages slabs
+  unsigned long long* removed = slab + kStages * kSlabWords;  // nw words
+  unsigned long long* vwords = removed + nw;                  // nw words
+  __shared__ unsigned long long alive_blk[kMaxWords];    // the group's
+  __shared__ int s_last;
+
+  const int lane = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int t = tid & 31;
+  const int warp = tid >> 5;
+  const uint8_t* lv = valid + static_cast<size_t>(lane) * n;
+  const unsigned long long* lm = mask + static_cast<size_t>(lane) * n * nw;
+
+  // The valid words, 32 boxes per ballot (a warp loads 8 pieces before
+  // it ballots them), and the last valid index.
+  if (tid == 0) s_last = -1;
+  for (int j = tid; j < nw; j += kThreads) removed[j] = 0;
+  __syncthreads();
+  unsigned* vhalf = reinterpret_cast<unsigned*>(vwords);
+  int my_last = -1;
+  for (int base = 8 * warp; base < 2 * nw; base += 8 * kLongWarps) {
+    bool v[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int j = 32 * (base + m) + t;
+      v[m] = j < n && lv[j] != 0;
+    }
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const unsigned bits = __ballot_sync(0xffffffffu, v[m]);
+      if (base + m < 2 * nw) {
+        if (t == 0) vhalf[base + m] = bits;
+        if (bits) my_last = 32 * (base + m) + 31 - __clz(bits);
+      }
+    }
+  }
+  if (t == 0 && my_last >= 0) atomicMax(&s_last, my_last);
+  __syncthreads();
+  const int last = s_last;
+  const int nblk = last < 0 ? 0 : last / kBlock + 1;
+
+  // Block k's rows up to the last valid one, the words of k's group from k
+  // on (thread t: word k0 + t), into slab k % kStages; one commit group per
+  // block (empty past the last block). Only warp 0 copies and reads slabs.
+  auto fetch = [&](int k) {
+    const int w = (k & ~(kMaxWords - 1)) + t;
+    if (k < nblk && w >= k && w < nw) {
+      const int row_end = min(kBlock * k + kBlock, last + 1);
+      unsigned long long* dst = slab + (k % kStages) * kSlabWords + t;
+      for (int i = kBlock * k; i < row_end; ++i)
+        cp_async8(dst + (i - kBlock * k) * kMaxWords,
+                  lm + static_cast<size_t>(i) * nw + w);
+    }
+    cp_async_commit();
+  };
+
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < kStages - 1; ++k) fetch(k);
+  }
+  for (int k0 = 0; k0 < nblk; k0 += kMaxWords) {
+    const int kend = min(k0 + kMaxWords, nblk);
+    if (warp == 0) {
+      const int w = k0 + t;
+      unsigned long long removed_w = w < nw ? removed[w] : 0;
+      const unsigned long long vword = w < nw ? vwords[w] : 0;
+      for (int k = k0; k < kend; ++k) {
+        fetch(k + kStages - 1);
+        cp_async_wait<kStages - 1>();
+        const unsigned long long* s = slab + (k % kStages) * kSlabWords;
+        const int kt = k - k0;
+        unsigned long long alive = 0;
+        if (t == kt) {
+          unsigned long long d[kBlock];
+#pragma unroll
+          for (int ii = 0; ii < kBlock; ++ii) d[ii] = s[ii * kMaxWords + kt];
+          alive = vword & ~removed_w;
+#pragma unroll
+          for (int ii = 0; ii < kBlock; ++ii)
+            if ((alive >> ii) & 1) alive &= ~d[ii];
+          removed_w = vword & ~alive;
+        }
+        alive = shfl64(alive, kt);
+        if (t > kt && w < nw) {
+          unsigned long long r = removed_w;
+#pragma unroll
+          for (int ii = 0; ii < kBlock; ++ii)
+            if ((alive >> ii) & 1) r |= s[ii * kMaxWords + t];
+          removed_w = r;
+        }
+        if (t == 0) alive_blk[kt] = alive;
+      }
+      if (w < nw) removed[w] = removed_w;
+    }
+    __syncthreads();
+    // The words past the group take the rows of its alive pivots: thread
+    // (slice, word j) ORs in the rows of blocks k0 + slice, k0 + slice +
+    // kSlices, ... up to each block's last alive pivot, loading every row
+    // (unconditional loads pipeline; the alive bits pick the ones kept).
+    for (int j0 = k0 + kMaxWords; j0 < nblk; j0 += kFlushWords) {
+      const int j = j0 + tid % kFlushWords;
+      if (j < nblk) {
+        unsigned long long r = 0;
+        for (int kb = tid / kFlushWords; kb < kend - k0; kb += kSlices) {
+          const unsigned long long a = alive_blk[kb];
+          if (a == 0) continue;
+          const int rows = kBlock - __clzll(static_cast<long long>(a));
+          const unsigned long long* col =
+              lm + static_cast<size_t>(kBlock) * (k0 + kb) * nw + j;
+#pragma unroll 16
+          for (int ii = 0; ii < rows; ++ii) {
+            const unsigned long long v = col[static_cast<size_t>(ii) * nw];
+            r |= (a >> ii) & 1 ? v : 0ull;
+          }
+        }
+        if (r) atomicOr(&removed[j], r);
+      }
+    }
+    __syncthreads();
+  }
+
+  uint8_t* lk = keep + static_cast<size_t>(lane) * n;
+  for (int j = tid; j < n; j += kThreads) {
+    const int w = j / kBlock;
+    lk[j] = static_cast<uint8_t>(((vwords[w] & ~removed[w]) >> (j % kBlock)) & 1);
+  }
+}
+
 }  // namespace
 
 // boxes: (L, N, 4) f32; valid, keep: (L, N) bytes (torch.bool); mask:
-// (L, N, ceil(N / 64)) 64-bit scratch, N <= 2048. Launches both kernels on
-// `stream` and returns cudaGetLastError().
+// (L, N, ceil(N / 64)) 64-bit scratch. Launches the IoU kernel and the
+// scan for N's lane length on `stream` and returns cudaGetLastError() (or
+// cudaErrorInvalidValue where a long lane's words exceed the shared memory
+// a block can have).
 extern "C" int nms_keep_mask_launch(const void* boxes, const void* valid,
                                     void* keep, void* mask, int lanes, int n,
                                     float thr, void* stream) {
   if (lanes > 0 && n > 0) {
     const int nw = (n + kBlock - 1) / kBlock;
-    if (nw > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    nms_iou_mask_kernel<<<dim3(lanes, nw * nw), kBlock, 0, s>>>(
+    const auto* m = static_cast<const unsigned long long*>(mask);
+    if (nw > kMaxWords) {
+      // Check the shared memory before launching anything.
+      int dev = 0, optin = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+      const size_t smem = kLongSlabBytes +
+          2 * static_cast<size_t>(nw) * sizeof(unsigned long long);
+      if (smem + 1024 > static_cast<size_t>(optin))
+        return static_cast<int>(cudaErrorInvalidValue);
+      const cudaError_t e = cudaFuncSetAttribute(
+          nms_scan_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    nms_iou_mask_kernel<<<dim3(lanes, nw, nw), kBlock, 0, s>>>(
         static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid),
         static_cast<unsigned long long*>(mask), n, nw, thr);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (nw > kMaxWords) {
+      const size_t smem = kLongSlabBytes +
+          2 * static_cast<size_t>(nw) * sizeof(unsigned long long);
+      nms_scan_long_kernel<<<lanes, 32 * kLongWarps, smem, s>>>(
+          m, static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep),
+          n, nw);
+      return static_cast<int>(cudaGetLastError());
+    }
     // Above 48 KB of shared memory only after opting in, once, for the
-    // largest lane (32 words).
+    // largest short lane (32 words).
     static const cudaError_t opt_in = cudaFuncSetAttribute(
         nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kStages * kBlock * kMaxWords *
@@ -252,8 +440,7 @@ extern "C" int nms_keep_mask_launch(const void* boxes, const void* valid,
     const size_t smem =
         static_cast<size_t>(kStages) * kBlock * nw * sizeof(unsigned long long);
     nms_scan_kernel<<<lanes, 32, smem, s>>>(
-        static_cast<const unsigned long long*>(mask),
-        static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), n,
+        m, static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), n,
         nw);
   }
   return static_cast<int>(cudaGetLastError());

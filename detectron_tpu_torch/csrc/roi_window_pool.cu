@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "window_reach.cuh"
+
 namespace {
 
 constexpr int kMaxWin = 128;
@@ -104,21 +106,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// First and last index of row[0, len) that is nonzero (-1 and -2 when
-// none), the same in every thread of the warp.
-__device__ __forceinline__ int2 nonzero_range(const float* row, int len) {
-  int lo = -1, hi = -2;
-  for (int k0 = 0; k0 < len; k0 += 32) {
-    const int k = k0 + static_cast<int>(threadIdx.x);
-    const unsigned bits =
-        __ballot_sync(0xffffffffu, k < len && row[k] != 0.0f);
-    if (bits) {
-      if (lo < 0) lo = k0 + __ffs(bits) - 1;
-      hi = k0 + 31 - __clz(bits);
-    }
-  }
-  return make_int2(lo, hi);
-}
+using window_reach::nonzero_mask;
+using window_reach::nonzero_range;
 
 template <typename T, int kPMax>
 __global__ void __launch_bounds__(32 * kPMax)
@@ -158,11 +147,8 @@ roi_window_pool_kernel(const T* __restrict__ canvas,
     ext[1] = ext[3] = -1;
   }
   __syncthreads();
-  for (int w = tid; w < WX; w += nthreads) {
-    unsigned m = 0;
-    for (int q = 0; q < P; ++q) m |= (svx[q * WX + w] != 0.0f) << q;
-    qmask[w] = static_cast<unsigned short>(m);
-  }
+  for (int w = tid; w < WX; w += nthreads)
+    qmask[w] = nonzero_mask(svx + w, P, WX);
 
   // Warp p: the rows of vy[p, :] and the columns of vx[p, :] with nonzero
   // weight, clipped at the canvas edge (cells past it are never read).

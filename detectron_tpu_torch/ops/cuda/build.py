@@ -3,10 +3,11 @@
 Each source compiles on its own into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), under
 build/detectron_tpu_torch/ at the repository root. A library's file name
-carries a hash of its source and flags, so an edited source rebuilds and an
-unchanged one is reused. build_all() starts one nvcc per missing library,
-all at once, and waits for them. Nothing is built when a module is
-imported: the first launch builds.
+carries a hash of its source, the headers in csrc/ and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.
+build_all() starts one nvcc per missing library, all at once, and waits
+for them. Nothing is built when a module is imported: the first launch
+builds.
 """
 
 import ctypes
@@ -43,10 +44,15 @@ def nvcc_path():
 
 
 def library_path(source):
+    """The library of `source`: its name carries a hash of the source, of
+    every header in CSRC (a source may include any of them) and of the
+    flags."""
     src = CSRC / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / "{}-{}.so".format(src.stem, digest)
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / "{}-{}.so".format(src.stem, h.hexdigest()[:16])
 
 
 def build_all():

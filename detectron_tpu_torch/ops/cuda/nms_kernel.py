@@ -4,8 +4,11 @@ Replaces detectron_tpu/ops/pallas/nms_kernel.py::nms_keep_mask. Bounded by
 the latency of the serial pivot recurrence, not by memory: the kernel
 first computes every IoU bit of a lane in parallel into a 64-bit mask
 (scratch the wrapper allocates, (L, N, ceil(N / 64)) int64), then one warp
-per lane scans it with the lane's removed mask in registers, one word per
-thread, so a lane holds at most MAX_BOXES = 32 x 64 boxes.
+per lane scans it: with the lane's removed mask in registers, one word per
+thread, for lanes of up to SHORT_LANE = 32 x 64 boxes, and in shared
+memory, 32 blocks of 64 boxes at a time, for longer lanes. N has no cap
+but the card's memory: the scratch is 18 MB per lane at N = 12000, and the
+long scan's shared memory holds up to MAX_WORDS words of 64 boxes.
 """
 
 import ctypes
@@ -14,7 +17,10 @@ import torch
 
 from detectron_tpu_torch.ops.cuda import build
 
-MAX_BOXES = 2048
+SHORT_LANE = 2048
+# Long lanes' scan: 48 KB of mask slabs and 16 bytes per word in the 227 KB
+# of shared memory a block can have.
+MAX_WORDS = (232448 - 49152 - 1024) // 16
 
 
 def nms_keep_mask_plain(boxes, valid, thr):
@@ -58,17 +64,23 @@ def nms_keep_mask(boxes, valid, thr):
     if boxes.shape != (L, N, 4):
         raise ValueError("nms_keep_mask: boxes {} vs valid {}".format(
             tuple(boxes.shape), tuple(valid.shape)))
-    if N > MAX_BOXES:
-        raise ValueError("nms_keep_mask: N={} > {} boxes per lane".format(
-            N, MAX_BOXES))
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("nms_keep_mask needs contiguous inputs")
+    words = -(-N // 64)
+    if N > SHORT_LANE:
+        scratch = L * N * words * 8
+        total = torch.cuda.get_device_properties(boxes.device).total_memory
+        if words > MAX_WORDS or scratch > total:
+            raise ValueError(
+                "nms_keep_mask: L={} lanes of N={} boxes need a {:.1f} GB "
+                "IoU mask ({:.1f} GB on the card) and {} words of the scan's "
+                "shared memory (at most {})".format(
+                    L, N, scratch / 1e9, total / 1e9, words, MAX_WORDS))
     fn = build.load("nms_keep_mask.cu", "nms_keep_mask_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     keep = torch.empty((L, N), dtype=torch.bool, device=boxes.device)
-    mask = torch.empty((L, N, -(-N // 64)), dtype=torch.int64,
-                       device=boxes.device)
+    mask = torch.empty((L, N, words), dtype=torch.int64, device=boxes.device)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
              mask.data_ptr(), L, N, float(thr), stream)

@@ -21,8 +21,9 @@ active range, in f32 and in place,
     canvas_grad[b, y0 + h, x0 + w, c] += sum_p vy[n, p, h]
                                          * sum_q vx[n, q, w] * ct[n, p, q, c]
 
-with overlapping windows summed (atomic adds on the card, so the order of
-the sum, and its last bits, change from run to run).
+over the cells the weights reach only, with overlapping windows summed
+(16-byte vector reductions on the card, so the order of the sum, and its
+last bits, change from run to run).
 """
 
 import ctypes

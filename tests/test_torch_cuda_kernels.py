@@ -51,11 +51,17 @@ def _lanes(seed, L, N, device):
 @pytest.mark.parametrize("L,N,thr", [(1, 1, 0.5), (3, 64, 0.5),
                                      (2, 1000, 0.7), (161, 400, 0.5),
                                      (4, 2048, 0.3), (3, 65, 0.5),
-                                     (2, 819, 0.7), (10, 2000, 0.7)])
+                                     (2, 819, 0.7), (10, 2000, 0.7),
+                                     (2, 2049, 0.7), (2, 6000, 0.5),
+                                     (2, 12000, 0.7), (1, 20000, 0.7)])
 def test_nms_keep_mask_matches_plain(device, L, N, thr):
     """Random lanes with invalid holes mid-lane, repeated boxes (IoU
     exactly 1) and a tail of invalid slots; N not a multiple of 64 (65,
-    819) and the largest N."""
+    819), the largest short lane (2048) and long lanes, whose scan keeps
+    its mask in shared memory: one word past the short ones (2049), the
+    default cfg's RPN_PRE_NMS_TOP_N (12000) and N = 20000 (313 words: past
+    the short scan's slabs and past 65,535 (row block, column block)
+    pairs)."""
     boxes, valid = _lanes(L + N, L, N, device)
     before = nms_kernel.nms_keep_mask.launches
     got = nms_kernel.nms_keep_mask(boxes, valid, thr)
@@ -95,6 +101,21 @@ def test_nms_stacked_lanes_of_different_lengths(device):
     65 boxes padded to 1000 with invalid slots, in one launch, give each
     group's keep mask exactly."""
     groups = [_lanes(N, 2, N, device) for N in (1000, 819, 65)]
+    scores = [torch.where(v, torch.linspace(1, 0, v.shape[1], device=device),
+                          -torch.inf) for _, v in groups]
+    before = nms_kernel.nms_keep_mask.launches
+    got = nms_ops.nms_stacked_mask([b for b, _ in groups], scores, 0.7)
+    assert nms_kernel.nms_keep_mask.launches == before + 1
+    for (b, v), k in zip(groups, got):
+        assert torch.equal(k, nms_kernel.nms_keep_mask_plain(b, v, 0.7))
+
+
+def test_nms_stacked_lanes_of_the_default_cfg(device):
+    """The RPN's stacked call at the default cfg (RPN_PRE_NMS_TOP_N 12000)
+    on an 832 x 1344 canvas, B = 2: P2-P4 give 12000 boxes, P5 3276 and P6
+    819, padded to 12000 in one launch of the long scan."""
+    groups = [_lanes(N + 1, 2, N, device)
+              for N in (12000, 12000, 12000, 3276, 819)]
     scores = [torch.where(v, torch.linspace(1, 0, v.shape[1], device=device),
                           -torch.inf) for _, v in groups]
     before = nms_kernel.nms_keep_mask.launches
@@ -248,6 +269,80 @@ def test_roi_window_accum_matches_plain(device, P, WY, WX, rows):
     assert float((got - ref).abs().max()) <= bound
 
 
+def _accum_check(canvas, starts, ct, vy, vx, rows=None):
+    """K4 on a random base canvas against its plain version, within 1e-5
+    max|ref| + 1e-6; returns the kernel's canvas."""
+    base = torch.randn(canvas.shape, device=canvas.device,
+                       generator=torch.Generator(canvas.device).manual_seed(1))
+    got = base.clone()
+    before = rk.roi_window_accum.launches
+    assert rk.roi_window_accum(got, starts, ct, vy, vx, rows) is got
+    assert rk.roi_window_accum.launches == before + 1
+    ref = rk.roi_window_accum_plain(base.clone(), starts, ct, vy, vx, rows)
+    torch.cuda.synchronize()
+    bound = 1e-5 * float(ref.abs().max()) + 1e-6
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= bound
+    return got - base
+
+
+@pytest.mark.parametrize("C", [35, 80, 256])
+def test_roi_window_accum_on_one_spot(device, C):
+    """Every RoI on one spot: 64 RoIs with one origin and the ladder's
+    weights of one box (the one whose weights reach the most cells), so
+    each reached cell takes 64 reductions from 64 CTAs at once. C = 35
+    takes the scalar adds (no 16-byte lanes)."""
+    canvas, starts, vy, vx = _ladder_pool_inputs(C, 64, 7, None,
+                                                 torch.float32, device, C=C)
+    k = int((vy.ne(0).any(1).sum(1) * vx.ne(0).any(1).sum(1)).argmax())
+    starts[:] = starts[k].clone()
+    vy[:] = vy[k].clone()
+    vx[:] = vx[k].clone()
+    ct = torch.randn((64, 7, 7, C), device=device,
+                     generator=torch.Generator(device).manual_seed(C))
+    d = _accum_check(canvas, starts, ct, vy, vx)
+    assert float(d.abs().max()) > 0
+
+
+@pytest.mark.parametrize("C", [35, 80, 256])
+@pytest.mark.parametrize("P,window,rows", [(7, None, None), (14, None, None),
+                                           (7, (16, 96), (3, 29)),
+                                           (16, (128, 128), (0, 12))])
+def test_roi_window_accum_sparse_weights(device, P, window, rows, C):
+    """The ladder's own weights, with one RoI whose vy is all zero and one
+    whose vx is (they add nothing), at the base window, a rung with an
+    active row range, and the wrapper's limits (P = 16 on a 128 x 128
+    window)."""
+    canvas, starts, vy, vx = _ladder_pool_inputs(P + C, 40, P, window,
+                                                 torch.float32, device, C=C)
+    vy[3] = 0
+    vx[5] = 0
+    ct = torch.randn((40, P, P, C), device=device,
+                     generator=torch.Generator(device).manual_seed(P))
+    _accum_check(canvas, starts, ct, vy, vx, rows)
+    zero = torch.zeros_like(canvas)
+    rk.roi_window_accum(zero, starts[[3, 5]], ct[[3, 5]], vy[[3, 5]],
+                        vx[[3, 5]])
+    assert not zero.any()
+
+
+@pytest.mark.parametrize("P,WY,WX,C", [(7, 32, 48, 256), (16, 128, 128, 35),
+                                       (14, 32, 96, 80)])
+def test_roi_window_accum_clips_at_the_canvas_edge(device, P, WY, WX, C):
+    """Windows past the canvas's bottom and right edges, dense weights:
+    the cells past the edge are dropped, as the plain version drops
+    them."""
+    canvas, starts, vy, vx = _pool_inputs(WY + P + C, 12, P, WY, WX,
+                                          torch.float32, device, C=C,
+                                          Hc=140, Wc=150)
+    Hc, Wc = canvas.shape[1:3]
+    starts[:, 1] = torch.arange(12, device=device) % 4 * (Hc - WY // 2) // 3
+    starts[:, 2] = torch.arange(12, device=device) // 4 * (Wc - WX // 3) // 2
+    ct = torch.randn((12, P, P, C), device=device,
+                     generator=torch.Generator(device).manual_seed(WY))
+    _accum_check(canvas, starts, ct, vy, vx)
+
+
 def test_wrappers_raise_instead_of_falling_back(device):
     canvas, starts, vy, vx = _pool_inputs(0, 8, 7, 32, 48, torch.float32,
                                           device)
@@ -268,7 +363,14 @@ def test_wrappers_raise_instead_of_falling_back(device):
         rk.roi_window_accum(canvas, starts, ct, vy, vx, rows=(0, 9))
     boxes, valid = _lanes(0, 2, 3000, device)
     with pytest.raises(ValueError):
-        nms_kernel.nms_keep_mask(boxes, valid, 0.5)
+        nms_kernel.nms_keep_mask(boxes[:, :2999].contiguous(), valid, 0.5)
+    with pytest.raises(ValueError):
+        nms_kernel.nms_keep_mask(boxes, valid.cpu(), 0.5)
+    # Lanes whose IoU mask (80 GB) and scan words pass what the card holds.
+    with pytest.raises(ValueError):
+        nms_kernel.nms_keep_mask(torch.zeros((1, 800000, 4), device=device),
+                                 torch.ones((1, 800000), dtype=torch.bool,
+                                            device=device), 0.5)
     with pytest.raises(TypeError):
         nms_kernel.nms_keep_mask(boxes.double(), valid, 0.5)
 
@@ -341,6 +443,24 @@ def test_fused_res2_matches_plain(device, shape, dtype):
             float((d / bound).max()), share, float(d.max()), top,
             np.unravel_index(worst, d.shape), float(got.flatten()[worst]),
             float(ref.flatten()[worst]))
+
+
+@pytest.mark.parametrize("shape", [(1, 9, 17, 64), (1, 37, 50, 64),
+                                   (1, 211, 333, 64)])
+def test_fused_res2_bf16_ragged_single_image(device, shape):
+    """bf16, one image, H and W not multiples of the 8 x 16 tile (one tile
+    and a ragged row and column of tiles; many tiles at about the stage's
+    full size)."""
+    folded = fk.fold_res2_weights(_res2_stage(shape[2], device),
+                                  torch.bfloat16)
+    x = torch.tensor(np.random.RandomState(shape[1]).randn(*shape),
+                     dtype=torch.bfloat16, device=device).relu()
+    got = fk.fused_res2(x, folded).float()
+    ref = fk.fused_res2_plain(x, folded).float()
+    d = (got - ref).abs()
+    top = float(ref.abs().max())
+    assert bool((d <= 2.0 ** -7 * ref.abs() + 2.0 ** -6 * top).all())
+    assert float((d > 0).float().mean()) < 0.2
 
 
 def test_fused_wrappers_raise_instead_of_falling_back(device):
