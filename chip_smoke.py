@@ -62,11 +62,34 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      then phase 4's path and this one in turns on the same inputs, and a
      torch.profiler batch of each (device busy time, idle share, the top
      kernels and the port's own kernels by device time).
-  Phases 4, 5 and 6 each zero the launch counters just before and read
+  7. The dataset inference engine (core/test_engine.py), as
+     `python -m detectron_tpu_torch.tools.test_net` runs it: a synthetic
+     COCO val set of ENGINE_IMAGES PPM images at COCO-typical sizes (both
+     orientation buckets; tools/make_synthetic_valset.py), 80 categories,
+     polygon ground truth; phase 4's calibrated weights written with
+     utils/net.save_ckpt and loaded by initialize_model_from_cfg; then
+     run_inference at full width in bfloat16, batch ENGINE_BATCH,
+     TEST.SCALE 800 / MAX_SIZE 1333, to detections.pkl and COCO box and
+     mask AP (printed, not judged: the weights are random). Every image
+     must have finite (n, 5) boxes inside it per class, with as many RLEs;
+     the first batch must equal detect_graph called directly on the batch
+     the engine prepared (boxes and RLE strings exactly); TEST.SOFT_NMS
+     and TEST.BBOX_VOTE must route 4 images through the host path, and
+     without them im_detect_all must match the batched path on the same
+     single-image batches (scores rtol 1e-4 / atol 1e-5, boxes rtol 1e-3
+     / atol 0.05, as tests/test_e2e_inference.py), in float32, on
+     low-contrast copies of the 4 images at scale 1 (the host NMS works in
+     image coordinates, the device NMS in scaled ones, and with the +1 box
+     convention IoUs near the threshold differ between the two). The engine logs its
+     end-to-end and steady img/s, per-batch load, device-wait and post
+     seconds, and the evaluation's seconds; a torch.profiler run of one
+     engine batch gives the device's busy time and idle share.
+  Phases 4, 5, 6 and 7 each zero the launch counters just before and read
   them just after; every kernel of the path must have launched.
 Prints a {"kernels": [...]} line (each kernel's launches on its own path:
 the inference main path for K1-K3, training for K4, the TPU.FUSED_RES2
-path for K5/K6; launches_by_path has all three), then as the last line
+path for K5/K6; launches_by_path has all four, "test_net" being phase
+7's run_inference), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No single PyTorch call computes any of K1-K6 (there is no torchvision),
 so every kernel's library_ms is null. --profile-train adds a torch.profiler
@@ -82,9 +105,11 @@ False), so the float32 checks of phases 2 and 3 run in full float32.
 
 import argparse
 import json
+import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,6 +118,9 @@ BATCH = 2
 CANVAS = (832, 1344)
 IM_INFO = (800.0, 1333.0, 1.6)
 MAIN_RUNS = 3
+# Phase 7: the synthetic val set's size and the engine's batch.
+ENGINE_IMAGES = 48
+ENGINE_BATCH = 8
 TRAIN_STEPS = 3
 # Global-norm gradient clipping of the training main path (the cfg's
 # from-scratch setting, SOLVER.CLIP_GRADIENTS; Detectron's preset has none).
@@ -1177,6 +1205,240 @@ def profile_call(label, fn, n_kernels=20, n_ops=15):
             e.cpu_time_total / 1e3, e.count, e.key[:90]))
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the dataset inference engine
+# ---------------------------------------------------------------------------
+
+def _check_engine_results(dets, roidb, num_classes):
+    """Every image has a result; each all_boxes[j][i] is a finite (n, 5)
+    array inside its original image, with as many RLEs of the image's size
+    in all_segms[j][i]. Returns the number of detections."""
+    n = 0
+    for i, entry in enumerate(roidb):
+        h, w = entry["height"], entry["width"]
+        for j in range(1, num_classes):
+            b, segms = dets["all_boxes"][j][i], dets["all_segms"][j][i]
+            if not isinstance(b, np.ndarray) or b.ndim != 2 or \
+                    b.shape[1] != 5:
+                raise AssertionError("image {} class {}: no (n, 5) result: "
+                                     "{!r}".format(i, j, b))
+            if not np.isfinite(b).all():
+                raise AssertionError("image {} class {}: non-finite "
+                                     "boxes".format(i, j))
+            if ((b[:, :4] < 0).any() or (b[:, [0, 2]] > w).any()
+                    or (b[:, [1, 3]] > h).any()):
+                raise AssertionError("image {} class {}: boxes outside the "
+                                     "{} x {} image".format(i, j, w, h))
+            if len(segms) != len(b) or any(r["size"] != [h, w]
+                                           for r in segms):
+                raise AssertionError("image {} class {}: {} boxes, {} RLEs"
+                                     .format(i, j, len(b), len(segms)))
+            n += len(b)
+    return n
+
+
+def _same_image_results(got_boxes, got_segms, dets, idx, num_classes):
+    """Exact equality of one image's per-class boxes and RLE strings with
+    entry idx of a detections.pkl payload."""
+    for j in range(1, num_classes):
+        if not np.array_equal(got_boxes[j], dets["all_boxes"][j][idx]):
+            return "class {} boxes".format(j)
+        if got_segms[j] != dets["all_segms"][j][idx]:
+            return "class {} RLEs".format(j)
+    return None
+
+
+def _unmatched_detections(got, ref):
+    """Rows of ref (n, 5) that no row of got matches one to one, within
+    tests/test_e2e_inference.py's tolerances: score rtol 1e-4 / atol 1e-5,
+    boxes rtol 1e-3 / atol 0.05. Rows are paired in score order, each with
+    the first unused match, so detections of near-equal score may come in
+    either order."""
+    used = np.zeros(len(got), bool)
+    n = 0
+    for r in ref[np.argsort(-ref[:, 4], kind="stable")]:
+        ok = ~used & (np.abs(got[:, 4] - r[4]) <= 1e-5 + 1e-4 * abs(r[4]))
+        ok &= (np.abs(got[:, :4] - r[:4]) <= 0.05 + 1e-3 * np.abs(
+            r[:4])).all(1)
+        if ok.any():
+            used[np.argmax(ok)] = True
+        else:
+            n += 1
+    return n
+
+
+def run_engine_path(device, workdir):
+    """Phase 7. Returns K1-K3's launch counts over run_inference."""
+    import logging
+    import types
+
+    import torch
+
+    from detectron_tpu_torch.core import config
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core import test_engine
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.data.json_dataset import JsonDataset
+    from detectron_tpu_torch.models import init
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
+    from detectron_tpu_torch.utils import image_io
+    from detectron_tpu_torch.utils import net as net_utils
+    from detectron_tpu_torch.utils.logging import setup_logging
+    from detectron_tpu_torch.utils.synthetic import calibrate_detector_params
+
+    # The engine's own log lines (img/s, per-batch timers, evaluation
+    # time, AP) go to stdout; the per-category AP lines do not.
+    setup_logging(__name__)
+    logging.getLogger("detectron_tpu_torch.data.json_dataset_evaluator"
+                      ).setLevel(logging.WARNING)
+
+    t0 = time.perf_counter()
+    n_ann = make_valset(workdir, ENGINE_IMAGES)
+    set_cfg(tiny=False, dtype="bfloat16",
+            extra=["DATA_DIR", workdir, "TEST.DATASETS",
+                   "('coco_2017_val',)"])
+    ckpt = net_utils.save_ckpt(
+        workdir + "/train", 0,
+        calibrate_detector_params(init.init_model(0),
+                                  np.random.RandomState(0)))
+    args = types.SimpleNamespace(load_ckpt=ckpt, load_detectron=None)
+    print("engine set-up: {} images, {} annotations, checkpoint {}, in "
+          "{:.3f} s".format(ENGINE_IMAGES, n_ann, ckpt,
+                            time.perf_counter() - t0))
+
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": roi_align_kernel.roi_window_pool,
+                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
+    for fn in wrappers.values():
+        fn.launches = 0
+    out_dir = workdir + "/eval"
+    t0 = time.perf_counter()
+    results = test_engine.run_inference(
+        args, dataset_name="coco_2017_val", output_dir=out_dir,
+        batch_size=ENGINE_BATCH, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+
+    with open(out_dir + "/detections.pkl", "rb") as f:
+        dets = pickle.load(f)
+    dataset = JsonDataset("coco_2017_val")
+    roidb = dataset.get_roidb(gt=True)
+    C = cfg.MODEL.NUM_CLASSES
+    n_dets = _check_engine_results(dets, roidb, C)
+    ap = {task: results["coco_2017_val"][task]["AP"]
+          for task in ("box", "mask")}
+    if not all(np.isfinite(v) for v in ap.values()):
+        raise AssertionError("non-finite COCO AP: {}".format(ap))
+    print("engine path (run_inference, Mask R-CNN R-50-FPN, bf16, batch {}, "
+          "TEST.SCALE {} / MAX_SIZE {}): {} images, {} detections, box AP "
+          "{}, mask AP {} (random weights), {:.3f} s in all, launches {}"
+          .format(ENGINE_BATCH, cfg.TEST.SCALE, cfg.TEST.MAX_SIZE,
+                  len(roidb), n_dets, ap["box"], ap["mask"], wall, launches))
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError("kernels not launched on the test_net path: "
+                             + ", ".join(missing))
+    if n_dets == 0:
+        raise AssertionError("the engine produced no detections")
+
+    # The engine's first batch (the first ENGINE_BATCH landscape images)
+    # against detect_graph called directly on the batch the engine
+    # prepared: boxes equal, RLE strings identical.
+    params = test_engine.initialize_model_from_cfg(args, device=device)
+    first = [i for i, e in enumerate(roidb)
+             if e["width"] >= e["height"]][:ENGINE_BATCH]
+    prepared = []
+
+    def spy(params, images, im_info):
+        prepared.append((images.clone(), im_info.clone()))
+        return det.detect_graph(params, images, im_info)
+
+    test_engine.test_net(params, [roidb[i] for i in first], dataset,
+                         batch_size=ENGINE_BATCH, detect_fn=spy,
+                         device=device)
+    out = det.detect_graph(params, *prepared[0])
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    im_info = prepared[0][1].cpu().numpy()
+    for bi, idx in enumerate(first):
+        cls_boxes, cls_segms, _ = test_engine.device_outputs_to_image_results(
+            out, bi, im_info, C)
+        diff = _same_image_results(cls_boxes, cls_segms, dets, idx, C)
+        if diff:
+            raise AssertionError("engine image {} differs from detect_graph "
+                                 "on its prepared batch: {}".format(idx,
+                                                                    diff))
+    print("engine first batch: {} images equal to detect_graph on the "
+          "prepared batch (boxes and RLE strings)".format(len(first)))
+
+    # The flagged host path on 4 images: Soft-NMS, then box voting, routed
+    # through test_net_im_detect_all; then, with neither, im_detect_all
+    # against the batched path on the same single-image batches.
+    four = roidb[:4]
+    for keys in (["TEST.SOFT_NMS.ENABLED", "True"],
+                 ["TEST.BBOX_VOTE.ENABLED", "True"]):
+        config.merge_cfg_from_list(keys)
+        if not test_engine._flagged_host_path():
+            raise AssertionError(keys[0] + " does not route to the host "
+                                 "path")
+        flagged = dict(zip(("all_boxes", "all_segms"), test_engine.test_net(
+            params, four, dataset, batch_size=ENGINE_BATCH,
+            device=device)[:2]))
+        n = _check_engine_results(flagged, four, C)
+        print("engine host path, {}: {} images, {} detections".format(
+            keys[0], len(four), n))
+        config.merge_cfg_from_list([keys[0], "False"])
+    profile_call("one engine batch (test_net over {} landscape images: "
+                 "load, device, mask paste)".format(len(first)),
+                 lambda: test_engine.test_net(
+                     params, [roidb[i] for i in first], dataset,
+                     batch_size=ENGINE_BATCH, device=device),
+                 n_kernels=10, n_ops=10)
+
+    # im_detect_all against the batched path, in float32 as
+    # tests/test_e2e_inference.py compares them, on low-contrast copies of
+    # the 4 images (PIXEL_MEANS + N(0, 1) pixels) resized to TEST.SCALE on
+    # their short side. Low contrast: on the set's 0-255 noise the random
+    # weights saturate scores at 1.0, and the host limit then keeps every
+    # box tied with its last one. Scale 1: the host NMS runs on boxes in
+    # image coordinates and the device NMS in scaled ones, and with
+    # Detectron's +1 box convention an IoU near the threshold can fall on
+    # either side in the two.
+    set_cfg(tiny=False, dtype="float32",
+            extra=["DATA_DIR", workdir, "TEST.DATASETS",
+                   "('coco_2017_val',)"])
+    params = test_engine.initialize_model_from_cfg(args, device=device)
+    rng = np.random.RandomState(7)
+    low = []
+    for i, entry in enumerate(four):
+        k = cfg.TEST.SCALE / min(entry["height"], entry["width"])
+        h, w = round(entry["height"] * k), round(entry["width"] * k)
+        im = np.round(cfg.PIXEL_MEANS + rng.randn(h, w, 3))
+        path = "{}/low{}.ppm".format(workdir, i)
+        image_io.write_ppm(path, np.clip(im, 0, 255).astype(np.uint8))
+        low.append(dict(entry, image=path, height=h, width=w))
+    batched = test_engine.test_net(params, low, dataset, batch_size=1,
+                                   device=device)[0]
+    for i, entry in enumerate(low):
+        cls_boxes, _, _ = det.im_detect_all(
+            params, image_io.imread(entry["image"]), torch.device(device))
+        h = np.concatenate([b for b in cls_boxes[1:] if len(b)] or
+                           [np.zeros((0, 5), np.float32)])
+        d = np.concatenate([batched[j][i] for j in range(1, C)])
+        unmatched = _unmatched_detections(d, h)
+        if len(h) != len(d) or unmatched:
+            raise AssertionError(
+                "image {}: im_detect_all has {} detections, the batched "
+                "path {}; {} without a match".format(i, len(h), len(d),
+                                                     unmatched))
+    print("engine host path without flags, float32: im_detect_all equals "
+          "the batched path (batch 1) on {} low-contrast images at scale 1 "
+          "({} detections)".format(
+              len(low), sum(len(b) for cls in batched[1:] for b in cls)))
+    return launches
+
+
 def main():
     import torch
 
@@ -1224,6 +1486,8 @@ def main():
     training = run_train_path(device, args.profile_train, args.clip_gradients)
     fused = run_main_path(device, FUSED_RES2)
     compare_fused_inference(device)
+    with tempfile.TemporaryDirectory() as workdir:
+        engine = run_engine_path(device, workdir)
 
     meta = {
         "nms_keep_mask": ("detectron_tpu_torch/csrc/nms_keep_mask.cu",
@@ -1253,7 +1517,8 @@ def main():
         e = entries[name]
         by_path = {"inference": inference.get(name, 0),
                    "training": training.get(name, 0),
-                   "inference_fused_res2": fused.get(name, 0)}
+                   "inference_fused_res2": fused.get(name, 0),
+                   "test_net": engine.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": by_path[path_of[name]],

@@ -1,0 +1,126 @@
+"""Task-level evaluation dispatch (the port's copy of
+detectron_tpu/data/task_evaluation.py; reference:
+lib/datasets/task_evaluation.py): evaluate_all -> evaluate_boxes /
+evaluate_masks on COCO-style json datasets, the result-dict schema,
+check_expected_results (the reference's golden-number hook) and
+copy-paste-friendly logging. The VOC and Cityscapes evaluators wait for
+ROADMAP Queue A, A11, and the keypoint evaluation for A10.
+"""
+
+import logging
+from collections import OrderedDict
+
+from detectron_tpu_torch.core.config import cfg
+from detectron_tpu_torch.data import json_dataset_evaluator
+
+logger = logging.getLogger(__name__)
+
+
+def evaluate_all(dataset, all_boxes, all_segms, all_keyps, output_dir):
+    results = evaluate_boxes(dataset, all_boxes, output_dir)
+    logger.info("Evaluating bounding boxes is done!")
+    if cfg.MODEL.MASK_ON:
+        res = evaluate_masks(dataset, all_boxes, all_segms, output_dir)
+        results[dataset.name].update(res[dataset.name])
+        logger.info("Evaluating segmentations is done!")
+    if cfg.MODEL.KEYPOINTS_ON:
+        raise NotImplementedError("not ported yet (ROADMAP Queue A, A10): "
+                                  "the keypoint evaluation")
+    log_copy_paste_friendly_results(results)
+    return results
+
+
+def _use_json_dataset_evaluator(dataset):
+    return "coco" in dataset.name or cfg.TEST.FORCE_JSON_DATASET_EVAL
+
+
+def _check_json_dataset(dataset):
+    if _use_json_dataset_evaluator(dataset):
+        return
+    if "voc" in dataset.name or "cityscapes" in dataset.name:
+        raise NotImplementedError(
+            "not ported yet (ROADMAP Queue A, A11): the VOC and Cityscapes "
+            "evaluators ({})".format(dataset.name))
+    raise NotImplementedError("No evaluator for dataset: " + dataset.name)
+
+
+def evaluate_boxes(dataset, all_boxes, output_dir):
+    _check_json_dataset(dataset)
+    coco_eval = json_dataset_evaluator.evaluate_boxes(
+        dataset, all_boxes, output_dir)
+    return OrderedDict([(dataset.name, _coco_eval_to_box_results(coco_eval))])
+
+
+def evaluate_masks(dataset, all_boxes, all_segms, output_dir):
+    _check_json_dataset(dataset)
+    coco_eval = json_dataset_evaluator.evaluate_masks(
+        dataset, all_boxes, all_segms, output_dir)
+    return OrderedDict([(dataset.name,
+                         _coco_eval_to_mask_results(coco_eval))])
+
+
+# ---------------------------------------------------------------------------
+# Result-dict schema (identical key names to the reference)
+# ---------------------------------------------------------------------------
+
+def _coco_eval_to_box_results(coco_eval):
+    res = OrderedDict(
+        [("box",
+          OrderedDict([("AP", -1), ("AP50", -1), ("AP75", -1), ("APs", -1),
+                       ("APm", -1), ("APl", -1)]))])
+    if coco_eval is not None:
+        s = coco_eval.stats
+        res["box"] = OrderedDict(
+            zip(["AP", "AP50", "AP75", "APs", "APm", "APl"],
+                [float(v) for v in s[:6]]))
+    return res
+
+
+def _coco_eval_to_mask_results(coco_eval):
+    res = OrderedDict(
+        [("mask",
+          OrderedDict([("AP", -1), ("AP50", -1), ("AP75", -1), ("APs", -1),
+                       ("APm", -1), ("APl", -1)]))])
+    if coco_eval is not None:
+        s = coco_eval.stats
+        res["mask"] = OrderedDict(
+            zip(["AP", "AP50", "AP75", "APs", "APm", "APl"],
+                [float(v) for v in s[:6]]))
+    return res
+
+
+# ---------------------------------------------------------------------------
+
+def log_copy_paste_friendly_results(results):
+    for dataset in results.keys():
+        logger.info("copypaste: Dataset: %s", dataset)
+        for task, metrics in results[dataset].items():
+            logger.info("copypaste: Task: %s", task)
+            logger.info("copypaste: %s", ",".join(metrics.keys()))
+            logger.info("copypaste: %s", ",".join(
+                "{:.4f}".format(v) for v in metrics.values()))
+
+
+def check_expected_results(results, atol=0.005, rtol=0.1):
+    """Assert results match cfg.EXPECTED_RESULTS entries
+    [dataset, task, metric, expected_val] (the reference's golden-number
+    mechanism, lib/datasets/task_evaluation.py :: check_expected_results)."""
+    expected = cfg.EXPECTED_RESULTS
+    if not expected:
+        return
+    for dataset, task, metric, expected_val in expected:
+        assert dataset in results, "Unknown dataset: " + dataset
+        assert task in results[dataset], "Unknown task: " + task
+        assert metric in results[dataset][task], "Unknown metric: " + metric
+        actual_val = results[dataset][task][metric]
+        err = abs(actual_val - expected_val)
+        tol = atol + rtol * abs(expected_val)
+        # The JAX package's message has one placeholder too few and
+        # formats the metric's name with {:.3f}, which raises ValueError.
+        msg = (
+            "{} > {} > {} sanity check (actual vs. expected): {:.3f} vs. "
+            "{:.3f}, err={:.3f}, tol={:.3f}".format(
+                dataset, task, metric, actual_val, expected_val, err, tol))
+        if err > tol:
+            raise AssertionError("FAIL: " + msg)
+        logger.info("PASS: %s", msg)

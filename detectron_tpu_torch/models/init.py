@@ -135,7 +135,7 @@ def init_model(seed):
     port does not run yet."""
     resnet.check_body_supported()
     depth, num_stages = resnet.body_spec(cfg.MODEL.CONV_BODY)
-    if not (cfg.FPN.FPN_ON and cfg.FPN.MULTILEVEL_RPN and cfg.RPN.RPN_ON):
+    if not (cfg.FPN.FPN_ON and cfg.FPN.MULTILEVEL_RPN):
         raise NotImplementedError(_NOT_PORTED + "bodies other than FPN with "
                                   "a multilevel RPN")
     if cfg.FPN.USE_GN or cfg.FPN.EXTRA_CONV_LEVELS or \
@@ -149,8 +149,9 @@ def init_model(seed):
 
     rng = np.random.RandomState(seed)
     params = {"body": init_body(rng, depth, num_stages),
-              "fpn": init_fpn(rng),
-              "rpn": init_rpn(rng, cfg.FPN.DIM)}
+              "fpn": init_fpn(rng)}
+    if cfg.RPN.RPN_ON:  # off in Fast R-CNN mode (precomputed proposals)
+        params["rpn"] = init_rpn(rng, cfg.FPN.DIM)
     res = cfg.FAST_RCNN.ROI_XFORM_RESOLUTION
     hidden = cfg.FAST_RCNN.MLP_HEAD_DIM
     params["box_head"] = {
