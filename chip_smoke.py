@@ -84,12 +84,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      end-to-end and steady img/s, per-batch load, device-wait and post
      seconds, and the evaluation's seconds; a torch.profiler run of one
      engine batch gives the device's busy time and idle share.
-  Phases 4, 5, 6 and 7 each zero the launch counters just before and read
-  them just after; every kernel of the path must have launched.
+  8. The trainer, as `python -m detectron_tpu_torch.tools.train_net_step`
+     runs it: a synthetic COCO training set (coco_2017_train) of
+     TRAIN_NET_IMAGES PPM images written by make_synthetic_valset (both
+     orientation buckets, polygon ground truth, 80 categories); phase 4's
+     calibrated weights written as a Detectron .pkl in Caffe2 layouts,
+     which load_detectron_weight must read back to the same tree exactly,
+     and from which initialize_model_from_cfg must give the same tensors as
+     from a checkpoint of that tree; then train_net_step.main with
+     --dataset coco2017 --bs 2 --nw 4 --load_detectron, TRAIN.USE_FLIPPED,
+     TRAIN.SCALES (800,) / MAX_SIZE 1333, SOLVER.CLIP_GRADIENTS (phase 5's
+     reason), bf16 compute, for TRAIN_NET_STEPS steps (SOLVER.MAX_ITER 1,
+     which the linear-scaling rule multiplies by the preset's 8 x 2 images
+     a step over --bs 2). Every step's losses must be finite, and
+     the last checkpoint must read back through utils/net.load_ckpt_params
+     as the model's tree. Prints the median step after the first, img/s,
+     and the loader's wait per step (time blocked on next(loader)).
+  Phases 4, 5, 6, 7 and 8 each zero the launch counters just before and
+  read them just after; every kernel of the path must have launched (in
+  phase 8 K1, K2 and K4; K3 is reported).
 Prints a {"kernels": [...]} line (each kernel's launches on its own path:
 the inference main path for K1-K3, training for K4, the TPU.FUSED_RES2
-path for K5/K6; launches_by_path has all four, "test_net" being phase
-7's run_inference), then as the last line
+path for K5/K6; launches_by_path has all five, "test_net" being phase
+7's run_inference and "train_net" phase 8's train_net_step), then as the
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No single PyTorch call computes any of K1-K6 (there is no torchvision),
 so every kernel's library_ms is null. --profile-train adds a torch.profiler
@@ -122,6 +140,9 @@ MAIN_RUNS = 3
 ENGINE_IMAGES = 48
 ENGINE_BATCH = 8
 TRAIN_STEPS = 3
+# Phase 8: the synthetic training set's size and train_net_step's steps.
+TRAIN_NET_IMAGES = 16
+TRAIN_NET_STEPS = 8
 # Global-norm gradient clipping of the training main path (the cfg's
 # from-scratch setting, SOLVER.CLIP_GRADIENTS; Detectron's preset has none).
 # From random weights with no trained BN statistics the warm-up step's loss
@@ -1439,6 +1460,131 @@ def run_engine_path(device, workdir):
     return launches
 
 
+def run_train_net_path(device, workdir):
+    """Phase 8. Returns K1-K4's launch counts over train_net_step.main."""
+    import types
+
+    import torch
+
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.core import test_engine
+    from detectron_tpu_torch.models import init
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.tools import train_net_step
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
+    from detectron_tpu_torch.utils import detectron_weight_helper as dwh
+    from detectron_tpu_torch.utils import net as net_utils
+    from detectron_tpu_torch.utils.synthetic import calibrate_detector_params
+
+    t0 = time.perf_counter()
+    n_ann = make_valset(workdir, TRAIN_NET_IMAGES, "train2017")
+    set_cfg(tiny=False, dtype="bfloat16",
+            extra=["DATA_DIR", workdir, "OUTPUT_DIR", workdir + "/out"])
+    # Phase 4's calibrated weights as a Detectron .pkl, in Caffe2 layouts.
+    tree = calibrate_detector_params(init.init_model(0),
+                                     np.random.RandomState(0))
+    pkl = workdir + "/model_final.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump({"blobs": dwh.to_detectron_blobs(tree)}, f,
+                    pickle.HIGHEST_PROTOCOL)
+    loaded = dict(opt.flatten(dwh.load_detectron_weight(init.init_model(1),
+                                                         pkl)))
+    ref = dict(opt.flatten(tree))
+    diff = [p for p, a in ref.items() if not np.array_equal(loaded[p], a)]
+    if set(loaded) != set(ref) or diff:
+        raise AssertionError("load_detectron_weight of the written .pkl "
+                             "differs from its tree at {}".format(diff[:5]))
+    ckpt = net_utils.save_ckpt(workdir + "/weights", 0, tree)
+    from_pkl = test_engine.initialize_model_from_cfg(
+        types.SimpleNamespace(load_ckpt=None, load_detectron=pkl),
+        device=device)
+    from_ckpt = test_engine.initialize_model_from_cfg(
+        types.SimpleNamespace(load_ckpt=ckpt, load_detectron=None),
+        device=device)
+    a, b = _flat(from_pkl), _flat(from_ckpt)
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("initialize_model_from_cfg: --load_detectron "
+                             "and --load_ckpt of the same weights differ")
+    del from_pkl, from_ckpt, a, b
+    print("train_net set-up: {} images, {} annotations (coco_2017_train), "
+          "Detectron .pkl of {} blobs read back exactly, "
+          "initialize_model_from_cfg --load_detectron == --load_ckpt on {} "
+          "leaves, in {:.3f} s".format(
+              TRAIN_NET_IMAGES, n_ann, len(dwh.full_weight_mapping()),
+              len(ref), time.perf_counter() - t0))
+
+    # The preset's schedule is for NUM_GPUS x IMS_PER_BATCH = 16 images a
+    # step; the linear-scaling rule multiplies MAX_ITER by that over --bs
+    # (and divides the lr by it), so MAX_ITER 1 makes 8 steps of 2 images.
+    scale = cfg.NUM_GPUS * cfg.TRAIN.IMS_PER_BATCH // BATCH
+    max_iter = TRAIN_NET_STEPS // scale
+    assert max_iter * scale == TRAIN_NET_STEPS
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": roi_align_kernel.roi_window_pool,
+                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg,
+                "roi_window_accum": roi_align_kernel.roi_window_accum}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run = train_net_step.main([
+        "--dataset", "coco2017", "--bs", str(BATCH), "--nw", "4",
+        "--load_detectron", pkl, "--ckpt_num_per_epoch", "1",
+        "--disp_interval", "1", "--device", device, "--set",
+        "SOLVER.MAX_ITER", str(max_iter),
+        "SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS),
+        "TRAIN.USE_FLIPPED", "True", "TRAIN.SCALES", "(800,)",
+        "TRAIN.MAX_SIZE", "1333"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+
+    steps = len(run["stats"])
+    if steps != TRAIN_NET_STEPS:
+        raise AssertionError("train_net_step took {} steps, not {}".format(
+            steps, TRAIN_NET_STEPS))
+    bad = [s for s in run["stats"] if not all(np.isfinite(list(s.values())))]
+    if bad:
+        raise AssertionError("non-finite training stats: {}".format(bad))
+    got = dict(opt.flatten(net_utils.load_ckpt_params(run["ckpt"])))
+    if set(got) != set(ref) or not all(
+            got[p].shape == a.shape and np.isfinite(got[p]).all()
+            for p, a in ref.items()):
+        raise AssertionError("the checkpoint {} does not read back as the "
+                             "model's tree of finite values".format(
+                                 run["ckpt"]))
+    moved = sum(not np.array_equal(got[p], a) for p, a in ref.items())
+    step_ms = [t * 1e3 for t in run["step_s"][1:]]
+    wait_ms = [t * 1e3 for t in run["loader_wait_s"]]
+    median = statistics.median(step_ms)
+    print("train_net path (train_net_step.main, Mask R-CNN R-50-FPN, bf16 "
+          "compute / f32 params, --bs {} --nw 4 --load_detectron, "
+          "TRAIN.SCALES (800,) / MAX_SIZE 1333, USE_FLIPPED, "
+          "CLIP_GRADIENTS {}): {} steps over {} roidb entries in {:.3f} s, "
+          "canvases {}; median step {:.3f} ms after the first = {:.3f} "
+          "img/s; loader wait per step median {:.3f} ms, mean {:.3f} ms "
+          "(first step {:.3f} ms); checkpoint {} read back, {} of {} leaves "
+          "moved; launches {}".format(
+              BATCH, CLIP_GRADIENTS, steps, 2 * TRAIN_NET_IMAGES, wall,
+              sorted(set(run["canvases"])), median, BATCH / median * 1e3,
+              statistics.median(wait_ms), statistics.mean(wait_ms),
+              wait_ms[0], run["ckpt"], moved, len(got), launches))
+    print("train_net step ms: {}; loader wait ms: {}".format(
+        [round(t, 3) for t in [run["step_s"][0] * 1e3] + step_ms],
+        [round(t, 3) for t in wait_ms]))
+    for i, row in enumerate(run["stats"]):
+        print("train_net step {}: {}".format(
+            i, {k: round(v, 4) for k, v in row.items()}))
+    if moved == 0:
+        raise AssertionError("the training steps changed no param")
+    missing = [k for k in ("nms_keep_mask", "roi_window_pool",
+                           "roi_window_accum") if launches[k] == 0]
+    if missing:
+        raise AssertionError("kernels not launched on the train_net path: "
+                             + ", ".join(missing))
+    return launches
+
+
 def main():
     import torch
 
@@ -1488,6 +1634,8 @@ def main():
     compare_fused_inference(device)
     with tempfile.TemporaryDirectory() as workdir:
         engine = run_engine_path(device, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        train_net = run_train_net_path(device, workdir)
 
     meta = {
         "nms_keep_mask": ("detectron_tpu_torch/csrc/nms_keep_mask.cu",
@@ -1518,7 +1666,8 @@ def main():
         by_path = {"inference": inference.get(name, 0),
                    "training": training.get(name, 0),
                    "inference_fused_res2": fused.get(name, 0),
-                   "test_net": engine.get(name, 0)}
+                   "test_net": engine.get(name, 0),
+                   "train_net": train_net.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": by_path[path_of[name]],

@@ -56,8 +56,8 @@ def detect_graph_with_proposals(params, images, im_info, proposals,
 def _detect_tail(params, features, scales, rois, roi_valid, im_info):
     """Box head + decode + per-class NMS + top-D limit + mask head."""
     if cfg.MODEL.KEYPOINTS_ON:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A item "
-                                  "10): keypoint_graph")
+        raise NotImplementedError("not ported yet (ROADMAP Queue A, A6): "
+                                  "keypoint_graph")
     cls_logits, bbox_pred, _ = mb.forward_box_outputs(params, features,
                                                       scales, rois)
     B, R, C = cls_logits.shape

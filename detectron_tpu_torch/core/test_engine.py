@@ -41,6 +41,7 @@ from detectron_tpu_torch.models import init
 from detectron_tpu_torch.models import model_builder as mb
 from detectron_tpu_torch.utils import blob as blob_utils
 from detectron_tpu_torch.utils import boxes as box_utils
+from detectron_tpu_torch.utils import detectron_weight_helper as dwh
 from detectron_tpu_torch.utils import image_io
 from detectron_tpu_torch.utils import net as net_utils
 from detectron_tpu_torch.utils.timer import Timer
@@ -60,17 +61,19 @@ def _check_device(device):
 
 
 def initialize_model_from_cfg(args=None, seed=0, device="cuda"):
-    """The params tree for cfg on `device`, in the compute dtype: the numpy
-    init of models/init.py from `seed`, replaced by args.load_ckpt's
-    params where given (a checkpoint in the JAX package's format)."""
+    """The params tree for cfg on `device`, in the compute dtype, built in
+    the JAX package's order (core/test_engine.py:35-52): the numpy init of
+    models/init.py from `seed`; then args.load_ckpt's params (a checkpoint
+    in the JAX package's format); then args.load_detectron's blobs (a
+    Detectron .pkl) over them; then the bridge to torch."""
     device = _check_device(device)
-    if args is not None and getattr(args, "load_detectron", None):
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A4): "
-                                  "Detectron weight import")
     params = init.init_model(seed)
     load_ckpt = getattr(args, "load_ckpt", None) if args else None
+    load_detectron = getattr(args, "load_detectron", None) if args else None
     if load_ckpt:
         params = net_utils.load_ckpt_params(load_ckpt)
+    if load_detectron:
+        params = dwh.load_detectron_weight(params, load_detectron)
     return bridge.to_torch(params, device, mb.compute_dtype())
 
 

@@ -1,14 +1,17 @@
-"""COCO-style JSON dataset -> roidb (the port's copy of the evaluation
-half of detectron_tpu/data/json_dataset.py; reference:
+"""COCO-style JSON dataset -> roidb (the port's copy of
+detectron_tpu/data/json_dataset.py; reference:
 lib/datasets/json_dataset.py :: JsonDataset).
 
 Roidb entries carry boxes (xyxy), segms, gt_classes, seg_areas,
 gt_overlaps (dense (N, C)), is_crowd and box_to_gt_ind_map, with the
-contiguous category remapping and the filtering of degenerate gt boxes;
-precomputed proposals are read from a file (TEST.PRECOMPUTED_PROPOSALS)
-and appended as non-gt rows. Ground-truth keypoints wait for Keypoint
-R-CNN (ROADMAP Queue A, A6), and the training-time proposal merge and
-crowd filter for Fast R-CNN training (A5).
+contiguous category remapping and the filtering of degenerate gt boxes.
+Precomputed proposals are read from a file (TEST.PROPOSAL_FILES for
+evaluation, TRAIN.PROPOSAL_FILES for Fast R-CNN training) and appended as
+non-gt rows, with the crowd filter (proposals that lie inside a crowd
+region take overlap -1); add_proposals merges runtime proposals and fills
+max_classes / max_overlaps. Ground-truth keypoints wait for Keypoint
+R-CNN (ROADMAP Queue A, A6): `keypoints` names a dataset's keypoints, and
+the training roidb (data/roidb.py) refuses a dataset that has them.
 """
 
 import os
@@ -44,9 +47,15 @@ class JsonDataset:
         self.contiguous_category_id_to_json_id = {
             v: k for k, v in self.json_category_id_to_contiguous_id.items()
         }
+        # The person category's keypoint names, as the JAX package's
+        # _init_keypoints reads them (json_dataset.py:145-167).
+        self.keypoints = None
+        if "person" in self.category_to_id_map:
+            self.keypoints = self.COCO.loadCats(
+                [self.category_to_id_map["person"]])[0].get("keypoints")
 
     def get_roidb(self, gt=False, proposal_file=None, min_proposal_size=2,
-                  proposal_limit=-1):
+                  proposal_limit=-1, crowd_filter_thresh=0):
         image_ids = self.COCO.getImgIds()
         roidb = list(self.COCO.loadImgs(image_ids))
         for entry in roidb:
@@ -56,7 +65,8 @@ class JsonDataset:
                 self._add_gt_annotations(entry)
         if proposal_file is not None:
             self._add_proposals_from_file(
-                roidb, proposal_file, min_proposal_size, proposal_limit)
+                roidb, proposal_file, min_proposal_size, proposal_limit,
+                crowd_filter_thresh)
         return roidb
 
     def _prep_roidb_entry(self, entry):
@@ -122,7 +132,8 @@ class JsonDataset:
             entry["box_to_gt_ind_map"], box_to_gt_ind_map)
 
     def _add_proposals_from_file(self, roidb, proposal_file,
-                                 min_proposal_size, top_k):
+                                 min_proposal_size, top_k,
+                                 crowd_filter_thresh):
         with open(proposal_file, "rb") as f:
             proposals = pickle.load(f, encoding="latin1")
         id_field = "indexes" if "indexes" in proposals else "ids"
@@ -141,6 +152,22 @@ class JsonDataset:
                 boxes = boxes[:top_k, :]
             box_list.append(boxes)
         _merge_proposal_boxes_into_roidb(roidb, box_list)
+        if crowd_filter_thresh > 0:
+            _filter_crowd_proposals(roidb, crowd_filter_thresh)
+
+    def add_proposals(self, roidb, rois, scales, crowd_thresh):
+        """Merge runtime proposals (rows [image index, x1, y1, x2, y2] in
+        scaled coordinates) into the roidb, then the crowd filter and the
+        class assignments."""
+        box_list = []
+        for i in range(len(roidb)):
+            inv_im_scale = 1.0 / scales[i]
+            idx = np.where(rois[:, 0] == i)[0]
+            box_list.append(rois[idx, 1:] * inv_im_scale)
+        _merge_proposal_boxes_into_roidb(roidb, box_list)
+        if crowd_thresh > 0:
+            _filter_crowd_proposals(roidb, crowd_thresh)
+        _add_class_assignments(roidb)
 
 
 def _sort_proposals(proposals, id_field):
@@ -181,3 +208,62 @@ def _merge_proposal_boxes_into_roidb(roidb, box_list):
             entry["is_crowd"], np.zeros(num_boxes, bool))
         entry["box_to_gt_ind_map"] = np.append(
             entry["box_to_gt_ind_map"], box_to_gt_ind_map)
+
+
+def _filter_crowd_proposals(roidb, crowd_thresh):
+    """Mark proposals inside crowd regions as unusable (overlap -1)."""
+    for entry in roidb:
+        gt_overlaps = entry["gt_overlaps"]
+        crowd_inds = np.where(entry["is_crowd"])[0]
+        non_gt_inds = np.where(entry["gt_classes"] == 0)[0]
+        if len(crowd_inds) == 0 or len(non_gt_inds) == 0:
+            continue
+        crowd_boxes = box_utils.xyxy_to_xywh(entry["boxes"][crowd_inds, :])
+        non_gt_boxes = box_utils.xyxy_to_xywh(entry["boxes"][non_gt_inds, :])
+        ious = _iof_xywh(non_gt_boxes, crowd_boxes)
+        bad_inds = np.where(ious.max(axis=1) > crowd_thresh)[0]
+        gt_overlaps[non_gt_inds[bad_inds], :] = -1.0
+        entry["gt_overlaps"] = gt_overlaps
+
+
+def _iof_xywh(boxes, query):
+    """Intersection over (box) area for xywh boxes."""
+    b = np.asarray(boxes, np.float64)
+    q = np.asarray(query, np.float64)
+    bx2 = b[:, 0] + b[:, 2]
+    by2 = b[:, 1] + b[:, 3]
+    qx2 = q[:, 0] + q[:, 2]
+    qy2 = q[:, 1] + q[:, 3]
+    ix1 = np.maximum(b[:, None, 0], q[None, :, 0])
+    iy1 = np.maximum(b[:, None, 1], q[None, :, 1])
+    ix2 = np.minimum(bx2[:, None], qx2[None, :])
+    iy2 = np.minimum(by2[:, None], qy2[None, :])
+    iw = np.maximum(ix2 - ix1, 0)
+    ih = np.maximum(iy2 - iy1, 0)
+    inter = iw * ih
+    area = (b[:, 2] * b[:, 3])[:, None]
+    return np.where(area > 0, inter / area, 0)
+
+
+def _add_class_assignments(roidb):
+    for entry in roidb:
+        gt_overlaps = entry["gt_overlaps"]
+        max_overlaps = gt_overlaps.max(axis=1)
+        max_classes = gt_overlaps.argmax(axis=1)
+        entry["max_classes"] = max_classes
+        entry["max_overlaps"] = max_overlaps
+        zero_inds = np.where(max_overlaps == 0)[0]
+        assert all(max_classes[zero_inds] == 0)
+        nonzero_inds = np.where(max_overlaps > 0)[0]
+        assert all(max_classes[nonzero_inds] != 0)
+
+
+def add_proposals(roidb, rois, scales, crowd_thresh):
+    """Module-level form of JsonDataset.add_proposals (the reference's
+    json_dataset.add_proposals free function)."""
+    _merge_proposal_boxes_into_roidb(
+        roidb, [rois[np.where(rois[:, 0] == i)[0], 1:] / scales[i]
+                for i in range(len(roidb))])
+    if crowd_thresh > 0:
+        _filter_crowd_proposals(roidb, crowd_thresh)
+    _add_class_assignments(roidb)

@@ -231,6 +231,14 @@ def poly_to_counts(xy, h, w):
     return counts
 
 
+def polys_to_mask(polys, h, w):
+    """List of polygons -> merged (union) binary mask (H, W) uint8."""
+    mask = np.zeros((h, w), np.uint8)
+    for p in polys:
+        mask |= decode_counts(poly_to_counts(p, h, w), h, w)
+    return mask
+
+
 def frPyObjects(obj, h, w):
     """pycocotools-compatible conversion: polygons | uncompressed RLE ->
     compressed RLE dict(s)."""
@@ -266,6 +274,16 @@ def area(rle):
     if isinstance(counts, (str, bytes)):
         counts = string_to_counts(counts)
     return int(np.sum(np.asarray(counts[1::2], dtype=np.int64)))
+
+
+def to_bbox(rle):
+    """RLE -> [x, y, w, h] bounding box (xywh, COCO convention)."""
+    m = decode(rle)
+    ys, xs = np.nonzero(m)
+    if len(xs) == 0:
+        return np.zeros(4, np.float64)
+    return np.array([xs.min(), ys.min(), xs.max() - xs.min() + 1,
+                     ys.max() - ys.min() + 1], np.float64)
 
 
 def iou(dt_rles, gt_rles, iscrowd):

@@ -15,7 +15,7 @@ def apply_fpn(p, body_outs):
     scales [1/4, ..., 1/64])."""
     if cfg.FPN.USE_GN or cfg.FPN.EXTRA_CONV_LEVELS:
         raise NotImplementedError(
-            "not ported yet (ROADMAP Queue A item 11): FPN GN / extra "
+            "not ported yet (ROADMAP Queue A, A7): FPN GN / extra "
             "conv levels")
     n = len(body_outs)
     inners = {}

@@ -20,7 +20,7 @@ import numpy as np
 from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.models import resnet
 
-_NOT_PORTED = "not ported yet (ROADMAP Queue A item 11): "
+_NOT_PORTED = "not ported yet (ROADMAP Queue A, A7): "
 
 
 def _fans(shape):

@@ -11,8 +11,8 @@ def apply_mask_head(p, roi_feat):
     convs with ReLU, then the 2x2 stride-2 deconv with ReLU."""
     if cfg.MRCNN.ROI_MASK_HEAD != \
             "mask_rcnn_heads.mask_rcnn_fcn_head_v1up4convs":
-        raise NotImplementedError("not ported yet (ROADMAP Queue A item "
-                                  "11): " + cfg.MRCNN.ROI_MASK_HEAD)
+        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
+                                  + cfg.MRCNN.ROI_MASK_HEAD)
     x = roi_feat
     d = cfg.MRCNN.DILATION
     for cp in p["convs"]:
@@ -24,6 +24,6 @@ def apply_mask_head(p, roi_feat):
 def apply_mask_outputs(p, x):
     """x (R, M, M, D) -> mask logits (R, M, M, n_cls)."""
     if cfg.MRCNN.USE_FC_OUTPUT:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A item "
-                                  "11): MRCNN.USE_FC_OUTPUT")
+        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
+                                  "MRCNN.USE_FC_OUTPUT")
     return L.conv2d(p["mask_fcn_logits"], x, stride=1, padding=0)

@@ -34,8 +34,8 @@ def compute_dtype():
 
 def _check_path_supported():
     if not (cfg.FPN.FPN_ON and cfg.FPN.MULTILEVEL_RPN):
-        raise NotImplementedError("not ported yet (ROADMAP Queue A item "
-                                  "11): non-FPN / single-level RPN models")
+        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
+                                  "non-FPN / single-level RPN models")
 
 
 def forward_features(params, images):
@@ -117,7 +117,7 @@ def roi_feature_transform(features, scales, rois, resolution,
     if method != "RoIAlign" or cfg.TPU.ROI_IMPL != "pallas" or \
             not cfg.TPU.ROI_LADDER or cfg.TPU.ROI_LADDER_NARROW:
         raise NotImplementedError(
-            "not ported yet (ROADMAP Queue A item 11): only RoIAlign on the "
+            "not ported yet (ROADMAP Queue A, A7): only RoIAlign on the "
             "windowed ladder (TPU.ROI_IMPL='pallas', ROI_LADDER on, "
             "ROI_LADDER_NARROW off)")
     lo = fpn_mod.lowest_backbone_lvl()
@@ -134,8 +134,8 @@ def forward_box_outputs(params, features, scales, rois):
     """RoIAlign + 2-MLP head + outputs. rois (B, R, 4) -> (cls_logits
     (B, R, C), bbox_pred (B, R, 4C'), head features (B*R, D))."""
     if cfg.FAST_RCNN.ROI_BOX_HEAD != "fast_rcnn_heads.roi_2mlp_head":
-        raise NotImplementedError("not ported yet (ROADMAP Queue A item "
-                                  "11): " + cfg.FAST_RCNN.ROI_BOX_HEAD)
+        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
+                                  + cfg.FAST_RCNN.ROI_BOX_HEAD)
     B, R = rois.shape[:2]
     roi_feat = roi_feature_transform(
         features, scales, rois, cfg.FAST_RCNN.ROI_XFORM_RESOLUTION,

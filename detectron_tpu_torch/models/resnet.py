@@ -50,7 +50,7 @@ def check_body_supported():
     on = [k for k, v in off.items() if v]
     if on:
         raise NotImplementedError(
-            "not ported yet (ROADMAP Queue A item 11 / Queue B): "
+            "not ported yet (ROADMAP Queue A, A7): "
             + ", ".join(on))
 
 

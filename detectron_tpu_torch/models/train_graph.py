@@ -1,6 +1,8 @@
 """The training forward: features -> RPN -> proposals -> RoI sampling ->
 heads -> losses (port of detectron_tpu/models/train_graph.py: _all_anchors
-:31-53, training_losses :56-175), for the box and mask branches.
+:31-53, training_losses :56-175), for the box and mask branches. With
+RPN.RPN_ON off (Fast R-CNN training) the RoIs are the batch's precomputed
+proposals, and there are no RPN losses.
 
 Batch layout (padded static shapes, tensors on one device):
   images      (B, H, W, 3)  BGR, mean-subtracted, zero-padded
@@ -10,6 +12,8 @@ Batch layout (padded static shapes, tensors on one device):
   gt_valid    (B, G)        bool
   crowd_boxes (B, K, 4), crowd_valid (B, K)
   gt_masks    (B, G, Mh, Mw) (only with MASK_ON)
+  proposals   (B, Rp, 4), prop_valid (B, Rp) (only with the RPN off;
+              Rp = TPU.MAX_TRAIN_PROPOSALS, scaled coords)
 
 The JAX step draws its sampling uniforms from a key inside the graph; here
 they are an argument, `draws`, made by make_draws from an explicit CPU
@@ -28,13 +32,9 @@ from detectron_tpu_torch.models import targets as T
 
 
 def _check_supported():
-    if not cfg.RPN.RPN_ON:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A item "
-                                  "14): Fast R-CNN training from "
-                                  "precomputed proposals")
     if cfg.MODEL.KEYPOINTS_ON:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A item "
-                                  "14): keypoint targets and losses")
+        raise NotImplementedError("not ported yet (ROADMAP Queue A, A6): "
+                                  "keypoint targets and losses")
 
 
 def _level_size(n, lvl):
@@ -49,7 +49,11 @@ def _level_size(n, lvl):
 def draw_sizes(image_hw, num_gt):
     """(A_tot, R + G) for images of (H, W): the anchor count over the RPN
     levels and the RoI candidates per image (the proposals that
-    generate_proposals returns in training, plus the gt boxes)."""
+    generate_proposals returns in training, plus the gt boxes). With the
+    RPN off: (0, TPU.MAX_TRAIN_PROPOSALS + G), the precomputed proposals'
+    padded count plus the gt boxes."""
+    if not cfg.RPN.RPN_ON:
+        return 0, cfg.TPU.MAX_TRAIN_PROPOSALS + num_gt
     A = len(cfg.FPN.RPN_ASPECT_RATIOS)
     pre_n = cfg.TRAIN.RPN_PRE_NMS_TOP_N
     post_n = cfg.TRAIN.RPN_POST_NMS_TOP_N
@@ -65,12 +69,13 @@ def draw_sizes(image_hw, num_gt):
 
 def make_draws(generator, batch_size, image_hw, num_gt, device):
     """The step's sampling uniforms in [0, 1), float32, drawn on the CPU
-    from `generator` and moved to `device`: rpn_fg, rpn_bg (B, A_tot) and
-    roi_fg, roi_bg (B, R + G)."""
+    from `generator` and moved to `device`: rpn_fg, rpn_bg (B, A_tot)
+    (none with the RPN off) and roi_fg, roi_bg (B, R + G)."""
     n_anchors, n_rois = draw_sizes(image_hw, num_gt)
+    names = (("rpn_fg", n_anchors), ("rpn_bg", n_anchors)) \
+        if cfg.RPN.RPN_ON else ()
     draws = {}
-    for name, n in (("rpn_fg", n_anchors), ("rpn_bg", n_anchors),
-                    ("roi_fg", n_rois), ("roi_bg", n_rois)):
+    for name, n in names + (("roi_fg", n_rois), ("roi_bg", n_rois)):
         draws[name] = torch.rand((batch_size, n), generator=generator,
                                  dtype=torch.float32).to(device)
     return draws
@@ -106,23 +111,28 @@ def training_losses(params, batch, draws):
     B = images.shape[0]
     im_info = im_info.to(torch.float32)
     features, scales = mb.forward_features(params, images)
-    rpn_outs = mb.forward_rpn(params, features)
+    out = {}
+    if cfg.RPN.RPN_ON:
+        rpn_outs = mb.forward_rpn(params, features)
 
-    # RPN losses over the sampled anchors.
-    anchors, rpn_logits, rpn_deltas = _all_anchors(rpn_outs)
-    for name in ("rpn_fg", "rpn_bg"):
-        _check_draws(draws, name, (B, anchors.shape[0]))
-    tgt = T.rpn_targets(anchors, batch["gt_boxes"], batch["gt_valid"],
-                        im_info[:, :2], draws["rpn_fg"], draws["rpn_bg"])
-    loss_rpn_cls, loss_rpn_bbox = L.rpn_losses(
-        rpn_logits.reshape(-1), rpn_deltas.reshape(-1, 4),
-        tgt["labels"].reshape(-1), tgt["bbox_targets"].reshape(-1, 4),
-        tgt["fg"].reshape(-1))
-    out = {"loss_rpn_cls": loss_rpn_cls, "loss_rpn_bbox": loss_rpn_bbox}
+        # RPN losses over the sampled anchors.
+        anchors, rpn_logits, rpn_deltas = _all_anchors(rpn_outs)
+        for name in ("rpn_fg", "rpn_bg"):
+            _check_draws(draws, name, (B, anchors.shape[0]))
+        tgt = T.rpn_targets(anchors, batch["gt_boxes"], batch["gt_valid"],
+                            im_info[:, :2], draws["rpn_fg"], draws["rpn_bg"])
+        out["loss_rpn_cls"], out["loss_rpn_bbox"] = L.rpn_losses(
+            rpn_logits.reshape(-1), rpn_deltas.reshape(-1, 4),
+            tgt["labels"].reshape(-1), tgt["bbox_targets"].reshape(-1, 4),
+            tgt["fg"].reshape(-1))
 
-    # Proposals (detached) and RoI sampling.
-    rois, _, prop_valid = mb.generate_proposals(rpn_outs, features, im_info,
-                                                True)
+        # Proposals (detached) and RoI sampling.
+        rois, _, prop_valid = mb.generate_proposals(rpn_outs, features,
+                                                    im_info, True)
+    else:
+        # Fast R-CNN mode: the precomputed proposals (TRAIN.PROPOSAL_FILES,
+        # padded by the loader), no RPN losses.
+        rois, prop_valid = batch["proposals"], batch["prop_valid"]
     n_rois = rois.shape[1] + batch["gt_boxes"].shape[1]
     for name in ("roi_fg", "roi_bg"):
         _check_draws(draws, name, (B, n_rois))

@@ -8,7 +8,8 @@ One call is one SGD iteration in eager PyTorch: the loss forward
 detached), then the optimizer update (parallel/optimizer.py). Params stay
 float32 master copies whatever TPU.COMPUTE_DTYPE is: the layers cast them
 to the activation dtype, so their gradients come back in float32.
-Multi-device data parallelism is not ported yet (ROADMAP A15).
+Multi-device data parallelism is not ported yet (ROADMAP Queue A,
+A8).
 """
 
 import torch

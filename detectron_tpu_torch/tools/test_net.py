@@ -1,13 +1,16 @@
 """Evaluate a model on a dataset (the port's twin of tools/test_net.py).
 
     python -m detectron_tpu_torch.tools.test_net --cfg CFG.yaml \
-        [--load_ckpt DIR] [--output_dir DIR] [--batch_size 8] \
-        [--range START END] [--set KEY VALUE ...] [--device cuda|cpu]
+        [--load_ckpt DIR] [--load_detectron PKL] [--output_dir DIR] \
+        [--batch_size 8] [--range START END] [--set KEY VALUE ...] \
+        [--device cuda|cpu]
 
 Writes detections.pkl (or detection_range_{start}_{end}.pkl with --range)
 and the COCO box and mask results into the output directory, and logs the
 AP. --load_ckpt takes a checkpoint directory in the JAX package's format
-(utils/net.py); without it the weights are the seeded random init.
+(utils/net.py), --load_detectron a Detectron .pkl (loaded over the
+checkpoint where both are given); without either the weights are the
+seeded random init.
 """
 
 import argparse

@@ -37,8 +37,8 @@ def synthetic_train_batch(B, H, W, device, rng=None, im_scale=1.6):
     in the same order, as the JAX version; tensors on `device`. Keypoints
     are not ported yet."""
     if cfg.TPU.S2D_INPUT or cfg.MODEL.KEYPOINTS_ON:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A items "
-                                  "10-11): TPU.S2D_INPUT / keypoints")
+        raise NotImplementedError("not ported yet (ROADMAP Queue A, A6 / "
+                                  "A7): TPU.S2D_INPUT / keypoints")
     if rng is None:
         rng = np.random.RandomState(0)
     G = cfg.TPU.MAX_GT_BOXES

@@ -46,6 +46,7 @@ from detectron_tpu_torch.core import test as port_test
 from detectron_tpu_torch.core import test_engine
 from detectron_tpu_torch.data.json_dataset import JsonDataset
 from detectron_tpu_torch.models import init
+from detectron_tpu_torch.utils import detectron_weight_helper as dwh
 from detectron_tpu_torch.utils import image_io
 from detectron_tpu_torch.utils import net
 from detectron_tpu_torch.utils.synthetic import calibrate_detector_params
@@ -369,7 +370,8 @@ def test_ind_range_writes_its_range(env, tmp_path):
 
 def test_cli_writes_detections(env, tmp_path):
     """python -m detectron_tpu_torch.tools.test_net --device cpu, with the
-    cfg in a yaml file and the checkpoint's weights."""
+    cfg in a yaml file and the checkpoint's weights, given as --load_ckpt
+    and as a Detectron .pkl (--load_detectron)."""
     yaml = tmp_path / "tiny.yaml"
     keys = TINY_INFER_KEYS + ["MODEL.MASK_ON", "True", "DATA_DIR",
                               str(env.root)]
@@ -399,10 +401,19 @@ def test_cli_writes_detections(env, tmp_path):
     assert "copypaste: Task: mask" in proc.stdout
     got = _load(str(out))
     _assert_results_match(got["all_boxes"], env.ref["dets"]["all_boxes"])
+    # --load_detectron: the same weights as a Detectron .pkl (Caffe2
+    # layouts) give the same detections.
+    _set(port_config, env.root)
+    with open(tmp_path / "model.pkl", "wb") as f:
+        pickle.dump({"blobs": dwh.to_detectron_blobs(
+            net.load_ckpt_params(env.ckpt))}, f)
+    out_pkl = tmp_path / "cli_out_pkl"
     proc = subprocess.run(
         [sys.executable, "-m", "detectron_tpu_torch.tools.test_net",
-         "--cfg", str(yaml), "--output_dir", str(out), "--device", "cpu",
-         "--load_detectron", "model.pkl"],
+         "--cfg", str(yaml), "--output_dir", str(out_pkl), "--batch_size",
+         "2", "--device", "cpu", "--load_detectron", "model.pkl"],
         cwd=str(tmp_path), env=env_vars, capture_output=True, text=True,
         timeout=300)
-    assert proc.returncode != 0 and "A4" in proc.stderr
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    _assert_results_match(_load(str(out_pkl))["all_boxes"],
+                          env.ref["dets"]["all_boxes"])
