@@ -100,13 +100,42 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      the last checkpoint must read back through utils/net.load_ckpt_params
      as the model's tree. Prints the median step after the first, img/s,
      and the loader's wait per step (time blocked on next(loader)).
-  Phases 4, 5, 6, 7 and 8 each zero the launch counters just before and
+  9. Keypoint R-CNN inference (the keypoint_rcnn_r50_fpn preset:
+     Detectron's e2e_keypoint_rcnn_R-50-FPN_1x, 2 classes, 17 keypoints, 8
+     3x3 convs of 512 channels on 14 x 14 RoIAlign features, a 4 x 4
+     stride-2 deconv to 28 x 28 and a frozen bilinear x2 to 56 x 56
+     heatmaps, MASK_ON off): detect_graph at full width in bfloat16, 2
+     images in the 832 x 1344 canvas, 1000 RPN proposals, 100 detections
+     per image, MAIN_RUNS batches (heatmaps (2, 100, 56, 56, 17) finite;
+     the keypoint RoIs per ladder route printed), and a torch.profiler
+     batch (device busy time, idle share); then run_inference over
+     a synthetic person-keypoints val set of KPS_ENGINE_IMAGES PPM images
+     (make_synthetic_valset --keypoints: 1-4 tall person boxes per image,
+     17 keypoints each, visibility 0/1/2), batch ENGINE_BATCH, to
+     detections.pkl and COCO box and keypoint AP (printed, not judged).
+     Every image's keypoints must be finite and inside their boxes, and
+     the first batch must equal detect_graph + keypoint_results called
+     directly on the batch the engine prepared; the heatmap decode of that
+     batch is timed alone.
+  10. Keypoint R-CNN training from disk: phase 8 on the same maker's
+     person-keypoints train set (keypoints_coco_2017_train, with flips),
+     train_net_step.main --dataset keypoints_coco2017 --bs 2 --nw 4
+     --load_detectron (the calibrated tree as a .pkl, conv_fcn1..8 and
+     kps_score included, read back exactly), TRAIN.SCALES (800,),
+     CLIP_GRADIENTS, TRAIN_NET_STEPS steps: loss_kps finite on every step,
+     the checkpoint read back.
+  Phase 3 also checks a tiny Keypoint R-CNN detect_graph (heatmaps of
+  matched detections within 1e-4 of max|cpu|) and train_step (loss_kps
+  among the losses) on the GPU against the CPU, at its tolerances.
+  Phases 4-10 each zero the launch counters just before a path's run and
   read them just after; every kernel of the path must have launched (in
-  phase 8 K1, K2 and K4; K3 is reported).
+  phases 8 and 10 K1, K2 and K4; K3 is reported).
 Prints a {"kernels": [...]} line (each kernel's launches on its own path:
 the inference main path for K1-K3, training for K4, the TPU.FUSED_RES2
-path for K5/K6; launches_by_path has all five, "test_net" being phase
-7's run_inference and "train_net" phase 8's train_net_step), then as the
+path for K5/K6; launches_by_path has all eight, "test_net" being phase
+7's run_inference, "train_net" phase 8's train_net_step,
+"keypoint_infer" and "keypoint_test_net" phase 9's detect_graph and
+run_inference, "keypoint_train" phase 10's train_net_step), then as the
 last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No single PyTorch call computes any of K1-K6 (there is no torchvision),
@@ -143,6 +172,10 @@ TRAIN_STEPS = 3
 # Phase 8: the synthetic training set's size and train_net_step's steps.
 TRAIN_NET_IMAGES = 16
 TRAIN_NET_STEPS = 8
+# Phases 9 and 10: the synthetic person-keypoints sets (val: about 24
+# images, batch ENGINE_BATCH; train: 16 images, 8 steps).
+KPS_ENGINE_IMAGES = 24
+KPS_VAL = "keypoints_coco_2017_val"
 # Global-norm gradient clipping of the training main path (the cfg's
 # from-scratch setting, SOLVER.CLIP_GRADIENTS; Detectron's preset has none).
 # From random weights with no trained BN statistics the warm-up step's loss
@@ -213,13 +246,21 @@ def device_ms(fn, reps=10):
                if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
-def set_cfg(tiny, dtype, extra=()):
+def set_cfg(tiny, dtype, extra=(), keypoints=False):
+    """The mask_rcnn_r50_fpn preset (keypoint_rcnn_r50_fpn with
+    `keypoints`), the compute dtype, with `tiny` phase 3's sizes (and a
+    2-conv, 64-channel pose head), then `extra`."""
     from detectron_tpu_torch.core import config
-    from detectron_tpu_torch.core.configs_presets import mask_rcnn_r50_fpn
+    from detectron_tpu_torch.core import configs_presets
 
     config.reset_cfg()
-    mask_rcnn_r50_fpn()
+    if keypoints:
+        configs_presets.keypoint_rcnn_r50_fpn()
+    else:
+        configs_presets.mask_rcnn_r50_fpn()
     keys = ["TPU.COMPUTE_DTYPE", dtype]
+    if tiny and keypoints:
+        keys += ["KRCNN.NUM_STACKED_CONVS", "2", "KRCNN.CONV_HEAD_DIM", "64"]
     if tiny:
         keys += ["TEST.RPN_PRE_NMS_TOP_N", "256",
                   "TEST.RPN_POST_NMS_TOP_N", "64",
@@ -240,13 +281,19 @@ def set_cfg(tiny, dtype, extra=()):
     config.assert_and_infer_cfg(make_immutable=False)
 
 
-def make_params(device, dtype, seed=0):
-    from detectron_tpu_torch.models import bridge, init
+def make_tree(seed=0):
+    """The calibrated numpy params tree of the cfg's model."""
+    from detectron_tpu_torch.models import init
     from detectron_tpu_torch.utils.synthetic import calibrate_detector_params
 
-    params = calibrate_detector_params(init.init_model(seed),
-                                       np.random.RandomState(seed))
-    return bridge.to_torch(params, device, dtype)
+    return calibrate_detector_params(init.init_model(seed),
+                                     np.random.RandomState(seed))
+
+
+def make_params(device, dtype, seed=0):
+    from detectron_tpu_torch.models import bridge
+
+    return bridge.to_torch(make_tree(seed), device, dtype)
 
 
 def bound(nbytes, flops, dtype):
@@ -692,6 +739,61 @@ def match_detections(a, b):
     return matched / max(total, 1)
 
 
+def heatmap_diff(a, b):
+    """(b's valid detections that a has with a box within 1e-2 px and a
+    score within 1e-3, the worst heatmap diff among them over that
+    detection's max|b heatmap|)."""
+    n, worst = 0, 0.0
+    for i in range(b["valid"].shape[0]):
+        va, vb = a["valid"][i], b["valid"][i]
+        for k in range(int(vb.sum())):
+            d = (a["boxes"][i][va] - b["boxes"][i][vb][k]).abs().amax(1)
+            if len(d) == 0:
+                continue
+            j = int(d.argmin())
+            if float(d[j]) > 1e-2 or abs(float(
+                    a["scores"][i][va][j] - b["scores"][i][vb][k])) > 1e-3:
+                continue
+            ref = b["kps_heatmaps"][i][vb][k]
+            worst = max(worst, float(
+                (a["kps_heatmaps"][i][va][j] - ref).abs().max()) /
+                float(ref.abs().max()))
+            n += 1
+    return n, worst
+
+
+def ladder_statics(pooled, sampling_ratio):
+    """The ladder's static arguments after the features for RoIAlign at
+    pooled x pooled on the CANVAS's P2-P5 levels."""
+    from detectron_tpu_torch.core.config import cfg
+
+    return ((0.25, 0.125, 0.0625, 0.03125), pooled, sampling_ratio,
+            cfg.FPN.ROI_MIN_LEVEL, cfg.FPN.ROI_MAX_LEVEL,
+            cfg.FPN.ROI_CANONICAL_SCALE, cfg.FPN.ROI_CANONICAL_LEVEL,
+            tuple(tuple(r) for r in cfg.TPU.ROI_RUNGS))
+
+
+def ladder_routes(rois, dims, static):
+    """RoIs (N, 4) on the CPU per ladder route (the base window, each
+    fix-up rung (K3), the exact gather for slivers), as the ladder routes
+    them for `static` (ladder_statics) on levels of `dims`; and the CPU's
+    float32 base-window weights (vy, vx)."""
+    import torch
+
+    from detectron_tpu_torch.ops import windowed_roi as win
+
+    geom = win.ladder_geom(dims, static[-1])
+    _, _, vy, vx, ok = win.window_params(rois, geom, *static[:-1],
+                                         geom["wy_base"], geom["wx_base"],
+                                         torch.float32)
+    covered, rid = win.rung_route(rois, geom, static[0], *static[3:-1])
+    routes = {"base": int(ok.sum()), "sliver": int((~ok & ~covered).sum())}
+    for r, shape in enumerate(geom["fix_rungs"]):
+        routes["rung {}".format(shape)] = int((~ok & covered & (rid == r))
+                                              .sum())
+    return routes, (vy, vx)
+
+
 def check_ladder_grad(device):
     """Phase 3: the RoIAlign ladder's backward as the training path runs
     it (K4 over the base window and each fix-up rung, autograd of the
@@ -720,29 +822,18 @@ def check_ladder_grad(device):
     rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(
         np.float32))
     ct = torch.from_numpy(rng.randn(BATCH, n, 7, 7, C).astype(np.float32))
-    static = ((0.25, 0.125, 0.0625, 0.03125), 7,
-              cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO, cfg.FPN.ROI_MIN_LEVEL,
-              cfg.FPN.ROI_MAX_LEVEL, cfg.FPN.ROI_CANONICAL_SCALE,
-              cfg.FPN.ROI_CANONICAL_LEVEL,
-              tuple(tuple(r) for r in cfg.TPU.ROI_RUNGS))
+    static = ladder_statics(7, cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO)
 
     # RoIs per route, as the ladder routes them, and how far the device's
     # float32 base-window weights are from the CPU's.
     geom = win.ladder_geom(dims, static[-1])
     flat = rois.reshape(-1, 4)
-    _, _, vy, vx, ok = win.window_params(flat, geom, *static[:-1],
-                                         geom["wy_base"], geom["wx_base"],
-                                         torch.float32)
+    routes, (vy, vx) = ladder_routes(flat, dims, static)
     _, _, vy_d, vx_d, _ = win.window_params(flat.to(device), geom,
                                             *static[:-1], geom["wy_base"],
                                             geom["wx_base"], torch.float32)
     weight_diff = max(float((vy_d.cpu() - vy).abs().max()),
                       float((vx_d.cpu() - vx).abs().max()))
-    covered, rid = win.rung_route(flat, geom, static[0], *static[3:-1])
-    routes = {"base": int(ok.sum()), "sliver": int((~ok & ~covered).sum())}
-    for r, shape in enumerate(geom["fix_rungs"]):
-        routes["rung {}".format(shape)] = int((~ok & covered & (rid == r))
-                                              .sum())
 
     out = win.multilevel_roi_align_ladder_trainable(
         pyramid, static[0], rois.to(device), *static[1:])
@@ -764,16 +855,24 @@ def check_ladder_grad(device):
                                  errs, routes))
 
 
-def check_small_input(device, extra=()):
+def check_small_input(device, extra=(), keypoints=False):
     """Phase 3: GPU kernels vs CPU plain versions, tiny float32 config
-    (with the cfg keys `extra`). With TPU.FUSED_RES2 the GPU run must
-    launch K6 (the "auto" mode in float32)."""
+    (with the cfg keys `extra`; Keypoint R-CNN with `keypoints`, whose
+    matched detections' heatmaps must agree within 1e-4 of max|cpu|).
+    With TPU.FUSED_RES2 the GPU run must launch K6 (the "auto" mode in
+    float32)."""
     import torch
 
     from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.models import bridge
     from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
 
-    set_cfg(tiny=True, dtype="float32", extra=extra)
+    set_cfg(tiny=True, dtype="float32", extra=extra, keypoints=keypoints)
+    tree = make_tree()
+    if keypoints:
+        # One class: its bias up by 3, or on these low-contrast inputs
+        # few of its scores pass TEST.SCORE_THRESH.
+        tree["box_outs"]["cls_score"]["b"][1] += 3.0
     rng = np.random.RandomState(1)
     # x0.3, not the main path's x20: random weights without trained BN
     # statistics grow activations through the body, and larger inputs
@@ -783,7 +882,7 @@ def check_small_input(device, extra=()):
     outs = {}
     k6 = fk.fused_res2.launches
     for dev in ("cpu", device):
-        params = make_params(dev, torch.float32)
+        params = bridge.to_torch(tree, dev, torch.float32)
         outs[dev] = {k: v.cpu() for k, v in det.detect_graph(
             params, torch.from_numpy(images).to(dev),
             torch.from_numpy(im_info).to(dev)).items()}
@@ -791,14 +890,21 @@ def check_small_input(device, extra=()):
     cpu, gpu = outs["cpu"], outs[device]
     frac = match_detections(gpu, cpu)
     n_cpu, n_gpu = int(cpu["valid"].sum()), int(gpu["valid"].sum())
-    print("small-input check (float32, 2 x 256 x 320{}): valid cpu={} "
-          "gpu={} matched={:.4f}, K6 launches {}".format(
+    hm_err = heatmap_diff(gpu, cpu) if keypoints else None
+    print("small-input check (float32, 2 x 256 x 320{}{}): valid cpu={} "
+          "gpu={} matched={:.4f}, K6 launches {}{}".format(
+              ", Keypoint R-CNN" if keypoints else "",
               "".join(", {} {}".format(*extra[i:i + 2])
                       for i in range(0, len(extra), 2)),
-              n_cpu, n_gpu, frac, k6))
+              n_cpu, n_gpu, frac, k6,
+              "" if hm_err is None else ", heatmaps of {} matched "
+              "detections: worst diff / max|cpu| {:.3e}".format(*hm_err)))
     if n_cpu == 0 or frac < 0.95 or abs(n_cpu - n_gpu) > 0.05 * n_cpu:
         raise AssertionError("GPU detect_graph disagrees with the CPU plain "
                              "path on the small input")
+    if keypoints and (hm_err[0] < 0.95 * n_cpu or hm_err[1] > 1e-4):
+        raise AssertionError("GPU keypoint heatmaps disagree with the CPU "
+                             "plain path: {}".format(hm_err))
     if k6 != int(FUSED_RES2[0] in extra):
         raise AssertionError("K6 launched {} times in the small-input "
                              "check".format(k6))
@@ -878,7 +984,7 @@ def relu_flips(inputs, ref):
     return n, worst, err
 
 
-def check_small_train(device):
+def check_small_train(device, keypoints=False):
     """Phase 3, training: one float32 train_step on the GPU (kernels)
     against the same step on the CPU (plain versions), with the same
     params, batch and sampling draws; gradients against the CPU plain path
@@ -889,13 +995,14 @@ def check_small_train(device):
     a whole term, not by rounding. So each float32 run is held against a
     float64 run that takes that run's ReLU signs (x * mask), and its ReLU
     inputs within ACT_REL of the float64 run's (so a flip is only ever at
-    an input that close to 0)."""
+    an input that close to 0). With `keypoints`, Keypoint R-CNN (the tiny
+    pose head; loss_kps among the losses checked)."""
     import torch
 
     from detectron_tpu_torch.models import init
     from detectron_tpu_torch.parallel import optimizer as opt
 
-    set_cfg(tiny=True, dtype="float32")
+    set_cfg(tiny=True, dtype="float32", keypoints=keypoints)
     H, W = 128, 160
     tree = init.init_model(1)
     paths = [path for path, _ in opt.flatten(tree)]
@@ -912,7 +1019,7 @@ def check_small_train(device):
         out["cpu f64, signs of " + name] = _small_train_run(
             tree, "cpu", torch.float64, H, W,
             masks=[x > 0 for x in out[name][2]])
-    set_cfg(tiny=True, dtype="float32")
+    set_cfg(tiny=True, dtype="float32", keypoints=keypoints)
 
     (_, g64, _), _, relu64 = out["cpu f64"]
     cpu_loss = out["cpu f32"][1]
@@ -934,14 +1041,15 @@ def check_small_train(device):
             grad_f64=worst(g, g64), grad=worst(g, g_ref),
             update=worst(upd, upd_ref))
         r = report[name]
-        print("small-input train check (2 x {} x {}), {}: losses {}; max "
+        print("small-input train check ({}2 x {} x {}), {}: losses {}; max "
               "relative loss diff vs cpu f32 {:.3e}; ReLU inputs vs cpu f64: "
               "{} sign flips, largest |input| at a flip / its call's max "
               "{:.3e}, worst diff / its call's max {:.3e}; "
               "worst grad diff / max|g| vs cpu f64 {:.3e} {}, vs cpu f64 "
               "with this run's ReLU signs {:.3e} {}; worst update diff / "
               "max update vs the latter {:.3e} {}".format(
-                  H, W, name, loss, r["loss"], *r["flips"], *r["grad_f64"],
+                  "Keypoint R-CNN, " if keypoints else "", H, W, name, loss,
+                  r["loss"], *r["flips"], *r["grad_f64"],
                   *r["grad"], *r["update"]))
     # With its own ReLU signs a float32 step is within ~1e-5 of float64
     # here (1e-3 to 1e-2 without them); each (the CPU's, and the GPU's
@@ -956,11 +1064,12 @@ def check_small_train(device):
                              "path on the small input: {}".format(bad))
 
 
-def main_inputs(device):
-    """The inference main path's bf16 params and images (and im_info)."""
+def main_inputs(device, params=True):
+    """The inference main path's bf16 params (None without `params`) and
+    images (and im_info)."""
     import torch
 
-    params = make_params(device, torch.bfloat16)
+    params = make_params(device, torch.bfloat16) if params else None
     rng = np.random.RandomState(0)
     images = torch.from_numpy(
         rng.randn(BATCH, *CANVAS, 3).astype(np.float32) * 20.0).to(
@@ -1585,6 +1694,346 @@ def run_train_net_path(device, workdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 9 and 10: Keypoint R-CNN
+# ---------------------------------------------------------------------------
+
+def _check_keypoint_results(dets, roidb):
+    """Every image has finite (n, 5) person boxes inside it, and as many
+    (4, K) keypoint arrays, finite, each keypoint inside its box (the
+    decode places it at a cell centre of the box's resized heatmap).
+    Returns the number of detections."""
+    n = 0
+    for i, entry in enumerate(roidb):
+        h, w = entry["height"], entry["width"]
+        b, kps = dets["all_boxes"][1][i], dets["all_keyps"][1][i]
+        if not isinstance(b, np.ndarray) or b.ndim != 2 or b.shape[1] != 5 \
+                or not np.isfinite(b).all():
+            raise AssertionError("image {}: no finite (n, 5) person boxes: "
+                                 "{!r}".format(i, b))
+        if ((b[:, :4] < 0).any() or (b[:, [0, 2]] > w).any()
+                or (b[:, [1, 3]] > h).any()):
+            raise AssertionError("image {}: boxes outside the {} x {} image"
+                                 .format(i, w, h))
+        if len(kps) != len(b):
+            raise AssertionError("image {}: {} boxes, {} keypoint sets"
+                                 .format(i, len(b), len(kps)))
+        for box, k in zip(b, kps):
+            if k.shape != (4, 17) or not np.isfinite(k).all():
+                raise AssertionError("image {}: keypoints {!r}".format(i, k))
+            x1, y1, x2, y2 = box[:4]
+            if ((k[0] < x1 - 1e-3).any() or (k[0] > max(x2, x1 + 1) + 1e-3)
+                    .any() or (k[1] < y1 - 1e-3).any()
+                    or (k[1] > max(y2, y1 + 1) + 1e-3).any()):
+                raise AssertionError("image {}: keypoints outside box {}: {}"
+                                     .format(i, box[:4], k[:2]))
+        n += len(b)
+    return n
+
+
+def calibrate_person_class(tree, device, frac=0.25):
+    """Turn the person column of cls_score (Keypoint R-CNN's one
+    foreground class) so that about `frac` of the main inputs' proposals
+    score it above the background. calibrate_detector_params' background
+    bias alone, made for 80 classes, leaves one class with no detection:
+    under random weights every RoI's fc7 features share a large common
+    direction u, so the person-minus-background logit has one sign on
+    almost every RoI (negative for seed 0). The column moves by -c u, c
+    the (1 - frac) quantile of that logit over each RoI's projection on
+    u; the network is positively homogeneous in its input (zero biases),
+    so the share holds at any input scale. Updates and returns `tree`."""
+    import torch
+
+    from detectron_tpu_torch.models import bridge
+    from detectron_tpu_torch.models import model_builder as mb
+
+    params = bridge.to_torch(tree, device, torch.bfloat16)
+    _, images, im_info = main_inputs(device, params=False)
+    with torch.no_grad():
+        feats, scales = mb.forward_features(params, images)
+        rois, _, valid = mb.generate_proposals(
+            mb.forward_rpn(params, feats), feats, im_info, False)
+        f = mb.forward_box_outputs(params, feats, scales, rois)[2]
+    f = f.float()[valid.reshape(-1)].cpu().numpy().astype(np.float64)
+    w = tree["box_outs"]["cls_score"]["w"]
+    u = f.mean(0) / np.linalg.norm(f.mean(0))
+    proj = f @ u
+    keep = proj > 0
+    c = np.quantile((f[keep] @ (w[:, 1] - w[:, 0]).astype(np.float64))
+                    / proj[keep], 1 - frac)
+    w[:, 1] -= (c * u).astype(np.float32)
+    return tree
+
+
+def run_keypoint_infer_path(device, workdir):
+    """Phase 9. Returns (K1-K3's launch counts over MAIN_RUNS detect_graph
+    batches, and over run_inference)."""
+    import types
+
+    import torch
+
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core import test_engine
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.data.json_dataset import JsonDataset
+    from detectron_tpu_torch.models import bridge
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
+    from detectron_tpu_torch.utils import net as net_utils
+    from detectron_tpu_torch.utils.logging import setup_logging
+
+    setup_logging(__name__)
+    set_cfg(tiny=False, dtype="bfloat16", keypoints=True)
+    tree = calibrate_person_class(make_tree(), device)
+    params = bridge.to_torch(tree, device, torch.bfloat16)
+    _, images, im_info = main_inputs(device, params=False)
+    det.detect_graph(params, images, im_info)   # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": roi_align_kernel.roi_window_pool,
+                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(MAIN_RUNS):
+        out = det.detect_graph(params, images, im_info)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    infer = {name: fn.launches for name, fn in wrappers.items()}
+
+    D, S = cfg.TEST.DETECTIONS_PER_IM, cfg.KRCNN.HEATMAP_SIZE
+    K = cfg.KRCNN.NUM_KEYPOINTS
+    shapes = {"boxes": (BATCH, D, 4), "scores": (BATCH, D),
+              "classes": (BATCH, D), "valid": (BATCH, D),
+              "kps_heatmaps": (BATCH, D, S, S, K)}
+    if set(out) != set(shapes):
+        raise AssertionError("detect_graph returned {}".format(sorted(out)))
+    for k, shape in shapes.items():
+        if tuple(out[k].shape) != shape:
+            raise AssertionError("{} has shape {}, expected {}".format(
+                k, tuple(out[k].shape), shape))
+        if out[k].is_floating_point() and not bool(
+                torch.isfinite(out[k]).all()):
+            raise AssertionError(k + " has non-finite values")
+    per_image = out["valid"].sum(1).tolist()
+    # The keypoint head's RoIs (all D slots of each image, as the ladder
+    # gets them) per ladder route.
+    dims = [(CANVAS[0] // s, CANVAS[1] // s) for s in (4, 8, 16, 32)]
+    routes, _ = ladder_routes(
+        out["boxes"].reshape(-1, 4).float().cpu(), dims,
+        ladder_statics(cfg.KRCNN.ROI_XFORM_RESOLUTION,
+                       cfg.KRCNN.ROI_XFORM_SAMPLING_RATIO))
+    print("keypoint inference path (Keypoint R-CNN R-50-FPN, bf16, {} x {} "
+          "x {}, RPN {} proposals, D={}, pose head {} x {} convs on {} x {}, "
+          "heatmaps {} x {} x {}): {:.3f} img/s over {} batches, valid "
+          "detections per image {}, keypoint RoIs per ladder route {}, "
+          "launches {}".format(
+              BATCH, *CANVAS, cfg.TEST.RPN_POST_NMS_TOP_N, D,
+              cfg.KRCNN.NUM_STACKED_CONVS, cfg.KRCNN.CONV_HEAD_DIM,
+              cfg.KRCNN.ROI_XFORM_RESOLUTION, cfg.KRCNN.ROI_XFORM_RESOLUTION,
+              S, S, K, BATCH * MAIN_RUNS / dt, MAIN_RUNS, per_image, routes,
+              infer))
+    if sum(per_image) == 0:
+        raise AssertionError("the keypoint path produced no detections")
+    profile_call("one keypoint inference batch",
+                 lambda: det.detect_graph(params, images, im_info),
+                 n_kernels=15, n_ops=0)
+
+    # The engine over a synthetic person-keypoints val set.
+    t0 = time.perf_counter()
+    n_ann = make_valset(workdir, KPS_ENGINE_IMAGES, keypoints=True)
+    set_cfg(tiny=False, dtype="bfloat16", keypoints=True,
+            extra=["DATA_DIR", workdir, "TEST.DATASETS",
+                   "('{}',)".format(KPS_VAL)])
+    ckpt = net_utils.save_ckpt(workdir + "/train", 0, tree)
+    args = types.SimpleNamespace(load_ckpt=ckpt, load_detectron=None)
+    print("keypoint engine set-up: {} images, {} person annotations, "
+          "checkpoint {}, in {:.3f} s".format(
+              KPS_ENGINE_IMAGES, n_ann, ckpt, time.perf_counter() - t0))
+    for fn in wrappers.values():
+        fn.launches = 0
+    out_dir = workdir + "/eval"
+    t0 = time.perf_counter()
+    results = test_engine.run_inference(
+        args, dataset_name=KPS_VAL, output_dir=out_dir,
+        batch_size=ENGINE_BATCH, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine = {name: fn.launches for name, fn in wrappers.items()}
+    with open(out_dir + "/detections.pkl", "rb") as f:
+        dets = pickle.load(f)
+    dataset = JsonDataset(KPS_VAL)
+    roidb = dataset.get_roidb(gt=True)
+    n_dets = _check_keypoint_results(dets, roidb)
+    ap = {task: results[KPS_VAL][task]["AP"] for task in ("box", "keypoint")}
+    if not all(np.isfinite(v) for v in ap.values()):
+        raise AssertionError("non-finite COCO AP: {}".format(ap))
+    print("keypoint engine path (run_inference, Keypoint R-CNN R-50-FPN, "
+          "bf16, batch {}, TEST.SCALE {} / MAX_SIZE {}): {} images, {} "
+          "detections, box AP {}, keypoint AP {} (random weights), {:.3f} s "
+          "in all, launches {}".format(
+              ENGINE_BATCH, cfg.TEST.SCALE, cfg.TEST.MAX_SIZE, len(roidb),
+              n_dets, ap["box"], ap["keypoint"], wall, engine))
+    if n_dets == 0:
+        raise AssertionError("the keypoint engine produced no detections")
+
+    # The first batch against detect_graph and keypoint_results called
+    # directly on the batch the engine prepared: boxes and keypoints
+    # equal; the heatmap decode timed alone, on one thread.
+    params = test_engine.initialize_model_from_cfg(args, device=device)
+    first = [i for i, e in enumerate(roidb)
+             if e["width"] >= e["height"]][:ENGINE_BATCH]
+    prepared = []
+
+    def spy(params, images, im_info):
+        prepared.append((images.clone(), im_info.clone()))
+        return det.detect_graph(params, images, im_info)
+
+    test_engine.test_net(params, [roidb[i] for i in first], dataset,
+                         batch_size=ENGINE_BATCH, detect_fn=spy,
+                         device=device)
+    out = det.detect_graph(params, *prepared[0])
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    im_info = prepared[0][1].cpu().numpy()
+    t0 = time.perf_counter()
+    decoded = [test_engine.device_outputs_to_image_results(
+        out, bi, im_info, cfg.MODEL.NUM_CLASSES) for bi in range(len(first))]
+    decode_s = time.perf_counter() - t0
+    n_first = 0
+    for (cls_boxes, _, cls_keyps), idx in zip(decoded, first):
+        n_first += len(cls_boxes[1])
+        if not np.array_equal(cls_boxes[1], dets["all_boxes"][1][idx]) or \
+                len(cls_keyps[1]) != len(dets["all_keyps"][1][idx]) or \
+                not all(np.array_equal(a, b) for a, b in zip(
+                    cls_keyps[1], dets["all_keyps"][1][idx])):
+            raise AssertionError("engine image {} differs from detect_graph "
+                                 "+ keypoint_results on its prepared batch"
+                                 .format(idx))
+    print("keypoint engine first batch: {} images equal to detect_graph + "
+          "keypoint_results on the prepared batch (boxes and keypoints); "
+          "heatmap decode of its {} detections on one thread {:.3f} s".format(
+              len(first), n_first, decode_s))
+    for path, counts in (("keypoint inference", infer),
+                         ("keypoint test_net", engine)):
+        missing = [k for k, v in counts.items() if v == 0]
+        if missing:
+            raise AssertionError("kernels not launched on the {} path: {}"
+                                 .format(path, ", ".join(missing)))
+    return infer, engine
+
+
+def run_keypoint_train_net_path(device, workdir):
+    """Phase 10. Returns K1-K4's launch counts over train_net_step.main."""
+    import torch
+
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import init
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.tools import train_net_step
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
+    from detectron_tpu_torch.utils import detectron_weight_helper as dwh
+    from detectron_tpu_torch.utils import net as net_utils
+
+    t0 = time.perf_counter()
+    n_ann = make_valset(workdir, TRAIN_NET_IMAGES, "train2017",
+                        keypoints=True)
+    set_cfg(tiny=False, dtype="bfloat16", keypoints=True,
+            extra=["DATA_DIR", workdir, "OUTPUT_DIR", workdir + "/out"])
+    # The calibrated weights as a Detectron .pkl, conv_fcn1..8 and the
+    # kps_score deconv included, in Caffe2 layouts.
+    tree = make_tree()
+    pkl = workdir + "/model_final.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump({"blobs": dwh.to_detectron_blobs(tree)}, f,
+                    pickle.HIGHEST_PROTOCOL)
+    loaded = dict(opt.flatten(dwh.load_detectron_weight(init.init_model(1),
+                                                         pkl)))
+    ref = dict(opt.flatten(tree))
+    diff = [p for p, a in ref.items() if not np.array_equal(loaded[p], a)]
+    if set(loaded) != set(ref) or diff:
+        raise AssertionError("load_detectron_weight of the written .pkl "
+                             "differs from its tree at {}".format(diff[:5]))
+    print("keypoint train_net set-up: {} images, {} person annotations "
+          "(keypoints_coco_2017_train), Detectron .pkl of {} blobs read back "
+          "exactly, in {:.3f} s".format(
+              TRAIN_NET_IMAGES, n_ann, len(dwh.full_weight_mapping()),
+              time.perf_counter() - t0))
+
+    scale = cfg.NUM_GPUS * cfg.TRAIN.IMS_PER_BATCH // BATCH
+    max_iter = TRAIN_NET_STEPS // scale
+    assert max_iter * scale == TRAIN_NET_STEPS
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": roi_align_kernel.roi_window_pool,
+                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg,
+                "roi_window_accum": roi_align_kernel.roi_window_accum}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run = train_net_step.main([
+        "--dataset", "keypoints_coco2017", "--bs", str(BATCH), "--nw", "4",
+        "--load_detectron", pkl, "--ckpt_num_per_epoch", "1",
+        "--disp_interval", "1", "--device", device, "--set",
+        "SOLVER.MAX_ITER", str(max_iter),
+        "SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS),
+        "TRAIN.USE_FLIPPED", "True", "TRAIN.SCALES", "(800,)",
+        "TRAIN.MAX_SIZE", "1333"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+
+    steps = len(run["stats"])
+    if steps != TRAIN_NET_STEPS:
+        raise AssertionError("train_net_step took {} steps, not {}".format(
+            steps, TRAIN_NET_STEPS))
+    bad = [s for s in run["stats"] if "loss_kps" not in s
+           or not all(np.isfinite(list(s.values())))]
+    if bad:
+        raise AssertionError("non-finite training stats, or no loss_kps: "
+                             "{}".format(bad))
+    got = dict(opt.flatten(net_utils.load_ckpt_params(run["ckpt"])))
+    if set(got) != set(ref) or not all(
+            got[p].shape == a.shape and np.isfinite(got[p]).all()
+            for p, a in ref.items()):
+        raise AssertionError("the checkpoint {} does not read back as the "
+                             "model's tree of finite values".format(
+                                 run["ckpt"]))
+    moved = sum(not np.array_equal(got[p], a) for p, a in ref.items())
+    step_ms = [t * 1e3 for t in run["step_s"][1:]]
+    wait_ms = [t * 1e3 for t in run["loader_wait_s"]]
+    median = statistics.median(step_ms)
+    print("keypoint train_net path (train_net_step.main --dataset "
+          "keypoints_coco2017, Keypoint R-CNN R-50-FPN, bf16 compute / f32 "
+          "params, --bs {} --nw 4 --load_detectron, TRAIN.SCALES (800,) / "
+          "MAX_SIZE 1333, USE_FLIPPED, CLIP_GRADIENTS {}, {} RoIs/img, "
+          "keypoint RoIs {} per image): {} steps over {} images and their "
+          "flips in {:.3f} s, canvases {}; median step {:.3f} ms after the "
+          "first = "
+          "{:.3f} img/s; loader wait per step median {:.3f} ms, mean {:.3f} "
+          "ms (first step {:.3f} ms); checkpoint {} read back, {} of {} "
+          "leaves moved; launches {}".format(
+              BATCH, CLIP_GRADIENTS, cfg.TRAIN.BATCH_SIZE_PER_IM,
+              int(round(cfg.TRAIN.FG_FRACTION * cfg.TRAIN.BATCH_SIZE_PER_IM)),
+              steps, TRAIN_NET_IMAGES, wall,
+              sorted(set(run["canvases"])), median, BATCH / median * 1e3,
+              statistics.median(wait_ms), statistics.mean(wait_ms),
+              wait_ms[0], run["ckpt"], moved, len(got), launches))
+    print("keypoint train_net step ms: {}; loader wait ms: {}".format(
+        [round(t, 3) for t in [run["step_s"][0] * 1e3] + step_ms],
+        [round(t, 3) for t in wait_ms]))
+    for i, row in enumerate(run["stats"]):
+        print("keypoint train_net step {}: {}".format(
+            i, {k: round(v, 4) for k, v in row.items()}))
+    if moved == 0:
+        raise AssertionError("the training steps changed no param")
+    missing = [k for k in ("nms_keep_mask", "roi_window_pool",
+                           "roi_window_accum") if launches[k] == 0]
+    if missing:
+        raise AssertionError("kernels not launched on the keypoint "
+                             "train_net path: " + ", ".join(missing))
+    return launches
+
+
 def main():
     import torch
 
@@ -1628,6 +2077,8 @@ def main():
     check_small_input(device)
     check_small_input(device, FUSED_RES2)
     check_small_train(device)
+    check_small_input(device, keypoints=True)
+    check_small_train(device, keypoints=True)
     inference = run_main_path(device)
     training = run_train_path(device, args.profile_train, args.clip_gradients)
     fused = run_main_path(device, FUSED_RES2)
@@ -1636,6 +2087,10 @@ def main():
         engine = run_engine_path(device, workdir)
     with tempfile.TemporaryDirectory() as workdir:
         train_net = run_train_net_path(device, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        kps_infer, kps_engine = run_keypoint_infer_path(device, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        kps_train = run_keypoint_train_net_path(device, workdir)
 
     meta = {
         "nms_keep_mask": ("detectron_tpu_torch/csrc/nms_keep_mask.cu",
@@ -1667,7 +2122,10 @@ def main():
                    "training": training.get(name, 0),
                    "inference_fused_res2": fused.get(name, 0),
                    "test_net": engine.get(name, 0),
-                   "train_net": train_net.get(name, 0)}
+                   "train_net": train_net.get(name, 0),
+                   "keypoint_infer": kps_infer.get(name, 0),
+                   "keypoint_test_net": kps_engine.get(name, 0),
+                   "keypoint_train": kps_train.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": by_path[path_of[name]],

@@ -2,17 +2,18 @@
 detectron_tpu/core/test.py: detect_graph :49-63,
 detect_graph_with_proposals :66-74, _detect_tail :77-126,
 nms_and_limit_graph :129-196, detect_raw :199-223, mask_graph :226-251,
-mask_on_boxes_graph :268-287, im_detect_all :296-381, _sel_probs :384-393,
+keypoint_graph :254-266, mask_on_boxes_graph :268-287, kps_on_boxes_graph
+:290-293, im_detect_all :296-381, _sel_probs :384-393,
 box_results_with_nms_and_limit :400-454).
 
 The whole batch runs backbone, RPN, proposals, box head, softmax, per-class
 decode, per-class NMS (kernel K1), the cross-class top-D limit and the mask
-head on the final detections. Where the JAX graph branches with lax.cond
-(the untruncated per-class NMS re-run) the eager port branches in Python.
-im_detect_all is the per-image path of Soft-NMS and box voting: the raw
-scores and boxes of detect_raw, NMS on the host in numpy, then the mask
-head on the survivors. Keypoints (ROADMAP Queue A, A6) and test-time
-augmentation (A9) are not ported yet.
+and keypoint heads on the final detections. Where the JAX graph branches
+with lax.cond (the untruncated per-class NMS re-run) the eager port
+branches in Python. im_detect_all is the per-image path of Soft-NMS and box
+voting: the raw scores and boxes of detect_raw, NMS on the host in numpy,
+then the mask and keypoint heads on the survivors. Test-time augmentation
+(ROADMAP Queue A, A9) is not ported yet.
 """
 
 import numpy as np
@@ -31,8 +32,9 @@ from detectron_tpu_torch.utils import boxes as box_utils
 def detect_graph(params, images, im_info):
     """images (B, H, W, 3), im_info (B, 3) [h, w, scale]. Returns a dict:
       boxes (B, D, 4) scaled-image coords, scores (B, D), classes (B, D)
-      int32 (1..C-1), valid (B, D) bool, and with MASK_ON mask_probs
-      (B, D, M, M); D = TEST.DETECTIONS_PER_IM."""
+      int32 (1..C-1), valid (B, D) bool, with MASK_ON mask_probs
+      (B, D, M, M), and with KEYPOINTS_ON kps_heatmaps (B, D, S, S, K)
+      float32 logits; D = TEST.DETECTIONS_PER_IM."""
     features, scales = mb.forward_features(params, images)
     rpn_outs = mb.forward_rpn(params, features)
     rois, _, roi_valid = mb.generate_proposals(rpn_outs, features, im_info,
@@ -54,10 +56,8 @@ def detect_graph_with_proposals(params, images, im_info, proposals,
 
 @torch.no_grad()
 def _detect_tail(params, features, scales, rois, roi_valid, im_info):
-    """Box head + decode + per-class NMS + top-D limit + mask head."""
-    if cfg.MODEL.KEYPOINTS_ON:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A6): "
-                                  "keypoint_graph")
+    """Box head + decode + per-class NMS + top-D limit + mask and keypoint
+    heads."""
     cls_logits, bbox_pred, _ = mb.forward_box_outputs(params, features,
                                                       scales, rois)
     B, R, C = cls_logits.shape
@@ -92,6 +92,9 @@ def _detect_tail(params, features, scales, rois, roi_valid, im_info):
     if cfg.MODEL.MASK_ON:
         out["mask_probs"] = mask_graph(params, features, scales, out_boxes,
                                        out["classes"])
+    if cfg.MODEL.KEYPOINTS_ON:
+        out["kps_heatmaps"] = keypoint_graph(params, features, scales,
+                                             out_boxes)
     return out
 
 
@@ -190,6 +193,16 @@ def mask_graph(params, features, scales, det_boxes, det_classes):
 
 
 @torch.no_grad()
+def keypoint_graph(params, features, scales, det_boxes):
+    """Keypoint head on the final detections (the reference's
+    im_detect_keypoints). det_boxes (B, D, 4) scaled coords. Returns the
+    raw heatmaps (B, D, S, S, K) in float32."""
+    B, D = det_boxes.shape[:2]
+    hm = mb.forward_keypoint_outputs(params, features, scales, det_boxes)
+    return hm.reshape((B, D) + hm.shape[1:]).to(torch.float32)
+
+
+@torch.no_grad()
 def mask_on_boxes_graph(params, images, im_info, det_boxes):
     """Recompute features and run the mask head on given boxes (B, D, 4)
     in scaled coords (the host-NMS path's im_detect_mask). Returns sigmoid
@@ -201,23 +214,52 @@ def mask_on_boxes_graph(params, images, im_info, det_boxes):
     return torch.sigmoid(logits.reshape(B, D, M, M, -1).to(torch.float32))
 
 
+@torch.no_grad()
+def kps_on_boxes_graph(params, images, im_info, det_boxes):
+    """Recompute features and run the keypoint head on given boxes
+    (B, D, 4) in scaled coords. Returns heatmaps (B, D, S, S, K)."""
+    features, scales = mb.forward_features(params, images)
+    return keypoint_graph(params, features, scales, det_boxes)
+
+
+def _on_boxes(graph, params, blob, im_info, boxes, scale, device):
+    """graph(params, blob, im_info, boxes) over image boxes (n, 4), padded
+    to DETECTIONS_PER_IM at a time: the host limit keeps every box tied
+    with the last one it admits, so there can be more. Returns the first
+    image's outputs of the n boxes, numpy."""
+    D_fix = cfg.TEST.DETECTIONS_PER_IM
+    outs = []
+    for s in range(0, len(boxes), D_fix):
+        n = min(len(boxes) - s, D_fix)
+        padded = np.zeros((D_fix, 4), np.float32)
+        padded[:n] = boxes[s:s + n]
+        out = graph(params, blob, im_info,
+                    torch.from_numpy((padded * scale)[None]).to(device))
+        outs.append(out[0, :n].cpu().numpy())
+    return np.concatenate(outs)
+
+
 def im_detect_all(params, im, device):
     """One image through detect_raw, host NMS (Soft-NMS and box voting as
-    cfg.TEST says) and the mask head on the survivors (the reference's
-    lib/core/test.py :: im_detect_all without test-time augmentation).
-    im: (H, W, 3) uint8 BGR. Returns (cls_boxes, cls_segms, cls_keyps) in
-    the reference's per-class list format, boxes in original image
-    coordinates; cls_keyps is None."""
+    cfg.TEST says) and the mask and keypoint heads on the survivors (the
+    reference's lib/core/test.py :: im_detect_all without test-time
+    augmentation). im: (H, W, 3) uint8 BGR. Returns (cls_boxes, cls_segms,
+    cls_keyps) in the reference's per-class list format, boxes and
+    keypoints in original image coordinates; cls_segms without MASK_ON
+    and cls_keyps without KEYPOINTS_ON are None. Every box gets its mask
+    and keypoints, also past DETECTIONS_PER_IM (the JAX package's copy
+    runs the heads on the first DETECTIONS_PER_IM only; its segm
+    evaluation then indexes past the end of an image's RLEs, and its
+    keypoint results leave such boxes out)."""
     from detectron_tpu_torch.core import test_aug
     from detectron_tpu_torch.core import test_engine
 
     if cfg.TEST.BBOX_AUG.ENABLED or cfg.TEST.MASK_AUG.ENABLED or \
             cfg.TEST.KPS_AUG.ENABLED:
         raise NotImplementedError("not ported yet (ROADMAP Queue A, A9): "
-                                  "test-time augmentation")
-    if cfg.MODEL.KEYPOINTS_ON:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A6): "
-                                  "keypoints")
+                                  "test-time augmentation "
+                                  "(im_detect_bbox_aug, im_detect_mask_aug, "
+                                  "im_detect_kps_aug)")
     blob, scale, im_info = test_aug._prep(im, cfg.TEST.SCALE,
                                           cfg.TEST.MAX_SIZE)
     blob = torch.from_numpy(blob).to(device)
@@ -228,9 +270,9 @@ def im_detect_all(params, im, device):
 
     _, _, cls_boxes = box_results_with_nms_and_limit(scores, boxes)
 
-    cls_segms = None
+    cls_segms = cls_keyps = None
     num_classes = cfg.MODEL.NUM_CLASSES
-    # Flatten per-class results to run the mask head once over all
+    # Flatten per-class results to run the heads once over all
     # detections.
     det_boxes = np.vstack(
         [cls_boxes[j][:, :4] for j in range(1, num_classes)
@@ -241,30 +283,25 @@ def im_detect_all(params, im, device):
         [np.zeros((0,), np.int32)])
 
     if cfg.MODEL.MASK_ON and det_boxes.shape[0] > 0:
-        # The limit keeps every box tied with the last one it admits, so
-        # there can be more than DETECTIONS_PER_IM: the mask head runs on
-        # them D_fix at a time, and every box gets its mask. (The JAX
-        # package's copy pastes masks for the first D_fix only, and its
-        # segm evaluation then indexes past the end of the image's RLEs.)
-        D_fix = cfg.TEST.DETECTIONS_PER_IM
-        probs_all = []
-        for s in range(0, len(det_boxes), D_fix):
-            n = min(len(det_boxes) - s, D_fix)
-            padded = np.zeros((D_fix, 4), np.float32)
-            padded[:n] = det_boxes[s:s + n]
-            probs_c = mask_on_boxes_graph(
-                params, blob, im_info,
-                torch.from_numpy((padded * scale)[None]).to(device))
-            probs_all.append(_sel_probs(probs_c[0].cpu().numpy(),
-                                        det_classes[s:s + n], n)[:n])
+        probs_c = _on_boxes(mask_on_boxes_graph, params, blob, im_info,
+                            det_boxes, scale, device)
         rles = test_engine.segm_results(
-            det_boxes, det_classes, np.concatenate(probs_all),
+            det_boxes, det_classes,
+            _sel_probs(probs_c, det_classes, len(det_classes)),
             im.shape[0], im.shape[1])
         cls_segms = [[] for _ in range(num_classes)]
         for r, j in zip(rles, det_classes):
             cls_segms[j].append(r)
 
-    return cls_boxes, cls_segms, None
+    if cfg.MODEL.KEYPOINTS_ON and det_boxes.shape[0] > 0:
+        hm = _on_boxes(kps_on_boxes_graph, params, blob, im_info, det_boxes,
+                       scale, device)
+        xy = test_engine.keypoint_results(det_boxes, hm)
+        cls_keyps = [[] for _ in range(num_classes)]
+        for k_i, j in enumerate(det_classes):
+            cls_keyps[j].append(xy[k_i])
+
+    return cls_boxes, cls_segms, cls_keyps
 
 
 def _sel_probs(probs_all_classes, det_classes, n):

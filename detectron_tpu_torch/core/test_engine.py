@@ -4,13 +4,14 @@ initialize_model_from_cfg, empty_results, extend_results).
 
 - Images are bucketed by orientation into static canvases, as in the JAX
   engine, and each batch of a bucket has one shape.
-- The whole batch (backbone .. per-class NMS .. mask head) runs on the
-  device through core/test.py::detect_graph, with kernels K1-K3; the host
-  pastes masks for the <= DETECTIONS_PER_IM survivors and fills the
-  all_boxes structures.
+- The whole batch (backbone .. per-class NMS .. mask and keypoint heads)
+  runs on the device through core/test.py::detect_graph, with kernels
+  K1-K3; the host pastes masks and decodes keypoint heatmaps for the
+  <= DETECTIONS_PER_IM survivors and fills the all_boxes structures.
 - Three batches are in flight: a loader thread reads and resizes batch
   k+1, the main thread copies batch k to the device and runs it, and a
-  post-processing pool pastes the masks of batch k-1. detect_graph syncs
+  post-processing pool pastes the masks and decodes the keypoints of
+  batch k-1. detect_graph syncs
   the host inside (the ladder's torch.nonzero, the tail's overflow test),
   so unlike the JAX engine's async dispatch the device work of batch k
   ends before the paste of batch k-1 starts (ROADMAP Queue A, A2).
@@ -119,10 +120,20 @@ def segm_results(det_boxes, det_classes, mask_probs, im_h, im_w):
     return rles
 
 
+def keypoint_results(det_boxes, kps_heatmaps):
+    """Decode keypoint heatmaps (D, S, S, K) on boxes (D, 4) in image
+    coordinates to keypoints (D, 4, K): x, y, logit, prob (reference:
+    lib/core/test.py :: keypoint_results)."""
+    from detectron_tpu_torch.utils import keypoints as kp_utils
+
+    maps = np.transpose(kps_heatmaps, (0, 3, 1, 2))
+    return kp_utils.heatmaps_to_keypoints(maps, det_boxes)
+
+
 def device_outputs_to_image_results(out, bi, im_info, num_classes):
     """Convert detect_graph outputs (numpy) for image `bi` into the
-    reference's per-class results (cls_boxes, cls_segms, cls_keyps);
-    cls_keyps is None (keypoints wait for ROADMAP Queue A, A6)."""
+    reference's per-class results (cls_boxes, cls_segms, cls_keyps), None
+    for a head the model does not have."""
     valid = out["valid"][bi]
     boxes = out["boxes"][bi][valid]
     scores = out["scores"][bi][valid]
@@ -145,7 +156,14 @@ def device_outputs_to_image_results(out, bi, im_info, num_classes):
         cls_segms = [[] for _ in range(num_classes)]
         for r, j in zip(rles, classes):
             cls_segms[j].append(r)
-    return cls_boxes, cls_segms, None
+
+    cls_keyps = None
+    if "kps_heatmaps" in out:
+        xy = keypoint_results(boxes_orig, out["kps_heatmaps"][bi][valid])
+        cls_keyps = [[] for _ in range(num_classes)]
+        for k_i, j in enumerate(classes):
+            cls_keyps[j].append(xy[k_i])
+    return cls_boxes, cls_segms, cls_keyps
 
 
 def _flagged_host_path():
@@ -178,11 +196,14 @@ def test_net_im_detect_all(params, roidb_entries, dataset, output_dir=None,
     for idx, entry in enumerate(roidb_entries):
         im = image_io.imread(entry["image"])
         timer.tic()
-        cls_boxes, cls_segms, _ = test_ops.im_detect_all(params, im, device)
+        cls_boxes, cls_segms, cls_keyps = test_ops.im_detect_all(
+            params, im, device)
         timer.toc()
         extend_results(idx, all_boxes, cls_boxes)
         if cls_segms is not None:
             extend_results(idx, all_segms, cls_segms)
+        if cls_keyps is not None:
+            extend_results(idx, all_keyps, cls_keyps)
         if idx % 50 == 0:
             logger.info("im_detect_all: %d/%d (%.3fs/im)", idx + 1,
                         num_images, timer.average_time)
@@ -280,7 +301,7 @@ def test_net(params, roidb_entries, dataset, batch_size=8, output_dir=None,
 
     # Three-way overlap: a loader thread does the input work for batch
     # k+1, the device computes batch k, and the host post-processes batch
-    # k-1 (mask paste, parallelized over the batch).
+    # k-1 (mask paste and keypoint decode, parallelized over the batch).
     prep_q = queue_mod.Queue(maxsize=2)
     stop = threading.Event()
 
@@ -313,11 +334,13 @@ def test_net(params, roidb_entries, dataset, batch_size=8, output_dir=None,
             return idx, device_outputs_to_image_results(
                 out, bi, infos, num_classes)
 
-        for idx, (cls_boxes, cls_segms, _) in post_pool.map(
+        for idx, (cls_boxes, cls_segms, cls_keyps) in post_pool.map(
                 one, list(enumerate(chunk))):
             extend_results(idx, all_boxes, cls_boxes)
             if cls_segms is not None:
                 extend_results(idx, all_segms, cls_segms)
+            if cls_keyps is not None:
+                extend_results(idx, all_keyps, cls_keyps)
         timers["misc"].toc()
 
     t_wall = Timer()

@@ -1,12 +1,11 @@
 """COCO evaluation (COCOeval replacement; the port's copy of
-detectron_tpu/data/coco_eval.py for boxes and masks).
+detectron_tpu/data/coco_eval.py).
 
-The COCO detection and instance-segmentation protocol: greedy per-image
-matching over 10 IoU thresholds, area ranges, maxDets, 101-point
-interpolated precision, against the minimal COCO API in data/coco_json.py
-(pycocotools.cocoeval.COCOeval's params, greedy matcher with crowd
-semantics, and summarize metrics). The keypoint protocol (OKS) waits for
-the keypoint evaluation (ROADMAP Queue A, A10).
+The COCO detection, instance-segmentation and keypoint (OKS) protocols:
+greedy per-image matching over 10 IoU thresholds, area ranges, maxDets,
+101-point interpolated precision, against the minimal COCO API in
+data/coco_json.py (pycocotools.cocoeval.COCOeval's params, greedy matcher
+with crowd semantics, computeOks, and summarize metrics).
 """
 
 import copy
@@ -23,14 +22,20 @@ class Params:
         self.catIds = []
         self.iouThrs = np.linspace(0.5, 0.95, 10)
         self.recThrs = np.linspace(0.0, 1.00, 101)
-        if iouType == "keypoints":
-            raise NotImplementedError("not ported yet (ROADMAP Queue A, "
-                                      "A10): the keypoint evaluation")
-        if iouType not in ("bbox", "segm"):
+        if iouType in ("bbox", "segm"):
+            self.maxDets = [1, 10, 100]
+            self.areaRng = [[0, 1e10], [0, 32**2], [32**2, 96**2],
+                            [96**2, 1e10]]
+            self.areaRngLbl = ["all", "small", "medium", "large"]
+        elif iouType == "keypoints":
+            self.maxDets = [20]
+            self.areaRng = [[0, 1e10], [32**2, 96**2], [96**2, 1e10]]
+            self.areaRngLbl = ["all", "medium", "large"]
+            self.kpt_oks_sigmas = np.array([
+                0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62,
+                0.62, 1.07, 1.07, 0.87, 0.87, 0.89, 0.89]) / 10.0
+        else:
             raise ValueError(iouType)
-        self.maxDets = [1, 10, 100]
-        self.areaRng = [[0, 1e10], [0, 32**2], [32**2, 96**2], [96**2, 1e10]]
-        self.areaRngLbl = ["all", "small", "medium", "large"]
         self.iouType = iouType
         self.useCats = 1
 
@@ -90,6 +95,10 @@ class COCOeval:
                     ann["_rle"] = seg
         for gt in gts:
             gt["ignore"] = gt.get("ignore", 0) or gt.get("iscrowd", 0)
+            if p.iouType == "keypoints":
+                k = np.array(gt.get("keypoints", []))
+                num_vis = int((k[2::3] > 0).sum()) if k.size else 0
+                gt["ignore"] = gt["ignore"] or num_vis == 0
         self._gts = defaultdict(list)
         self._dts = defaultdict(list)
         for gt in gts:
@@ -110,8 +119,46 @@ class COCOeval:
         if p.iouType == "segm":
             return mask_util.iou([d["_rle"] for d in dt],
                                  [g["_rle"] for g in gt], iscrowd)
-        return _bbox_iou_xywh([d["bbox"] for d in dt],
-                              [g["bbox"] for g in gt], iscrowd)
+        elif p.iouType == "bbox":
+            return _bbox_iou_xywh([d["bbox"] for d in dt],
+                                  [g["bbox"] for g in gt], iscrowd)
+        else:
+            return self.computeOks(imgId, catId)
+
+    def computeOks(self, imgId, catId):
+        p = self.params
+        gts = self._gts[imgId, catId]
+        dts = self._dts[imgId, catId]
+        inds = np.argsort([-d["score"] for d in dts], kind="mergesort")
+        dts = [dts[i] for i in inds][: p.maxDets[-1]]
+        if len(gts) == 0 or len(dts) == 0:
+            return []
+        ious = np.zeros((len(dts), len(gts)))
+        sigmas = p.kpt_oks_sigmas
+        vars_ = (sigmas * 2) ** 2
+        k = len(sigmas)
+        for j, gt in enumerate(gts):
+            g = np.array(gt["keypoints"])
+            xg, yg, vg = g[0::3], g[1::3], g[2::3]
+            k1 = int(np.count_nonzero(vg > 0))
+            bb = gt["bbox"]
+            x0, x1 = bb[0] - bb[2], bb[0] + bb[2] * 2
+            y0, y1 = bb[1] - bb[3], bb[1] + bb[3] * 2
+            for i, dt in enumerate(dts):
+                d = np.array(dt["keypoints"])
+                xd, yd = d[0::3], d[1::3]
+                if k1 > 0:
+                    dx = xd - xg
+                    dy = yd - yg
+                else:
+                    z = np.zeros(k)
+                    dx = np.maximum(z, x0 - xd) + np.maximum(z, xd - x1)
+                    dy = np.maximum(z, y0 - yd) + np.maximum(z, yd - y1)
+                e = (dx**2 + dy**2) / vars_ / (gt["area"] + np.spacing(1)) / 2
+                if k1 > 0:
+                    e = e[vg > 0]
+                ious[i, j] = np.sum(np.exp(-e)) / e.shape[0]
+        return ious
 
     # ------------------------------------------------------------------
     def evaluateImg(self, imgId, catId, aRng, maxDet):
@@ -288,19 +335,35 @@ class COCOeval:
         return float(np.mean(s[s > -1]))
 
     def summarize(self):
-        md = self.params.maxDets[-1]
-        self.stats = np.array([
-            self._summarize(1, maxDets=md),
-            self._summarize(1, iouThr=0.5, maxDets=md),
-            self._summarize(1, iouThr=0.75, maxDets=md),
-            self._summarize(1, areaRng="small", maxDets=md),
-            self._summarize(1, areaRng="medium", maxDets=md),
-            self._summarize(1, areaRng="large", maxDets=md),
-            self._summarize(0, maxDets=self.params.maxDets[0]),
-            self._summarize(0, maxDets=self.params.maxDets[1]),
-            self._summarize(0, maxDets=md),
-            self._summarize(0, areaRng="small", maxDets=md),
-            self._summarize(0, areaRng="medium", maxDets=md),
-            self._summarize(0, areaRng="large", maxDets=md),
-        ])
+        p = self.params
+        if p.iouType in ("bbox", "segm"):
+            md = p.maxDets[-1]
+            self.stats = np.array([
+                self._summarize(1, maxDets=md),
+                self._summarize(1, iouThr=0.5, maxDets=md),
+                self._summarize(1, iouThr=0.75, maxDets=md),
+                self._summarize(1, areaRng="small", maxDets=md),
+                self._summarize(1, areaRng="medium", maxDets=md),
+                self._summarize(1, areaRng="large", maxDets=md),
+                self._summarize(0, maxDets=p.maxDets[0]),
+                self._summarize(0, maxDets=p.maxDets[1]),
+                self._summarize(0, maxDets=p.maxDets[2]),
+                self._summarize(0, areaRng="small", maxDets=md),
+                self._summarize(0, areaRng="medium", maxDets=md),
+                self._summarize(0, areaRng="large", maxDets=md),
+            ])
+        else:
+            md = p.maxDets[-1]
+            self.stats = np.array([
+                self._summarize(1, maxDets=md),
+                self._summarize(1, iouThr=0.5, maxDets=md),
+                self._summarize(1, iouThr=0.75, maxDets=md),
+                self._summarize(1, areaRng="medium", maxDets=md),
+                self._summarize(1, areaRng="large", maxDets=md),
+                self._summarize(0, maxDets=md),
+                self._summarize(0, iouThr=0.5, maxDets=md),
+                self._summarize(0, iouThr=0.75, maxDets=md),
+                self._summarize(0, areaRng="medium", maxDets=md),
+                self._summarize(0, areaRng="large", maxDets=md),
+            ])
         return self.stats

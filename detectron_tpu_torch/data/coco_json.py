@@ -1,11 +1,13 @@
 """Minimal COCO JSON API (pycocotools.coco.COCO replacement; the port's
 copy of detectron_tpu/data/coco_json.py): images, annotations indexed by
-image, categories, and result loading for box and mask evaluation.
-Keypoint results wait for the keypoint evaluation (ROADMAP Queue A, A10).
+image, categories, and result loading for box, mask and keypoint
+evaluation.
 """
 
 import json
 from collections import defaultdict
+
+import numpy as np
 
 from detectron_tpu_torch.data import rle as mask_util
 
@@ -76,6 +78,15 @@ class COCO:
                 ann["area"] = ann["bbox"][2] * ann["bbox"][3]
             if "segmentation" in ann and "area" not in ann:
                 ann["area"] = mask_util.area(ann["segmentation"])
+            if "keypoints" in ann and "area" not in ann:
+                # pycocotools loadRes: area and bbox from the keypoints'
+                # extent.
+                k = np.asarray(ann["keypoints"])
+                xs, ys = k[0::3], k[1::3]
+                x0, x1, y0, y1 = xs.min(), xs.max(), ys.min(), ys.max()
+                ann["area"] = float((x1 - x0) * (y1 - y0))
+                ann["bbox"] = [float(x0), float(y0), float(x1 - x0),
+                               float(y1 - y0)]
             ann.setdefault("iscrowd", 0)
             res.dataset.setdefault("annotations", []).append(ann)
         res.create_index()

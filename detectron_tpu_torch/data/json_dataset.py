@@ -4,14 +4,14 @@ lib/datasets/json_dataset.py :: JsonDataset).
 
 Roidb entries carry boxes (xyxy), segms, gt_classes, seg_areas,
 gt_overlaps (dense (N, C)), is_crowd and box_to_gt_ind_map, with the
-contiguous category remapping and the filtering of degenerate gt boxes.
+contiguous category remapping and the filtering of degenerate gt boxes;
+for a dataset whose person category names keypoints, also gt_keypoints
+(N, 3, K) and has_visible_keypoints.
 Precomputed proposals are read from a file (TEST.PROPOSAL_FILES for
 evaluation, TRAIN.PROPOSAL_FILES for Fast R-CNN training) and appended as
 non-gt rows, with the crowd filter (proposals that lie inside a crowd
 region take overlap -1); add_proposals merges runtime proposals and fills
-max_classes / max_overlaps. Ground-truth keypoints wait for Keypoint
-R-CNN (ROADMAP Queue A, A6): `keypoints` names a dataset's keypoints, and
-the training roidb (data/roidb.py) refuses a dataset that has them.
+max_classes / max_overlaps.
 """
 
 import os
@@ -22,6 +22,7 @@ import numpy as np
 from detectron_tpu_torch.data import dataset_catalog
 from detectron_tpu_torch.data.coco_json import COCO
 from detectron_tpu_torch.utils import boxes as box_utils
+from detectron_tpu_torch.utils import keypoints as keypoint_utils
 
 
 class JsonDataset:
@@ -47,12 +48,7 @@ class JsonDataset:
         self.contiguous_category_id_to_json_id = {
             v: k for k, v in self.json_category_id_to_contiguous_id.items()
         }
-        # The person category's keypoint names, as the JAX package's
-        # _init_keypoints reads them (json_dataset.py:145-167).
-        self.keypoints = None
-        if "person" in self.category_to_id_map:
-            self.keypoints = self.COCO.loadCats(
-                [self.category_to_id_map["person"]])[0].get("keypoints")
+        self._init_keypoints()
 
     def get_roidb(self, gt=False, proposal_file=None, min_proposal_size=2,
                   proposal_limit=-1, crowd_filter_thresh=0):
@@ -82,6 +78,9 @@ class JsonDataset:
         entry["gt_overlaps"] = np.empty((0, self.num_classes), np.float32)
         entry["is_crowd"] = np.empty((0,), bool)
         entry["box_to_gt_ind_map"] = np.empty((0,), np.int32)
+        if self.keypoints is not None:
+            entry["gt_keypoints"] = np.empty((0, 3, self.num_keypoints),
+                                             np.float32)
         for k in ["date_captured", "url", "license"]:
             entry.pop(k, None)
 
@@ -110,6 +109,11 @@ class JsonDataset:
         gt_overlaps = np.zeros((num_valid, self.num_classes), np.float32)
         is_crowd = np.zeros((num_valid,), bool)
         box_to_gt_ind_map = np.zeros((num_valid,), np.int32)
+        if self.keypoints is not None:
+            gt_keypoints = np.zeros((num_valid, 3, self.num_keypoints),
+                                    np.float32)
+
+        im_has_visible_keypoints = False
         for ix, obj in enumerate(valid_objs):
             cls = self.json_category_id_to_contiguous_id[obj["category_id"]]
             boxes[ix, :] = obj["clean_bbox"]
@@ -117,6 +121,10 @@ class JsonDataset:
             seg_areas[ix] = obj.get("area", 0)
             is_crowd[ix] = obj.get("iscrowd", 0)
             box_to_gt_ind_map[ix] = ix
+            if self.keypoints is not None:
+                gt_keypoints[ix] = self._get_gt_keypoints(obj)
+                if np.sum(gt_keypoints[ix, 2, :]) > 0:
+                    im_has_visible_keypoints = True
             if obj.get("iscrowd", 0):
                 gt_overlaps[ix, :] = -1.0
             else:
@@ -130,6 +138,40 @@ class JsonDataset:
         entry["is_crowd"] = np.append(entry["is_crowd"], is_crowd)
         entry["box_to_gt_ind_map"] = np.append(
             entry["box_to_gt_ind_map"], box_to_gt_ind_map)
+        if self.keypoints is not None:
+            entry["gt_keypoints"] = np.append(
+                entry["gt_keypoints"], gt_keypoints, axis=0)
+            entry["has_visible_keypoints"] = im_has_visible_keypoints
+
+    def _init_keypoints(self):
+        """The person category's keypoint names (None when the dataset has
+        none), their count and the COCO flip pairs."""
+        self.keypoints = None
+        self.keypoint_flip_map = None
+        self.num_keypoints = 0
+        if "person" in self.category_to_id_map:
+            cat_info = self.COCO.loadCats([self.category_to_id_map["person"]])
+            keypoints = cat_info[0].get("keypoints")
+            if keypoints is not None:
+                self.keypoints = keypoints
+                self.num_keypoints = len(keypoints)
+                self.keypoint_flip_map = keypoint_utils.get_keypoints()[1]
+
+    def _get_gt_keypoints(self, obj):
+        """An annotation's keypoints as (3, K): x, y, visibility (zeros
+        when it has none)."""
+        gt_kps = np.zeros((3, self.num_keypoints), np.float32)
+        if "keypoints" not in obj:
+            return gt_kps
+        kp = np.array(obj["keypoints"], dtype=np.float32)
+        if len(kp) != 3 * self.num_keypoints:
+            raise ValueError("annotation {} has {} keypoint values, the "
+                             "person category names {} keypoints".format(
+                                 obj.get("id"), len(kp), self.num_keypoints))
+        gt_kps[0] = kp[0::3]
+        gt_kps[1] = kp[1::3]
+        gt_kps[2] = kp[2::3]
+        return gt_kps
 
     def _add_proposals_from_file(self, roidb, proposal_file,
                                  min_proposal_size, top_k,

@@ -1,9 +1,9 @@
-"""COCO-style result writing + evaluation of boxes and masks (the port's
-copy of detectron_tpu/data/json_dataset_evaluator.py; reference:
-lib/datasets/json_dataset_evaluator.py :: evaluate_boxes, evaluate_masks)
-on the port's COCO API and COCOeval (data/coco_json.py, data/coco_eval.py).
-The keypoint evaluation waits for ROADMAP Queue A, A10, and the RPN-only
-proposal recall for RPN-only models, which the port does not run.
+"""COCO-style result writing + evaluation of boxes, masks and keypoints
+(the port's copy of detectron_tpu/data/json_dataset_evaluator.py;
+reference: lib/datasets/json_dataset_evaluator.py :: evaluate_boxes,
+evaluate_masks, evaluate_keypoints) on the port's COCO API and COCOeval
+(data/coco_json.py, data/coco_eval.py). The RPN-only proposal recall waits
+for RPN-only models, which the port does not run.
 """
 
 import json
@@ -130,3 +130,50 @@ def _log_detection_eval_metrics(dataset, coco_eval):
                       else -1]
         ap_c = np.mean(p[p > -1]) if len(p[p > -1]) else -1
         logger.info("{}: {:.1f}".format(cls, 100 * ap_c))
+
+
+def _results_one_category_kps(dataset, boxes, kps, cat_id):
+    """COCO keypoint results of one category: each detection's keypoints
+    as [x, y, 1] triples, scored by its box score
+    (KRCNN.KEYPOINT_CONFIDENCE 'bbox')."""
+    results = []
+    image_ids = dataset.COCO.getImgIds()
+    image_ids.sort()
+    assert len(boxes) == len(image_ids)
+    for i, image_id in enumerate(image_ids):
+        if len(boxes[i]) == 0:
+            continue
+        kps_dets = kps[i]
+        scores = boxes[i][:, -1].astype(np.float64)
+        for k in range(len(kps_dets)):
+            xy = []
+            for kp_i in range(kps_dets[k].shape[1]):
+                xy += [float(kps_dets[k][0, kp_i]),
+                       float(kps_dets[k][1, kp_i]),
+                       1.0]
+            results.append({
+                "image_id": image_id, "category_id": cat_id,
+                "keypoints": xy, "score": float(scores[k])})
+    return results
+
+
+def evaluate_keypoints(dataset, all_boxes, all_keyps, output_dir):
+    """Write the person class's keypoint results json and run COCOeval's
+    OKS protocol on it. Returns the COCOeval."""
+    res_file = os.path.join(output_dir, "keypoints_" + dataset.name +
+                            "_results.json")
+    os.makedirs(output_dir, exist_ok=True)
+    person_idx = dataset.classes.index("person")
+    cat_id = dataset.category_to_id_map["person"]
+    results = _results_one_category_kps(
+        dataset, all_boxes[person_idx], all_keyps[person_idx], cat_id)
+    logger.info("Writing keypoint results json to: %s",
+                os.path.abspath(res_file))
+    with open(res_file, "w") as f:
+        json.dump(results, f)
+    coco_dt = dataset.COCO.loadRes(res_file)
+    coco_eval = COCOeval(dataset.COCO, coco_dt, "keypoints")
+    coco_eval.evaluate()
+    coco_eval.accumulate()
+    coco_eval.summarize()
+    return coco_eval

@@ -10,8 +10,9 @@ models/targets.py); it only
    through cv2) and flips it if the entry says so,
 2. resizes it to a random TRAIN.SCALES entry with the MAX_SIZE cap,
 3. zero-pads it into the static canvas of its orientation bucket,
-4. pads gt boxes, classes, crowd boxes (and, in Fast R-CNN mode, the
-   entry's precomputed proposals) to static shapes,
+4. pads gt boxes, classes, crowd boxes, keypoints (scaled with the
+   image; with KEYPOINTS_ON) and, in Fast R-CNN mode, the entry's
+   precomputed proposals to static shapes,
 5. rasterizes each gt's polygons once into a (GT_MASK_SIZE)^2 crop of its
    own box (an RLE gt is decoded, cropped to its box and resized by
    image_io.resize, which follows cv2.resize's INTER_LINEAR).
@@ -22,8 +23,8 @@ consumed): one shuffle of the landscape and one of the portrait indices
 per epoch, then one randint(0, 2**31 - 1) per batch that seeds the
 batch's own RandomState (its scale draw); batches are delivered in ticket
 order whatever thread finishes first, and start_batch fast-forwards the
-stream by replaying those draws. Keypoints wait for ROADMAP Queue A, A6,
-and the blocked input of TPU.S2D_INPUT for A7.
+stream by replaying those draws. The blocked input of TPU.S2D_INPUT
+waits for ROADMAP Queue A, A7.
 """
 
 import queue
@@ -46,9 +47,6 @@ def load_image(entry):
 
 
 def _check_supported():
-    if cfg.MODEL.KEYPOINTS_ON:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A6): "
-                                  "ground-truth keypoints")
     if cfg.TPU.S2D_INPUT:
         raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
                                   "TPU.S2D_INPUT")
@@ -79,6 +77,9 @@ def make_minibatch(entries, rng):
     crowd_valid = np.zeros((B, Kc), bool)
     if cfg.MODEL.MASK_ON:
         gt_masks = np.zeros((B, G, Mg, Mg), np.float32)
+    if cfg.MODEL.KEYPOINTS_ON:
+        nk = cfg.KRCNN.NUM_KEYPOINTS
+        gt_keypoints = np.zeros((B, G, nk, 3), np.float32)
     # Fast R-CNN mode (RPN off, TRAIN.PROPOSAL_FILES): feed the entry's
     # precomputed proposals (reference: lib/roi_data/minibatch.py ::
     # get_minibatch non-RPN branch).
@@ -129,6 +130,11 @@ def make_minibatch(entries, rng):
                     if crop.size:
                         gt_masks[i, j] = image_io.resize(crop, (Mg, Mg))
 
+        if cfg.MODEL.KEYPOINTS_ON and "gt_keypoints" in entry:
+            kps = entry["gt_keypoints"][gt_inds]  # (n, 3, K)
+            gt_keypoints[i, :n] = np.transpose(kps, (0, 2, 1)) * \
+                np.array([scale, scale, 1.0], np.float32)
+
     batch = {
         "images": images,
         "im_info": im_info,
@@ -140,6 +146,8 @@ def make_minibatch(entries, rng):
     }
     if cfg.MODEL.MASK_ON:
         batch["gt_masks"] = gt_masks
+    if cfg.MODEL.KEYPOINTS_ON:
+        batch["gt_keypoints"] = gt_keypoints
     if use_prop:
         batch["proposals"] = proposals
         batch["prop_valid"] = prop_valid

@@ -3,9 +3,8 @@ detectron_tpu/data/roidb.py :20-156; reference: lib/datasets/roidb.py):
 combined_roidb_for_training (several datasets concatenated),
 extend_with_flipped_entries, filter_for_training, rank_for_training
 (aspect-ratio grouping, ASPECT_CROPPING) and compute_and_log_stats.
-
-Ground-truth keypoints wait for Keypoint R-CNN (ROADMAP Queue A, A6): a
-dataset whose person category names keypoints raises.
+Flipped entries flip their gt keypoints too, and with KEYPOINTS_ON an
+entry without a visible keypoint is filtered out.
 """
 
 import logging
@@ -14,12 +13,10 @@ import numpy as np
 
 from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.data.json_dataset import JsonDataset
+from detectron_tpu_torch.utils import keypoints as keypoint_utils
 from detectron_tpu_torch.utils import segms as segm_utils
 
 logger = logging.getLogger(__name__)
-
-_NO_KEYPOINTS = ("not ported yet (ROADMAP Queue A, A6): ground-truth "
-                 "keypoints of dataset ")
 
 
 def combined_roidb_for_training(dataset_names, proposal_files=()):
@@ -36,8 +33,6 @@ def combined_roidb_for_training(dataset_names, proposal_files=()):
     roidbs = []
     for name, pf in zip(dataset_names, proposal_files):
         ds = JsonDataset(name)
-        if ds.keypoints is not None:
-            raise NotImplementedError(_NO_KEYPOINTS + name)
         roidb = ds.get_roidb(
             gt=True,
             proposal_file=pf,
@@ -59,10 +54,8 @@ def combined_roidb_for_training(dataset_names, proposal_files=()):
 
 def extend_with_flipped_entries(roidb, dataset):
     """Append a horizontally flipped copy of every entry (boxes with
-    Detectron's +1 rule, segms flipped; images flipped at load time via
-    entry['flipped'])."""
-    if dataset.keypoints is not None:
-        raise NotImplementedError(_NO_KEYPOINTS + dataset.name)
+    Detectron's +1 rule, segms and keypoints flipped; images flipped at
+    load time via entry['flipped'])."""
     flipped_roidb = []
     for entry in roidb:
         width = entry["width"]
@@ -80,6 +73,10 @@ def extend_with_flipped_entries(roidb, dataset):
         flipped_entry["boxes"] = boxes
         flipped_entry["segms"] = segm_utils.flip_segms(
             entry["segms"], entry["height"], entry["width"])
+        if dataset.keypoints is not None:
+            flipped_entry["gt_keypoints"] = keypoint_utils.flip_keypoints(
+                dataset.keypoints, dataset.keypoint_flip_map,
+                entry["gt_keypoints"], width)
         flipped_entry["flipped"] = True
         flipped_roidb.append(flipped_entry)
     roidb.extend(flipped_roidb)
@@ -87,7 +84,8 @@ def extend_with_flipped_entries(roidb, dataset):
 
 def filter_for_training(roidb):
     """Remove entries without usable RoIs (>=1 fg or bg-assignable box;
-    with the RPN on, any gt box)."""
+    with the RPN on, any gt box); with KEYPOINTS_ON, also entries without
+    a visible keypoint."""
 
     def is_valid(entry):
         overlaps = entry["gt_overlaps"].max(axis=1) \

@@ -1,10 +1,10 @@
 """Task-level evaluation dispatch (the port's copy of
 detectron_tpu/data/task_evaluation.py; reference:
 lib/datasets/task_evaluation.py): evaluate_all -> evaluate_boxes /
-evaluate_masks on COCO-style json datasets, the result-dict schema,
-check_expected_results (the reference's golden-number hook) and
-copy-paste-friendly logging. The VOC and Cityscapes evaluators wait for
-ROADMAP Queue A, A11, and the keypoint evaluation for A10.
+evaluate_masks / evaluate_keypoints on COCO-style json datasets, the
+result-dict schema, check_expected_results (the reference's golden-number
+hook) and copy-paste-friendly logging. The VOC and Cityscapes evaluators
+wait for ROADMAP Queue A, A11.
 """
 
 import logging
@@ -24,8 +24,9 @@ def evaluate_all(dataset, all_boxes, all_segms, all_keyps, output_dir):
         results[dataset.name].update(res[dataset.name])
         logger.info("Evaluating segmentations is done!")
     if cfg.MODEL.KEYPOINTS_ON:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A10): "
-                                  "the keypoint evaluation")
+        res = evaluate_keypoints(dataset, all_boxes, all_keyps, output_dir)
+        results[dataset.name].update(res[dataset.name])
+        logger.info("Evaluating keypoints is done!")
     log_copy_paste_friendly_results(results)
     return results
 
@@ -59,6 +60,16 @@ def evaluate_masks(dataset, all_boxes, all_segms, output_dir):
                          _coco_eval_to_mask_results(coco_eval))])
 
 
+def evaluate_keypoints(dataset, all_boxes, all_keyps, output_dir):
+    if "coco" not in dataset.name:
+        raise ValueError("the keypoint evaluation is COCO's only, not "
+                         + dataset.name)
+    coco_eval = json_dataset_evaluator.evaluate_keypoints(
+        dataset, all_boxes, all_keyps, output_dir)
+    return OrderedDict([(dataset.name,
+                         _coco_eval_to_keypoint_results(coco_eval))])
+
+
 # ---------------------------------------------------------------------------
 # Result-dict schema (identical key names to the reference)
 # ---------------------------------------------------------------------------
@@ -86,6 +97,19 @@ def _coco_eval_to_mask_results(coco_eval):
         res["mask"] = OrderedDict(
             zip(["AP", "AP50", "AP75", "APs", "APm", "APl"],
                 [float(v) for v in s[:6]]))
+    return res
+
+
+def _coco_eval_to_keypoint_results(coco_eval):
+    res = OrderedDict(
+        [("keypoint",
+          OrderedDict([("AP", -1), ("AP50", -1), ("AP75", -1), ("APm", -1),
+                       ("APl", -1)]))])
+    if coco_eval is not None:
+        s = coco_eval.stats
+        res["keypoint"] = OrderedDict(
+            zip(["AP", "AP50", "AP75", "APm", "APl"],
+                [float(v) for v in s[:5]]))
     return res
 
 

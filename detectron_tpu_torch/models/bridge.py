@@ -4,7 +4,10 @@ The tree keeps detectron_tpu's keys (Caffe2 blob names, nested dicts and
 lists); only the leaves change layout:
 
 - conv `w`: HWIO -> OIHW (F.conv2d's layout);
-- the mask head's deconv `w`: detectron_tpu stores it spatially flipped for
+- transposed-conv `w` (the mask head's deconv, the keypoint head's
+  kps_deconv, and its kps_score under KRCNN.USE_DECONV_OUTPUT; decided by
+  the key, since kps_score is a plain 1x1 conv without that option):
+  detectron_tpu stores them spatially flipped for
   lax.conv_transpose(transpose_kernel=False) (layers.py:66-86,
   detectron_weight_helper.py:31-36); F.conv_transpose2d correlates with the
   flipped kernel and takes (in, out, kh, kw), so the bridge flips the
@@ -38,10 +41,19 @@ from detectron_tpu_torch.core.config import cfg
 _FOLDED = (("body", "res_conv1_bn"), ("body", "res2"))
 
 
+def _is_deconv(path):
+    """Whether the kernel at `path` is a transposed conv's: a layer named
+    deconv or kps_deconv, or kps_outs' kps_score with
+    KRCNN.USE_DECONV_OUTPUT."""
+    return path[-2] in ("deconv", "kps_deconv") or (
+        tuple(path[-3:-1]) == ("kps_outs", "kps_score")
+        and bool(cfg.KRCNN.USE_DECONV_OUTPUT))
+
+
 def _leaf(path, a):
     a = np.array(a, np.float32)
     if path[-1] == "w" and a.ndim == 4:
-        if "deconv" in path:
+        if _is_deconv(path):
             return np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1))
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
     if path[-1] == "w" and path[-3:-1] == ("box_head", "fc6"):
@@ -76,7 +88,7 @@ def to_torch(tree, device, dtype=torch.float32, _path=()):
 def _jax_leaf(path, t):
     a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
     if path[-1] == "w" and a.ndim == 4:
-        if "deconv" in path:
+        if _is_deconv(path):
             return np.ascontiguousarray(a.transpose(2, 3, 0, 1)[::-1, ::-1])
         return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
     if path[-1] == "w" and path[-3:-1] == ("box_head", "fc6"):
@@ -92,7 +104,7 @@ def _jax_leaf(path, t):
 def to_jax_layout(tree, _path=()):
     """The inverse of to_torch: a tree of torch tensors (params or
     gradients) -> float32 numpy arrays in the JAX layout (HWIO conv
-    kernels, the flipped deconv kernel, Caffe2 (C, P, P) fc6 rows).
+    kernels, flipped deconv kernels, Caffe2 (C, P, P) fc6 rows).
     to_jax_layout(to_torch(t, "cpu")) == t exactly for float32 leaves."""
     if isinstance(tree, dict):
         return {k: to_jax_layout(v, _path + (k,)) for k, v in tree.items()}

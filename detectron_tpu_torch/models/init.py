@@ -1,4 +1,5 @@
-"""Numpy weight init: the R-50-FPN Mask R-CNN params tree without JAX.
+"""Numpy weight init: the R-50-FPN Mask / Keypoint R-CNN params tree
+without JAX.
 
 Same fills as detectron_tpu/models/init.py (Caffe2 fan semantics on HWIO
 conv kernels and (in, out) dense kernels):
@@ -12,7 +13,8 @@ init_model(seed) builds the tree with the same keys and shapes as
 detectron_tpu.models.model_builder.init_model, in the JAX layout (HWIO conv
 kernels, flipped deconv kernels, Caffe2 (C, P, P) fc6 rows); the values come
 from a numpy RandomState, not JAX's random bits. models/bridge.py turns the
-tree into torch tensors.
+tree into torch tensors. bilinear_upsample_kernel is the keypoint head's
+frozen upsampling kernel, a constant of the graph, not a param.
 """
 
 import numpy as np
@@ -21,6 +23,9 @@ from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.models import resnet
 
 _NOT_PORTED = "not ported yet (ROADMAP Queue A, A7): "
+# The one keypoint head the port runs ("" selects it too, as in the JAX
+# package's model_builder.py:107-109).
+POSE_HEAD = "keypoint_rcnn_heads.roi_pose_head_v1convX"
 
 
 def _fans(shape):
@@ -130,7 +135,8 @@ def init_rpn(rng, dim_in):
 
 
 def init_model(seed):
-    """The R-50-FPN Mask R-CNN params tree for the current cfg, from a
+    """The R-50-FPN Mask / Keypoint R-CNN params tree for the current cfg,
+    from a
     numpy RandomState(seed). Raises NotImplementedError for any model the
     port does not run yet."""
     resnet.check_body_supported()
@@ -144,8 +150,9 @@ def init_model(seed):
                                   " / zero-init laterals")
     if cfg.FAST_RCNN.ROI_BOX_HEAD != "fast_rcnn_heads.roi_2mlp_head":
         raise NotImplementedError(_NOT_PORTED + cfg.FAST_RCNN.ROI_BOX_HEAD)
-    if cfg.MODEL.KEYPOINTS_ON:
-        raise NotImplementedError(_NOT_PORTED + "keypoint heads")
+    if cfg.MODEL.KEYPOINTS_ON and cfg.KRCNN.ROI_KEYPOINTS_HEAD not in (
+            "", POSE_HEAD):
+        raise NotImplementedError(_NOT_PORTED + cfg.KRCNN.ROI_KEYPOINTS_HEAD)
 
     rng = np.random.RandomState(seed)
     params = {"body": init_body(rng, depth, num_stages),
@@ -182,4 +189,46 @@ def init_model(seed):
         n_mask = n_cls if cfg.MRCNN.CLS_SPECIFIC_MASK else 1
         params["mask_outs"] = {"mask_fcn_logits": init_conv(
             rng, 1, 1, dim, n_mask, weight_init=init, std=0.001)}
+
+    if cfg.MODEL.KEYPOINTS_ON:
+        params["kps_head"], params["kps_outs"] = init_keypoint_heads(rng)
     return params
+
+
+def init_keypoint_heads(rng):
+    """roi_pose_head_v1convX and the keypoint outputs
+    (detectron_tpu/models/keypoint_rcnn_heads.py:17-58): NUM_STACKED_CONVS
+    kernel x kernel convs of CONV_HEAD_DIM, then with KRCNN.USE_DECONV a
+    DECONV_KERNEL deconv to DECONV_DIM, and kps_score (a DECONV_KERNEL
+    deconv with USE_DECONV_OUTPUT, else a 1x1 conv) to NUM_KEYPOINTS.
+    CONV_INIT fills with std 0.01 (0.001 for kps_score), zero biases."""
+    init = cfg.KRCNN.CONV_INIT
+    k = cfg.KRCNN.CONV_HEAD_KERNEL
+    dim = cfg.KRCNN.CONV_HEAD_DIM
+    d = cfg.FPN.DIM
+    convs = []
+    for _ in range(cfg.KRCNN.NUM_STACKED_CONVS):
+        convs.append(init_conv(rng, k, k, d, dim, weight_init=init))
+        d = dim
+    outs = {}
+    kd = cfg.KRCNN.DECONV_KERNEL
+    if cfg.KRCNN.USE_DECONV:
+        outs["kps_deconv"] = init_conv(rng, kd, kd, d, cfg.KRCNN.DECONV_DIM,
+                                       weight_init=init)
+        d = cfg.KRCNN.DECONV_DIM
+    ks = kd if cfg.KRCNN.USE_DECONV_OUTPUT else 1
+    outs["kps_score"] = init_conv(rng, ks, ks, d, cfg.KRCNN.NUM_KEYPOINTS,
+                                  weight_init=init, std=0.001)
+    return {"convs": convs}, outs
+
+
+def bilinear_upsample_kernel(factor, channels):
+    """The frozen bilinear kernel (k, k, 1, channels), k = 2 * factor -
+    factor % 2, of the keypoint head's x factor upsampling (JAX
+    models/init.py:56-67; the reference's BilinearInterpolation2d)."""
+    k = 2 * factor - factor % 2
+    center = (2 * factor - 1 - factor % 2) / (2.0 * factor)
+    og = np.ogrid[:k, :k]
+    filt = (1 - abs(og[0] / factor - center)) * \
+        (1 - abs(og[1] / factor - center))
+    return np.repeat(filt.astype(np.float32)[:, :, None, None], channels, 3)

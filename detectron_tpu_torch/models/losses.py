@@ -1,6 +1,6 @@
 """Loss functions, Detectron semantics (port of detectron_tpu/models/
-losses.py:20-121: smooth_l1, sigmoid_ce, rpn_losses, fast_rcnn_losses,
-mask_rcnn_losses).
+losses.py:20-145: smooth_l1, sigmoid_ce, rpn_losses, fast_rcnn_losses,
+mask_rcnn_losses, keypoint_losses).
 
 The losses take fixed-shape tensors with validity masks: a masked element
 adds 0 to the sum and 0 to the normalizer, which reproduces the reference's
@@ -97,3 +97,23 @@ def mask_rcnn_losses(mask_logits, mask_targets, mask_labels, mask_valid):
     valid = mask_valid.to(torch.float32)[:, None, None]
     denom = torch.clamp(valid.sum() * M * M, min=1.0)
     return cfg.MRCNN.WEIGHT_LOSS_MASK * torch.sum(ce * valid) / denom
+
+
+def keypoint_losses(kps_logits, kps_targets, kps_weights):
+    """Keypoint head loss: a softmax cross-entropy over each keypoint's
+    S x S heatmap, in float32, summed over the weighted keypoints and
+    divided by their count (NORMALIZE_BY_VISIBLE_KEYPOINTS, at least 1)
+    or by N * K, scaled by KRCNN.LOSS_WEIGHT. kps_logits (N, S, S, K);
+    kps_targets (N, K) bins in [0, S^2); kps_weights (N, K)."""
+    N, S, _, K = kps_logits.shape
+    logits = kps_logits.to(torch.float32).permute(0, 3, 1, 2).reshape(
+        N, K, S * S)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, 2, kps_targets.long()[..., None])[..., 0]
+    w = kps_weights.to(torch.float32)
+    loss = torch.sum(nll * w)
+    if cfg.KRCNN.NORMALIZE_BY_VISIBLE_KEYPOINTS:
+        loss = loss / torch.clamp(w.sum(), min=1.0)
+    else:
+        loss = loss / (N * K)
+    return cfg.KRCNN.LOSS_WEIGHT * loss

@@ -2,7 +2,9 @@
 model_builder.py: forward_features :120-139, forward_rpn :142-144,
 generate_proposals :147-235, roi_feature_transform :297-320 on its
 FPN / pallas / ladder branch, forward_box_outputs :386-420), for the
-R-50-FPN body with a multilevel RPN and the 2-MLP box head. Every piece
+R-50-FPN body with a multilevel RPN and the 2-MLP box head, and the
+keypoint branch (the JAX package builds it at :105-112 and runs it in
+core/test.py:254-266 and models/train_graph.py:153-170). Every piece
 serves inference and training: the RoIAlign ladder is differentiable
 w.r.t. the features (kernel K4 in its backward), and proposals are
 detached.
@@ -16,6 +18,7 @@ import torch
 from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.models import fast_rcnn_heads
 from detectron_tpu_torch.models import fpn as fpn_mod
+from detectron_tpu_torch.models import keypoint_rcnn_heads
 from detectron_tpu_torch.models import layers as L
 from detectron_tpu_torch.models import resnet
 from detectron_tpu_torch.models import rpn as rpn_mod
@@ -146,3 +149,17 @@ def forward_box_outputs(params, features, scales, rois):
     cls_logits, bbox_pred = fast_rcnn_heads.apply_fast_rcnn_outputs(
         params["box_outs"], feat)
     return cls_logits.reshape(B, R, -1), bbox_pred.reshape(B, R, -1), feat
+
+
+def forward_keypoint_outputs(params, features, scales, rois):
+    """RoIAlign at KRCNN.ROI_XFORM_RESOLUTION through the ladder (kernels
+    K2 and K3; K4 in the backward) + pose head + outputs. rois (B, R, 4)
+    -> heatmap logits (B * R, S, S, NUM_KEYPOINTS) in the compute
+    dtype."""
+    B, R = rois.shape[:2]
+    roi_feat = roi_feature_transform(
+        features, scales, rois, cfg.KRCNN.ROI_XFORM_RESOLUTION,
+        cfg.KRCNN.ROI_XFORM_SAMPLING_RATIO, cfg.KRCNN.ROI_XFORM_METHOD)
+    h = keypoint_rcnn_heads.apply_pose_head(
+        params["kps_head"], roi_feat.reshape((B * R,) + roi_feat.shape[2:]))
+    return keypoint_rcnn_heads.apply_keypoint_outputs(params["kps_outs"], h)

@@ -1,6 +1,7 @@
 """Training targets, batched over images (port of detectron_tpu/models/
 targets.py: _rank, _iof, rpn_targets_one_image :32-113,
-sample_rois_one_image :120-189, mask_targets_one_image :196-239).
+sample_rois_one_image :120-189, mask_targets_one_image :196-239,
+keypoint_targets_one_image :246-271).
 
 Each function takes a leading image dimension B where the JAX version is
 vmapped over images. Randomness is explicit: the callers pass the uniform
@@ -9,8 +10,7 @@ the CPU, on the card and in the JAX package. Sampling without replacement
 takes the candidates of highest draw (the exp-race trick); every ranking
 is a stable sort, so ties (non-candidates all at -1, the unsampled RoIs all
 at the same sort key) resolve lowest index first, as jnp.argsort does, and
-argmax ties take the first index, as in JAX. Keypoint targets are not
-ported yet.
+argmax ties take the first index, as in JAX.
 """
 
 import torch
@@ -179,3 +179,29 @@ def mask_targets(rois, fg, gt_idx, gt_boxes, gt_masks, resolution):
     sampled = torch.einsum("bfph,bfhw,bfqw->bfpq", _bilinear_axis(my, Mh),
                            masks, _bilinear_axis(mx, Mw))
     return (sampled >= 0.5).to(torch.float32), fg
+
+
+def keypoint_targets(rois, fg, gt_idx, gt_keypoints):
+    """Heatmap bin targets of the fg-first RoI slice (the JAX package's
+    keypoint_targets_one_image, targets.py:246-271, over the batch; the
+    discretization of lib/utils/keypoints.py ::
+    keypoints_to_heatmap_labels).
+
+    rois (B, F, 4); fg (B, F); gt_idx (B, F); gt_keypoints (B, G, K, 3)
+    [x, y, vis]. Returns (bins (B, F, K) int64 in [0, S^2), weights
+    (B, F, K) float32: 1 for a visible keypoint of a fg RoI inside it),
+    S = KRCNN.HEATMAP_SIZE."""
+    S = cfg.KRCNN.HEATMAP_SIZE
+    kps = _gather_rows(gt_keypoints, gt_idx.long())  # (B, F, K, 3)
+    x, y, vis = kps[..., 0], kps[..., 1], kps[..., 2]
+    x1, y1, x2, y2 = (rois[..., i, None] for i in range(4))
+    scale_x = S / torch.clamp(x2 - x1, min=1e-3)
+    scale_y = S / torch.clamp(y2 - y1, min=1e-3)
+    # Offset, then floor; a keypoint on the right or bottom edge goes to
+    # the last bin.
+    bx = torch.where(x == x2, S - 1.0, torch.floor((x - x1) * scale_x))
+    by = torch.where(y == y2, S - 1.0, torch.floor((y - y1) * scale_y))
+    valid = (bx >= 0) & (bx < S) & (by >= 0) & (by < S) & (vis > 0) & \
+        fg[..., None]
+    bins = torch.clamp((by * S + bx).to(torch.int64), 0, S * S - 1)
+    return torch.where(valid, bins, 0), valid.to(torch.float32)

@@ -1,8 +1,8 @@
 """The training forward: features -> RPN -> proposals -> RoI sampling ->
 heads -> losses (port of detectron_tpu/models/train_graph.py: _all_anchors
-:31-53, training_losses :56-175), for the box and mask branches. With
-RPN.RPN_ON off (Fast R-CNN training) the RoIs are the batch's precomputed
-proposals, and there are no RPN losses.
+:31-53, training_losses :56-175), for the box, mask and keypoint branches.
+With RPN.RPN_ON off (Fast R-CNN training) the RoIs are the batch's
+precomputed proposals, and there are no RPN losses.
 
 Batch layout (padded static shapes, tensors on one device):
   images      (B, H, W, 3)  BGR, mean-subtracted, zero-padded
@@ -12,6 +12,8 @@ Batch layout (padded static shapes, tensors on one device):
   gt_valid    (B, G)        bool
   crowd_boxes (B, K, 4), crowd_valid (B, K)
   gt_masks    (B, G, Mh, Mw) (only with MASK_ON)
+  gt_keypoints (B, G, K, 3) [x, y, visibility], scaled coords (only with
+              KEYPOINTS_ON)
   proposals   (B, Rp, 4), prop_valid (B, Rp) (only with the RPN off;
               Rp = TPU.MAX_TRAIN_PROPOSALS, scaled coords)
 
@@ -24,6 +26,7 @@ sample the same anchors and RoIs.
 import torch
 
 from detectron_tpu_torch.core.config import cfg
+from detectron_tpu_torch.models import keypoint_rcnn_heads
 from detectron_tpu_torch.models import losses as L
 from detectron_tpu_torch.models import mask_rcnn_heads
 from detectron_tpu_torch.models import model_builder as mb
@@ -32,9 +35,20 @@ from detectron_tpu_torch.models import targets as T
 
 
 def _check_supported():
-    if cfg.MODEL.KEYPOINTS_ON:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A6): "
-                                  "keypoint targets and losses")
+    """A keypoint head whose heatmaps differ in size from the targets'
+    KRCNN.HEATMAP_SIZE bins has no loss: raise before any work (the JAX
+    package's loss reads bins past the heatmap and goes NaN)."""
+    if not cfg.MODEL.KEYPOINTS_ON:
+        return
+    side = keypoint_rcnn_heads.output_side(cfg.KRCNN.ROI_XFORM_RESOLUTION)
+    if side != cfg.KRCNN.HEATMAP_SIZE:
+        raise ValueError(
+            "the keypoint head puts out {0} x {0} heatmaps (KRCNN."
+            "ROI_XFORM_RESOLUTION {1}, USE_DECONV {2}, USE_DECONV_OUTPUT "
+            "{3}, UP_SCALE {4}), but KRCNN.HEATMAP_SIZE is {5}".format(
+                side, cfg.KRCNN.ROI_XFORM_RESOLUTION, cfg.KRCNN.USE_DECONV,
+                cfg.KRCNN.USE_DECONV_OUTPUT, cfg.KRCNN.UP_SCALE,
+                cfg.KRCNN.HEATMAP_SIZE))
 
 
 def _level_size(n, lvl):
@@ -153,9 +167,9 @@ def training_losses(params, batch, draws):
                            sampled["bbox_targets"].reshape(-1, 4),
                            sampled["fg"].reshape(-1))
 
-    # Mask branch on the fg-first slice of the sampled RoIs.
+    # Mask and keypoint branches on the fg-first slice of the sampled RoIs.
+    fg_cap = int(round(cfg.TRAIN.FG_FRACTION * cfg.TRAIN.BATCH_SIZE_PER_IM))
     if cfg.MODEL.MASK_ON:
-        fg_cap = int(round(cfg.TRAIN.FG_FRACTION * cfg.TRAIN.BATCH_SIZE_PER_IM))
         mask_rois = sampled["rois"][:, :fg_cap]
         roi_feat = mb.roi_feature_transform(
             features, scales, mask_rois, cfg.MRCNN.ROI_XFORM_RESOLUTION,
@@ -172,6 +186,18 @@ def training_losses(params, batch, draws):
             mlogits.reshape(B * fg_cap, res, res, -1),
             mtgt.reshape(B * fg_cap, res, res),
             sampled["labels"][:, :fg_cap].reshape(-1), mw.reshape(-1))
+
+    if cfg.MODEL.KEYPOINTS_ON:
+        kps_rois = sampled["rois"][:, :fg_cap]
+        klogits = mb.forward_keypoint_outputs(params, features, scales,
+                                              kps_rois)
+        kbins, kweights = T.keypoint_targets(
+            kps_rois, sampled["fg"][:, :fg_cap],
+            sampled["gt_idx"][:, :fg_cap], batch["gt_keypoints"])
+        K = kbins.shape[-1]
+        out["loss_kps"] = L.keypoint_losses(
+            klogits, kbins.reshape(B * fg_cap, K),
+            kweights.reshape(B * fg_cap, K))
 
     total = sum(v for k, v in out.items() if k.startswith("loss_"))
     return total, out

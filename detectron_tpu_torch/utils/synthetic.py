@@ -32,13 +32,13 @@ def calibrate_detector_params(params, rng=None):
 
 def synthetic_train_batch(B, H, W, device, rng=None, im_scale=1.6):
     """A COCO-like synthetic training batch at a (H, W) canvas: 4 + (i % 5)
-    gt boxes of 40-190 px per image, random classes, N(0, 20) images and
-    random binary gt masks (with MASK_ON), from the same RandomState draws,
-    in the same order, as the JAX version; tensors on `device`. Keypoints
-    are not ported yet."""
-    if cfg.TPU.S2D_INPUT or cfg.MODEL.KEYPOINTS_ON:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A6 / "
-                                  "A7): TPU.S2D_INPUT / keypoints")
+    gt boxes of 40-190 px per image, random classes, N(0, 20) images,
+    random binary gt masks (with MASK_ON) and visible gt keypoints
+    anywhere on the canvas (with KEYPOINTS_ON), from the same RandomState
+    draws, in the same order, as the JAX version; tensors on `device`."""
+    if cfg.TPU.S2D_INPUT:
+        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
+                                  "TPU.S2D_INPUT")
     if rng is None:
         rng = np.random.RandomState(0)
     G = cfg.TPU.MAX_GT_BOXES
@@ -66,4 +66,10 @@ def synthetic_train_batch(B, H, W, device, rng=None, im_scale=1.6):
     if cfg.MODEL.MASK_ON:
         Mg = cfg.TPU.GT_MASK_SIZE
         batch["gt_masks"] = (rng.rand(B, G, Mg, Mg) > 0.5).astype(np.float32)
+    if cfg.MODEL.KEYPOINTS_ON:
+        kps = np.zeros((B, G, cfg.KRCNN.NUM_KEYPOINTS, 3), np.float32)
+        kps[..., 0] = rng.uniform(0, W, kps.shape[:3])
+        kps[..., 1] = rng.uniform(0, H, kps.shape[:3])
+        kps[..., 2] = 2.0
+        batch["gt_keypoints"] = kps
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}

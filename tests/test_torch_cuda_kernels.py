@@ -489,3 +489,51 @@ def test_fused_wrappers_raise_instead_of_falling_back(device):
         fk.stem_pool(x[:, :7], s, b)              # odd height
     with pytest.raises(ValueError):
         fk.stem_pool(x, s.cpu(), b)
+
+
+def test_keypoint_detect_graph_matches_cpu(device):
+    """Keypoint R-CNN detect_graph on the card (K1-K3) against the CPU's
+    plain path in float32, at tiny sizes: the same detections (IoU > 0.99,
+    scores within 1e-4) and, for each, heatmaps within 1e-4 of max|ref|."""
+    from detectron_tpu_torch.core import config
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core.configs_presets import keypoint_rcnn_r50_fpn
+    from detectron_tpu_torch.models import bridge, init
+    from detectron_tpu_torch.utils.synthetic import calibrate_detector_params
+
+    config.reset_cfg()
+    keypoint_rcnn_r50_fpn()
+    config.merge_cfg_from_list([
+        "TEST.RPN_PRE_NMS_TOP_N", "256", "TEST.RPN_POST_NMS_TOP_N", "64",
+        "TEST.DETECTIONS_PER_IM", "20", "FAST_RCNN.MLP_HEAD_DIM", "32",
+        "KRCNN.NUM_STACKED_CONVS", "2", "KRCNN.CONV_HEAD_DIM", "32"])
+    config.assert_and_infer_cfg(make_immutable=False)
+    tree = calibrate_detector_params(init.init_model(0),
+                                     np.random.RandomState(0))
+    tree["box_outs"]["cls_score"]["b"][1] += 3.0
+    rng = np.random.RandomState(1)
+    images = torch.from_numpy(rng.randn(2, 256, 320, 3).astype(np.float32)
+                              * 0.3)
+    im_info = torch.tensor([[250.0, 310.0, 1.0]] * 2)
+    before = rk.roi_window_pool.launches
+    outs = [{k: v.cpu() for k, v in det.detect_graph(
+        bridge.to_torch(tree, dev), images.to(dev), im_info.to(dev)).items()}
+        for dev in ("cpu", device)]
+    assert rk.roi_window_pool.launches > before
+    cpu, gpu = outs
+    assert cpu["kps_heatmaps"].shape == (2, 20, 56, 56, 17)
+    n = 0
+    for b in range(2):
+        cv, gv = cpu["valid"][b], gpu["valid"][b]
+        assert int(cv.sum()) == int(gv.sum()) > 0
+        for i in range(int(cv.sum())):
+            d = (gpu["boxes"][b][gv] - cpu["boxes"][b][cv][i]).abs().amax(1)
+            j = int(d.argmin())
+            assert float(d[j]) < 1e-2
+            assert abs(float(gpu["scores"][b][gv][j]
+                             - cpu["scores"][b][cv][i])) < 1e-4
+            ref = cpu["kps_heatmaps"][b][cv][i]
+            err = float((gpu["kps_heatmaps"][b][gv][j] - ref).abs().max())
+            assert err <= 1e-4 * float(ref.abs().max()), (b, i, err)
+            n += 1
+    assert n > 0

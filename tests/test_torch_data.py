@@ -2,8 +2,9 @@
 dataset (polygon, RLE and crowd annotations, an ignored and a degenerate
 box, a category with no annotation): JsonDataset.get_roidb (with and
 without a proposal file), COCOeval box and segm stats on the same gt and
-detections (equal to 1e-12), task_evaluation.evaluate_all and the files it
-writes, and check_expected_results."""
+detections (equal to 1e-12), the keypoint protocol's params,
+task_evaluation.evaluate_all and the files it writes, and
+check_expected_results."""
 
 import json
 import pickle
@@ -185,9 +186,19 @@ def test_cocoeval_matches_jax(dataset_dir, iou_type, tmp_path):
         (tmp_path / "j" / name).read_text())
 
 
-def test_keypoint_eval_waits_for_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A10"):
-        coco_eval.Params("keypoints")
+def test_keypoint_params_match_jax():
+    """COCOeval's OKS protocol: maxDets [20], the all / medium / large
+    area ranges and the 17 keypoint sigmas, as the JAX package's."""
+    got, ref = coco_eval.Params("keypoints"), jax_coco_eval.Params(
+        "keypoints")
+    assert got.maxDets == ref.maxDets == [20]
+    assert got.areaRng == ref.areaRng and got.areaRngLbl == ref.areaRngLbl
+    assert got.areaRngLbl == ["all", "medium", "large"]
+    for k in ("kpt_oks_sigmas", "iouThrs", "recThrs"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(ref, k))
+    assert got.kpt_oks_sigmas.shape == (17,)
+    with pytest.raises(ValueError):
+        coco_eval.Params("keypoint")
 
 
 def test_evaluate_all_matches_jax(dataset_dir, tmp_path):

@@ -11,7 +11,8 @@ import pytest
 from __graft_entry__ import _tiny_cfg
 from detectron_tpu.core import config as jax_config
 from detectron_tpu_torch.core import config as port_config
-from detectron_tpu_torch.core.configs_presets import mask_rcnn_r50_fpn
+from detectron_tpu_torch.core.configs_presets import (
+    keypoint_rcnn_r50_fpn_keys, mask_rcnn_r50_fpn)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -49,6 +50,24 @@ TRAIN_KEYS = [
 ]
 
 
+# Keypoint R-CNN at the tiny sizes: the keypoint_rcnn_r50_fpn preset's keys,
+# TINY_KEYS again (the preset sets its own RPN and RoI counts), then
+# tests/test_keypoints.py's tiny head: 2 stacked 3x3 convs of 32 channels
+# on 7 x 7 RoI features, 28 x 28 heatmaps, and a 32-wide box head.
+KPS_KEYS = keypoint_rcnn_r50_fpn_keys() + TINY_KEYS + [
+    "FAST_RCNN.MLP_HEAD_DIM", "32",
+    "KRCNN.NUM_STACKED_CONVS", "2",
+    "KRCNN.CONV_HEAD_DIM", "32",
+    "KRCNN.ROI_XFORM_RESOLUTION", "7",
+    "KRCNN.HEATMAP_SIZE", "28",
+]
+
+# The tiny keypoint training step: KPS_KEYS, then TRAIN_KEYS less its
+# MODEL.NUM_CLASSES (the person class stays the only one).
+assert TRAIN_KEYS[0] == "MODEL.NUM_CLASSES"
+KPS_TRAIN_KEYS = KPS_KEYS + TRAIN_KEYS[2:]
+
+
 def _same(a, b, path=""):
     if isinstance(a, dict):
         assert set(a) == set(b), path
@@ -81,7 +100,7 @@ def set_cfgs(mask_on=True, batch=2, extra=()):
 
 
 @pytest.mark.parametrize("extra", [(), ["TPU.COMPUTE_DTYPE", "bfloat16"],
-                                   TRAIN_KEYS])
+                                   TRAIN_KEYS, KPS_KEYS, KPS_TRAIN_KEYS])
 def test_set_cfgs_gives_both_packages_one_cfg(extra):
     set_cfgs(extra=extra)
     assert port_config.cfg.TRAIN.RPN_POST_NMS_TOP_N == \

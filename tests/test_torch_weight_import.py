@@ -16,6 +16,9 @@ files the tests write themselves:
 - the mapping covers every leaf of the port's init_model (mask head on
   and off; with the RPN off, no RPN blob, where the JAX table still maps
   them); strict mode raises on a missing blob;
+- a Keypoint R-CNN .pkl (conv_fcn1..N and the kps_score deconv): loaded
+  as the JAX package loads it, written back exactly, and bridged to torch
+  and back exactly;
 - the converter's checkpoint, and initialize_model_from_cfg's order
   (init, --load_ckpt, --load_detectron over it), against the JAX package.
 
@@ -48,7 +51,7 @@ from detectron_tpu_torch.utils import resnet_weights_helper as rwh
 from detectron_tpu_torch.utils.synthetic import calibrate_detector_params
 from test_torch_detect import IM_INFO, _assert_detections_match, _images
 from test_torch_train_data import FAST_RCNN_KEYS
-from test_torch_util import TRAIN_KEYS, set_cfgs
+from test_torch_util import KPS_TRAIN_KEYS, TRAIN_KEYS, set_cfgs
 
 torch.set_num_threads(2)
 
@@ -141,6 +144,28 @@ def test_detectron_pkl_loads_as_in_jax(tmp_path, mask_on):
     assert set(back) == set(blobs) - {"conv1_w_momentum", "kps_score_w"}
     for name, b in back.items():
         np.testing.assert_array_equal(b, blobs[name], err_msg=name)
+
+
+def test_keypoint_pkl_round_trips_as_in_jax(tmp_path):
+    set_cfgs(mask_on=False, extra=KPS_TRAIN_KEYS)
+    tree = init.init_model(0)
+    mapping = dwh.full_weight_mapping()
+    assert {tuple(p) for p, _ in mapping.values()} == \
+        {p for p, _ in port_opt.flatten(tree)}
+    assert set(mapping) == set(jax_dwh.full_weight_mapping())
+    assert {"conv_fcn1_w", "conv_fcn2_b", "kps_score_w"} <= set(mapping)
+    blobs = _random_blobs(np.random.RandomState(3))
+    assert blobs["kps_score_w"].shape == (32, 17, 4, 4)  # Caffe2 (in, out)
+    pkl = _write_pkl(tmp_path / "kps.pkl", blobs)
+    got = dwh.load_detectron_weight(init.init_model(1), pkl)
+    ref = jax_dwh.load_detectron_weight(init.init_model(1), pkl)
+    _assert_trees_equal(got, jax.tree.map(np.asarray, ref))
+    back = dwh.to_detectron_blobs(got)
+    assert set(back) == set(blobs)
+    for name, b in back.items():
+        np.testing.assert_array_equal(b, blobs[name], err_msg=name)
+    _assert_trees_equal(bridge.to_jax_layout(bridge.to_torch(got, "cpu")),
+                        got)
 
 
 def test_strict_raises_on_a_missing_blob(tmp_path):
