@@ -124,19 +124,46 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      kps_score included, read back exactly), TRAIN.SCALES (800,),
      CLIP_GRADIENTS, TRAIN_NET_STEPS steps: loss_kps finite on every step,
      the checkpoint read back.
-  Phase 3 also checks a tiny Keypoint R-CNN detect_graph (heatmaps of
+  11. Mask R-CNN R-50-C4 inference (the mask_rcnn_r50_c4 preset:
+     Detectron's e2e_mask_rcnn_R-50-C4_1x, a conv4 body, a single-level
+     RPN of 12 anchors a cell, TEST.RPN_PRE_NMS_TOP_N 6000 -> 1000, 14 x
+     14 RoIAlign on res4 through K2 with one window spanning the map, the
+     res5 head, the v0upshare mask head with 14 x 14 masks): detect_graph
+     at full width in bfloat16, 2 images in the 832 x 1344 canvas,
+     MAIN_RUNS batches, with cls_score calibrated so scores spread
+     (calibrate_c4_scores), a torch.profiler batch, and the same batch
+     through the plain K1 and K2 on the card (plain_kernels): the same
+     detections, as phase 3 matches them.
+  12. The C4 engine: run_inference over C4_ENGINE_IMAGES synthetic PPM
+     images, batch ENGINE_BATCH, to detections.pkl and COCO box and mask
+     AP (printed, not judged); the first batch equal to detect_graph on
+     the batch the engine prepared.
+  13. The C4 trainer: train_net_step.main --dataset coco2017 --bs 2 --nw 4
+     --load_detectron (the C4 tree as a .pkl, res5_* under the box head,
+     read back exactly), the preset's TRAIN.SCALES (800,), TRAIN.RPN_PRE_
+     NMS_TOP_N 12000 -> 2000, 512 RoIs an image, CLIP_GRADIENTS,
+     TRAIN_NET_STEPS steps: loss_mask finite on every step, the
+     checkpoint read back.
+  Phase 2 also holds K1 at the C4 RPN's one-level lanes (2, 6000) and
+  (2, 12000), K2 with the whole res4 map as its window (P = 14, N = 2000
+  and 200, bf16) and K4 at the C4 training shapes (N = 1024 and 256);
+  phase 3 also checks a tiny Keypoint R-CNN detect_graph (heatmaps of
   matched detections within 1e-4 of max|cpu|) and train_step (loss_kps
-  among the losses) on the GPU against the CPU, at its tolerances.
-  Phases 4-10 each zero the launch counters just before a path's run and
+  among the losses), and a tiny Mask R-CNN R-50-C4 detect_graph and
+  train_step, on the GPU against the CPU, at its tolerances.
+  Phases 4-13 each zero the launch counters just before a path's run and
   read them just after; every kernel of the path must have launched (in
-  phases 8 and 10 K1, K2 and K4; K3 is reported).
+  phases 8, 10 and 13 K1, K2 and K4, in 11 and 12 K1 and K2; K3 is
+  reported).
 Prints a {"kernels": [...]} line (each kernel's launches on its own path:
 the inference main path for K1-K3, training for K4, the TPU.FUSED_RES2
-path for K5/K6; launches_by_path has all eight, "test_net" being phase
+path for K5/K6; launches_by_path has all eleven, "test_net" being phase
 7's run_inference, "train_net" phase 8's train_net_step,
 "keypoint_infer" and "keypoint_test_net" phase 9's detect_graph and
-run_inference, "keypoint_train" phase 10's train_net_step), then as the
-last line
+run_inference, "keypoint_train" phase 10's train_net_step, "c4_infer",
+"c4_test_net" and "c4_train" phases 11-13; K1, K2 and K4 carry their C4
+shapes' measurements under "c4" (and K1's 12000-box lanes under
+"c4_train")), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No single PyTorch call computes any of K1-K6 (there is no torchvision),
 so every kernel's library_ms is null. --profile-train adds a torch.profiler
@@ -151,6 +178,7 @@ False), so the float32 checks of phases 2 and 3 run in full float32.
 """
 
 import argparse
+import contextlib
 import json
 import pickle
 import statistics
@@ -176,6 +204,8 @@ TRAIN_NET_STEPS = 8
 # images, batch ENGINE_BATCH; train: 16 images, 8 steps).
 KPS_ENGINE_IMAGES = 24
 KPS_VAL = "keypoints_coco_2017_val"
+# Phase 12: the C4 engine's synthetic val set (batch ENGINE_BATCH).
+C4_ENGINE_IMAGES = 24
 # Global-norm gradient clipping of the training main path (the cfg's
 # from-scratch setting, SOLVER.CLIP_GRADIENTS; Detectron's preset has none).
 # From random weights with no trained BN statistics the warm-up step's loss
@@ -246,16 +276,19 @@ def device_ms(fn, reps=10):
                if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
-def set_cfg(tiny, dtype, extra=(), keypoints=False):
+def set_cfg(tiny, dtype, extra=(), keypoints=False, c4=False):
     """The mask_rcnn_r50_fpn preset (keypoint_rcnn_r50_fpn with
-    `keypoints`), the compute dtype, with `tiny` phase 3's sizes (and a
-    2-conv, 64-channel pose head), then `extra`."""
+    `keypoints`, mask_rcnn_r50_c4 with `c4`), the compute dtype, with
+    `tiny` phase 3's sizes (and a 2-conv, 64-channel pose head), then
+    `extra`."""
     from detectron_tpu_torch.core import config
     from detectron_tpu_torch.core import configs_presets
 
     config.reset_cfg()
     if keypoints:
         configs_presets.keypoint_rcnn_r50_fpn()
+    elif c4:
+        configs_presets.mask_rcnn_r50_c4()
     else:
         configs_presets.mask_rcnn_r50_fpn()
     keys = ["TPU.COMPUTE_DTYPE", dtype]
@@ -270,13 +303,14 @@ def set_cfg(tiny, dtype, extra=(), keypoints=False):
                   "TRAIN.RPN_POST_NMS_TOP_N", "64",
                   "TRAIN.RPN_BATCH_SIZE_PER_IM", "64",
                   "TPU.MAX_GT_BOXES", "8",
-                  # 3 gt-mask cells per target cell: a RoI equal to its gt
-                  # box (gt boxes are sampled as RoIs) then samples on
-                  # cell centres. With an even ratio it samples midway
-                  # between two cells, where a random mask gives targets
-                  # of 0.5 +- an ulp that the two devices' matmul orders
-                  # round to either side of the 0.5 threshold.
-                  "TPU.GT_MASK_SIZE", "84"]
+                  # 3 gt-mask cells per target cell (28 x 28 targets, 14
+                  # x 14 for C4): a RoI equal to its gt box (gt boxes are
+                  # sampled as RoIs) then samples on cell centres. With an
+                  # even ratio it samples midway between two cells, where
+                  # a random mask gives targets of 0.5 +- an ulp that the
+                  # two devices' matmul orders round to either side of the
+                  # 0.5 threshold.
+                  "TPU.GT_MASK_SIZE", "42" if c4 else "84"]
     config.merge_cfg_from_list(list(extra) + keys)
     config.assert_and_infer_cfg(make_immutable=False)
 
@@ -437,18 +471,23 @@ def check_kernels(device):
     rng = np.random.RandomState(0)
     entries = {}
 
-    def record(name, shape, err, fn, plain, bnd, primary):
+    def record(name, shape, err, fn, plain, bnd, primary, tag=None):
         """Times the kernel's wrapper fn (CUDA events per call, and device
-        time alone) and its plain version, and prints and keeps them."""
+        time alone) and its plain version, and prints and keeps them: as
+        the kernel's entry at its primary shape, and under entry[tag] (the
+        C4 paths' shapes: "c4")."""
         ms, dev, plain_ms = cuda_ms(fn, 20), device_ms(fn), cuda_ms(plain, 3)
         print("check {} {}: max_abs_err={} kernel_ms={:.4f} device_ms={:.4f} "
               "plain_ms={:.4f} bound_ms={:.4f} ({})".format(
                   name, shape, err, ms, dev, plain_ms, *bnd))
         e = entries.setdefault(name, {"max_abs_err": 0.0})
         e["max_abs_err"] = max(e["max_abs_err"], float(err))
+        fields = dict(shape=shape, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                      bound_ms=bnd[0], bound_by=bnd[1])
         if primary:
-            e.update(shape=shape, ms=ms, device_ms=dev, plain_ms=plain_ms,
-                     bound_ms=bnd[0], bound_by=bnd[1])
+            e.update(fields)
+        if tag:
+            e[tag] = dict(fields, max_abs_err=float(err))
 
     # K1: the RPN's five levels stacked into one call, as the paths launch
     # it (L = 5B lanes; inference N = 1000, training N = 2000; P6's lanes
@@ -470,7 +509,8 @@ def check_kernels(device):
                                 ((5 * BATCH, 2000), 0.7, (2000,) * 4 + (819,)),
                                 ((5 * BATCH, 12000), 0.7,
                                  (12000,) * 3 + (3276, 819)),
-                                ((BATCH, 12000), 0.7, (12000,))):
+                                ((BATCH, 12000), 0.7, (12000,)),
+                                ((BATCH, 6000), 0.7, (6000,))):
         long_lane = N > 2048
         boxes, valid = nms_lanes(long_rng if long_lane else
                                  stack_rng if levels else rng, L, N, device,
@@ -485,6 +525,10 @@ def check_kernels(device):
         if levels and len(levels) == 5:
             shape += " (5 RPN levels stacked, lanes of {})".format(
                 "/".join(str(n) for n in levels))
+        elif long_lane:
+            # The C4 models' single-level RPN: TEST 6000, TRAIN 12000.
+            shape += " (one level; C4 RPN {})".format(
+                "inference" if N == 6000 else "training")
         if err:
             raise AssertionError("K1 nms_keep_mask disagrees with its plain "
                                  "version at {}: {} keep bits".format(shape,
@@ -493,10 +537,13 @@ def check_kernels(device):
                lambda: nms_kernel.nms_keep_mask(boxes, valid, thr),
                lambda: nms_kernel.nms_keep_mask_plain(boxes, valid, thr),
                nms_bound(boxes, valid, ref),
-               primary=(levels is not None and N == 1000))
+               primary=(levels is not None and N == 1000),
+               tag={(BATCH, 6000): "c4", (BATCH, 12000): "c4_train"}.get(
+                   (L, N)))
         del boxes, valid, got, ref
 
-    def pool_check(name, fn, plain, args, rows, shape, bnd, primary):
+    def pool_check(name, fn, plain, args, rows, shape, bnd, primary,
+                   tag=None):
         reach = roi_reach_cells(args[0].shape, *(t[rows[0]:rows[1]]
                                                  for t in args[1:]))
         shape += " (read RoI by RoI: {:.1f} MB of canvas)".format(
@@ -512,7 +559,7 @@ def check_kernels(device):
                                  " max_abs_err {}".format(
                                      name, shape, float(diff.max())))
         record(name, shape, float(diff.max()), lambda: fn(*args),
-               lambda: plain(*args), bnd, primary)
+               lambda: plain(*args), bnd, primary, tag)
 
     # K2: base sweep, box head (P = 7, N = B * 1000) and mask head (P = 14,
     # N = B * 100) at inference, box (N = B * 512) and mask (N = B * 128)
@@ -582,8 +629,82 @@ def check_kernels(device):
                (pooled, rows) == (7, None))
         del canvas, zero, got, ref
 
+    check_c4_window_kernels(device, pool_check, record)
     check_fused_kernels(device, rng, record)
     return entries
+
+
+def c4_roi_inputs(rng, n, device, dtype):
+    """The C4 models' RoIAlign inputs (ops/roi_align.py): a random res4 map
+    (B, 52, 84, 1024) of the CANVAS, n RoIs of detector-like sizes, and
+    each RoI's window: the whole map, origin (img, 0, 0), with its 14 x 14
+    weights at the adaptive sampling ratio 0 (at most 4 x 4 samples a
+    bin) in `dtype`."""
+    import torch
+
+    from detectron_tpu_torch.ops import roi_align as ra
+
+    H, W = CANVAS[0] // 16, CANVAS[1] // 16
+    feat = torch.randn((BATCH, H, W, 1024), generator=torch.Generator(
+        device).manual_seed(n), device=device, dtype=dtype)
+    xy = rng.uniform(0, 1200, (n, 2)) * [1.0, 0.6]
+    wh = rng.lognormal(4.5, 0.8, (n, 2)).clip(4, 800)
+    rois = torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(
+        np.float32)).to(device)
+    vy, vx = ra.roi_weights(rois, 1.0 / 16, 14, 0, H, W)
+    img = torch.from_numpy(rng.randint(0, BATCH, n).astype(np.int32)).to(
+        device)
+    zero = torch.zeros_like(img)
+    starts = torch.stack([img, zero, zero], -1).contiguous()
+    return feat, starts, vy.to(dtype).contiguous(), vx.to(dtype).contiguous()
+
+
+def check_c4_window_kernels(device, pool_check, record):
+    """Phase 2, the C4 models' single-level RoIAlign (ops/roi_align.py):
+    K2 with one window spanning the (B, 52, 84, 1024) res4 map, P = 14,
+    bf16, at the inference box head's N = B * 1000 and mask head's B *
+    100; K4, its backward into the f32 map gradient, at the training box
+    (N = B * 512) and mask (B * 128) shapes. Tolerances as the FPN
+    shapes'."""
+    import torch
+
+    from detectron_tpu_torch.ops.cuda import roi_align_kernel as rk
+
+    c4_rng = np.random.RandomState(12)
+    for n in (BATCH * 1000, BATCH * 100):
+        feat, starts, vy, vx = c4_roi_inputs(c4_rng, n, device,
+                                             torch.bfloat16)
+        pool_check("roi_window_pool", rk.roi_window_pool,
+                   rk.roi_window_pool_plain, (feat, starts, vy, vx), (0, n),
+                   "C4 P=14 N={} window=(52, 84), the whole res4 map {}"
+                   .format(n, tuple(feat.shape)),
+                   window_bound(feat.shape, 2, starts, vy, vx, False), False,
+                   "c4" if n == BATCH * 1000 else None)
+        del feat, starts, vy, vx
+    for n in (BATCH * 512, BATCH * 128):
+        feat, starts, vy, vx = c4_roi_inputs(c4_rng, n, device,
+                                             torch.float32)
+        ct = torch.randn((n, 14, 14, feat.shape[-1]), device=device,
+                         generator=torch.Generator(device).manual_seed(n))
+        zero = torch.zeros_like(feat)
+        got = rk.roi_window_accum(zero.clone(), starts, ct, vy, vx)
+        ref = rk.roi_window_accum_plain(zero.clone(), starts, ct, vy, vx)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tol = 1e-5 * float(ref.abs().max()) + 1e-6
+        shape = "C4 P=14 N={} window=(52, 84), f32 map gradient {}".format(
+            n, tuple(feat.shape))
+        if not bool(torch.isfinite(got).all()) or err > tol or \
+                float(ref.abs().max()) == 0.0:
+            raise AssertionError("K4 roi_window_accum disagrees with its "
+                                 "plain version at {}: max_abs_err {} > {}"
+                                 .format(shape, err, tol))
+        record("roi_window_accum", shape, err,
+               lambda: rk.roi_window_accum(got, starts, ct, vy, vx),
+               lambda: rk.roi_window_accum_plain(ref, starts, ct, vy, vx),
+               window_bound(feat.shape, 4, starts, vy, vx, True), False,
+               "c4" if n == BATCH * 512 else None)
+        del feat, zero, got, ref, ct
 
 
 def bf16_close(got, ref):
@@ -855,24 +976,30 @@ def check_ladder_grad(device):
                                  errs, routes))
 
 
-def check_small_input(device, extra=(), keypoints=False):
+def check_small_input(device, extra=(), keypoints=False, c4=False):
     """Phase 3: GPU kernels vs CPU plain versions, tiny float32 config
     (with the cfg keys `extra`; Keypoint R-CNN with `keypoints`, whose
-    matched detections' heatmaps must agree within 1e-4 of max|cpu|).
-    With TPU.FUSED_RES2 the GPU run must launch K6 (the "auto" mode in
-    float32)."""
+    matched detections' heatmaps must agree within 1e-4 of max|cpu|; Mask
+    R-CNN R-50-C4 with `c4`). With TPU.FUSED_RES2 the GPU run must launch
+    K6 (the "auto" mode in float32)."""
     import torch
 
     from detectron_tpu_torch.core import test as det
     from detectron_tpu_torch.models import bridge
     from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
 
-    set_cfg(tiny=True, dtype="float32", extra=extra, keypoints=keypoints)
+    set_cfg(tiny=True, dtype="float32", extra=extra, keypoints=keypoints,
+            c4=c4)
     tree = make_tree()
     if keypoints:
         # One class: its bias up by 3, or on these low-contrast inputs
         # few of its scores pass TEST.SCORE_THRESH.
         tree["box_outs"]["cls_score"]["b"][1] += 3.0
+    if c4:
+        # The res5 head's features score no class over TEST.SCORE_THRESH
+        # on these inputs under the calibration's background bias:
+        # every foreground bias up by 5.
+        tree["box_outs"]["cls_score"]["b"][1:] += 5.0
     rng = np.random.RandomState(1)
     # x0.3, not the main path's x20: random weights without trained BN
     # statistics grow activations through the body, and larger inputs
@@ -893,7 +1020,8 @@ def check_small_input(device, extra=(), keypoints=False):
     hm_err = heatmap_diff(gpu, cpu) if keypoints else None
     print("small-input check (float32, 2 x 256 x 320{}{}): valid cpu={} "
           "gpu={} matched={:.4f}, K6 launches {}{}".format(
-              ", Keypoint R-CNN" if keypoints else "",
+              ", Keypoint R-CNN" if keypoints else
+              ", Mask R-CNN R-50-C4" if c4 else "",
               "".join(", {} {}".format(*extra[i:i + 2])
                       for i in range(0, len(extra), 2)),
               n_cpu, n_gpu, frac, k6,
@@ -984,7 +1112,7 @@ def relu_flips(inputs, ref):
     return n, worst, err
 
 
-def check_small_train(device, keypoints=False):
+def check_small_train(device, keypoints=False, c4=False):
     """Phase 3, training: one float32 train_step on the GPU (kernels)
     against the same step on the CPU (plain versions), with the same
     params, batch and sampling draws; gradients against the CPU plain path
@@ -996,15 +1124,23 @@ def check_small_train(device, keypoints=False):
     float64 run that takes that run's ReLU signs (x * mask), and its ReLU
     inputs within ACT_REL of the float64 run's (so a flip is only ever at
     an input that close to 0). With `keypoints`, Keypoint R-CNN (the tiny
-    pose head; loss_kps among the losses checked)."""
+    pose head; loss_kps among the losses checked); with `c4`, Mask R-CNN
+    R-50-C4 (the res5 head, shared by the v0upshare mask head; single-level
+    RoIAlign, K4 in its backward), its RPN deltas calibrated: uncalibrated,
+    the decode of rail-clipped deltas moves the proposals by ~4e-3 px
+    between a float32 and a float64 run, and RoIAlign carries that into
+    every gradient of the heads (~1e-4 of max|g|)."""
     import torch
 
     from detectron_tpu_torch.models import init
     from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.utils.synthetic import calibrate_detector_params
 
-    set_cfg(tiny=True, dtype="float32", keypoints=keypoints)
+    set_cfg(tiny=True, dtype="float32", keypoints=keypoints, c4=c4)
     H, W = 128, 160
     tree = init.init_model(1)
+    if c4:
+        tree = calibrate_detector_params(tree, np.random.RandomState(1))
     paths = [path for path, _ in opt.flatten(tree)]
     runs = {"cpu f64": ("cpu", torch.float64, True),
             "cpu f32": ("cpu", torch.float32, True),
@@ -1019,7 +1155,7 @@ def check_small_train(device, keypoints=False):
         out["cpu f64, signs of " + name] = _small_train_run(
             tree, "cpu", torch.float64, H, W,
             masks=[x > 0 for x in out[name][2]])
-    set_cfg(tiny=True, dtype="float32", keypoints=keypoints)
+    set_cfg(tiny=True, dtype="float32", keypoints=keypoints, c4=c4)
 
     (_, g64, _), _, relu64 = out["cpu f64"]
     cpu_loss = out["cpu f32"][1]
@@ -1048,7 +1184,8 @@ def check_small_train(device, keypoints=False):
               "worst grad diff / max|g| vs cpu f64 {:.3e} {}, vs cpu f64 "
               "with this run's ReLU signs {:.3e} {}; worst update diff / "
               "max update vs the latter {:.3e} {}".format(
-                  "Keypoint R-CNN, " if keypoints else "", H, W, name, loss,
+                  "Keypoint R-CNN, " if keypoints else
+                  "Mask R-CNN R-50-C4, " if c4 else "", H, W, name, loss,
                   r["loss"], *r["flips"], *r["grad_f64"],
                   *r["grad"], *r["update"]))
     # With its own ReLU signs a float32 step is within ~1e-5 of float64
@@ -1493,7 +1630,7 @@ def run_engine_path(device, workdir):
     im_info = prepared[0][1].cpu().numpy()
     for bi, idx in enumerate(first):
         cls_boxes, cls_segms, _ = test_engine.device_outputs_to_image_results(
-            out, bi, im_info, C)
+            out, bi, im_info, C, (roidb[idx]["height"], roidb[idx]["width"]))
         diff = _same_image_results(cls_boxes, cls_segms, dets, idx, C)
         if diff:
             raise AssertionError("engine image {} differs from detect_graph "
@@ -1897,7 +2034,9 @@ def run_keypoint_infer_path(device, workdir):
     im_info = prepared[0][1].cpu().numpy()
     t0 = time.perf_counter()
     decoded = [test_engine.device_outputs_to_image_results(
-        out, bi, im_info, cfg.MODEL.NUM_CLASSES) for bi in range(len(first))]
+        out, bi, im_info, cfg.MODEL.NUM_CLASSES,
+        (roidb[idx]["height"], roidb[idx]["width"]))
+        for bi, idx in enumerate(first)]
     decode_s = time.perf_counter() - t0
     n_first = 0
     for (cls_boxes, _, cls_keyps), idx in zip(decoded, first):
@@ -2034,6 +2173,354 @@ def run_keypoint_train_net_path(device, workdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-13: Faster / Mask R-CNN R-50-C4
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_kernels():
+    """K1, K2 and K4 replaced, where the C4 path calls them
+    (ops/nms.py, ops/roi_align.py), by their plain versions, which run on
+    CUDA tensors too: the path's reference run on the card."""
+    from detectron_tpu_torch.ops import nms, roi_align
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+
+    swaps = [(nms, "nms_keep_mask", nms_kernel.nms_keep_mask_plain),
+             (roi_align, "roi_window_pool",
+              roi_align_kernel.roi_window_pool_plain),
+             (roi_align, "roi_window_accum",
+              roi_align_kernel.roi_window_accum_plain)]
+    saved = [getattr(m, n) for m, n, _ in swaps]
+    try:
+        for m, n, f in swaps:
+            setattr(m, n, f)
+        yield
+    finally:
+        for (m, n, _), f in zip(swaps, saved):
+            setattr(m, n, f)
+
+
+def calibrate_c4_scores(tree, device, pixel_std=20.0, spread=1.5,
+                        frac=0.25):
+    """Scale cls_score's weights so that the class logits of the main
+    inputs' proposals (images N(0, pixel_std)) spread by about `spread`
+    (their standard deviation over valid RoIs and classes), then move the
+    background bias so that about `frac` of those proposals score some
+    foreground class above the background. Under random weights the res5
+    head's 2048 features grow with the input (the body and head are
+    positively homogeneous: zero biases): on the x20 main inputs the
+    logits spread by hundreds, every proposal scores one class at 1.0 and
+    the detections tie; scaled down, the calibration's background bias
+    leaves none. Updates and returns `tree`."""
+    import torch
+
+    from detectron_tpu_torch.models import bridge
+    from detectron_tpu_torch.models import model_builder as mb
+
+    params = bridge.to_torch(tree, device, torch.bfloat16)
+    _, images, im_info = main_inputs(device, params=False)
+    images = images * (pixel_std / 20.0)
+    with torch.no_grad():
+        feats, scales = mb.forward_features(params, images)
+        rois, _, valid = mb.generate_proposals(
+            mb.forward_rpn(params, feats), feats, im_info, False)
+        f = mb.forward_box_outputs(params, feats, scales, rois)[2]
+    f = f.float()[valid.reshape(-1)].cpu().numpy().astype(np.float64)
+    w, b = (tree["box_outs"]["cls_score"][k] for k in ("w", "b"))
+    w *= np.float32(spread / (f @ w.astype(np.float64)).std())
+    logits = f @ w.astype(np.float64) + b
+    b[0] += np.float32(np.quantile(logits[:, 1:].max(1) - logits[:, 0],
+                                   1 - frac))
+    return tree
+
+
+def run_c4_infer_path(device):
+    """Phase 11. Returns K1-K3's launch counts over MAIN_RUNS detect_graph
+    batches of Mask R-CNN R-50-C4."""
+    import torch
+
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import bridge
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+
+    set_cfg(tiny=False, dtype="bfloat16", c4=True)
+    tree = calibrate_c4_scores(make_tree(), device)
+    params = bridge.to_torch(tree, device, torch.bfloat16)
+    _, images, im_info = main_inputs(device, params=False)
+    det.detect_graph(params, images, im_info)   # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": roi_align_kernel.roi_window_pool,
+                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(MAIN_RUNS):
+        out = det.detect_graph(params, images, im_info)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+
+    D, M = cfg.TEST.DETECTIONS_PER_IM, cfg.MRCNN.RESOLUTION
+    shapes = {"boxes": (BATCH, D, 4), "scores": (BATCH, D),
+              "classes": (BATCH, D), "valid": (BATCH, D),
+              "mask_probs": (BATCH, D, M, M)}
+    if set(out) != set(shapes):
+        raise AssertionError("detect_graph returned {}".format(sorted(out)))
+    for k, shape in shapes.items():
+        if tuple(out[k].shape) != shape:
+            raise AssertionError("{} has shape {}, expected {}".format(
+                k, tuple(out[k].shape), shape))
+        if out[k].is_floating_point() and not bool(
+                torch.isfinite(out[k]).all()):
+            raise AssertionError(k + " has non-finite values")
+    per_image = out["valid"].sum(1).tolist()
+    print("C4 inference path (Mask R-CNN R-50-C4, bf16, {} x {} x {}, RPN "
+          "{} -> {} proposals, res5 head on 14 x 14 RoIAlign, D={}, masks "
+          "{} x {}): {:.3f} img/s over {} batches, valid detections per "
+          "image {}, launches {}".format(
+              BATCH, *CANVAS, cfg.TEST.RPN_PRE_NMS_TOP_N,
+              cfg.TEST.RPN_POST_NMS_TOP_N, D, M, M,
+              BATCH * MAIN_RUNS / dt, MAIN_RUNS, per_image, launches))
+    if sum(per_image) == 0:
+        raise AssertionError("the C4 path produced no detections")
+    missing = [k for k in ("nms_keep_mask", "roi_window_pool")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError("kernels not launched on the C4 inference "
+                             "path: " + ", ".join(missing))
+    profile_call("one C4 inference batch",
+                 lambda: det.detect_graph(params, images, im_info),
+                 n_kernels=15, n_ops=0)
+
+    # The same batch through the plain versions of K1 and K2, on the card.
+    with plain_kernels():
+        ref = det.detect_graph(params, images, im_info)
+    got = {k: v.float() if v.is_floating_point() else v
+           for k, v in out.items()}
+    ref = {k: v.float() if v.is_floating_point() else v
+           for k, v in ref.items()}
+    frac = match_detections(got, ref)
+    n_ref, n_got = int(ref["valid"].sum()), int(got["valid"].sum())
+    mask_err = float((got["mask_probs"] - ref["mask_probs"]).abs().max())
+    print("C4 inference against the plain K1 / K2 on the card: valid "
+          "plain={} kernels={} matched={:.4f}, largest mask probability "
+          "diff {:.3e}".format(n_ref, n_got, frac, mask_err))
+    if n_ref == 0 or frac < 0.95 or abs(n_ref - n_got) > 0.05 * n_ref:
+        raise AssertionError("the C4 path's kernels disagree with their "
+                             "plain versions at full width")
+    return launches
+
+
+def run_c4_engine_path(device, workdir):
+    """Phase 12. Returns K1-K3's launch counts over run_inference of Mask
+    R-CNN R-50-C4."""
+    import types
+
+    import torch
+
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core import test_engine
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.data.json_dataset import JsonDataset
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
+    from detectron_tpu_torch.utils import net as net_utils
+    from detectron_tpu_torch.utils.logging import setup_logging
+
+    setup_logging(__name__)
+    t0 = time.perf_counter()
+    n_ann = make_valset(workdir, C4_ENGINE_IMAGES)
+    set_cfg(tiny=False, dtype="bfloat16", c4=True)
+    # The synthetic images are uniform 0-255 noise: 74 about the means.
+    tree = calibrate_c4_scores(make_tree(), device, pixel_std=74.0)
+    set_cfg(tiny=False, dtype="bfloat16", c4=True,
+            extra=["DATA_DIR", workdir, "TEST.DATASETS",
+                   "('coco_2017_val',)"])
+    ckpt = net_utils.save_ckpt(workdir + "/train", 0, tree)
+    args = types.SimpleNamespace(load_ckpt=ckpt, load_detectron=None)
+    print("C4 engine set-up: {} images, {} annotations, checkpoint {}, in "
+          "{:.3f} s".format(C4_ENGINE_IMAGES, n_ann, ckpt,
+                            time.perf_counter() - t0))
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": roi_align_kernel.roi_window_pool,
+                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
+    for fn in wrappers.values():
+        fn.launches = 0
+    out_dir = workdir + "/eval"
+    t0 = time.perf_counter()
+    results = test_engine.run_inference(
+        args, dataset_name="coco_2017_val", output_dir=out_dir,
+        batch_size=ENGINE_BATCH, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    with open(out_dir + "/detections.pkl", "rb") as f:
+        dets = pickle.load(f)
+    dataset = JsonDataset("coco_2017_val")
+    roidb = dataset.get_roidb(gt=True)
+    C = cfg.MODEL.NUM_CLASSES
+    n_dets = _check_engine_results(dets, roidb, C)
+    ap = {task: results["coco_2017_val"][task]["AP"]
+          for task in ("box", "mask")}
+    if not all(np.isfinite(v) for v in ap.values()):
+        raise AssertionError("non-finite COCO AP: {}".format(ap))
+    print("C4 engine path (run_inference, Mask R-CNN R-50-C4, bf16, batch "
+          "{}, TEST.SCALE {} / MAX_SIZE {}, masks {} x {}): {} images, {} "
+          "detections, box AP {}, mask AP {} (random weights), {:.3f} s in "
+          "all, launches {}".format(
+              ENGINE_BATCH, cfg.TEST.SCALE, cfg.TEST.MAX_SIZE,
+              cfg.MRCNN.RESOLUTION, cfg.MRCNN.RESOLUTION, len(roidb), n_dets,
+              ap["box"], ap["mask"], wall, launches))
+    missing = [k for k in ("nms_keep_mask", "roi_window_pool")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError("kernels not launched on the C4 test_net path: "
+                             + ", ".join(missing))
+    if n_dets == 0:
+        raise AssertionError("the C4 engine produced no detections")
+
+    # The first batch against detect_graph on the batch the engine
+    # prepared: boxes equal, RLE strings identical.
+    params = test_engine.initialize_model_from_cfg(args, device=device)
+    first = [i for i, e in enumerate(roidb)
+             if e["width"] >= e["height"]][:ENGINE_BATCH]
+    prepared = []
+
+    def spy(params, images, im_info):
+        prepared.append((images.clone(), im_info.clone()))
+        return det.detect_graph(params, images, im_info)
+
+    test_engine.test_net(params, [roidb[i] for i in first], dataset,
+                         batch_size=ENGINE_BATCH, detect_fn=spy,
+                         device=device)
+    out = det.detect_graph(params, *prepared[0])
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    im_info = prepared[0][1].cpu().numpy()
+    for bi, idx in enumerate(first):
+        cls_boxes, cls_segms, _ = test_engine.device_outputs_to_image_results(
+            out, bi, im_info, C, (roidb[idx]["height"], roidb[idx]["width"]))
+        diff = _same_image_results(cls_boxes, cls_segms, dets, idx, C)
+        if diff:
+            raise AssertionError("C4 engine image {} differs from "
+                                 "detect_graph on its prepared batch: {}"
+                                 .format(idx, diff))
+    print("C4 engine first batch: {} images equal to detect_graph on the "
+          "prepared batch (boxes and RLE strings)".format(len(first)))
+    return launches
+
+
+def run_c4_train_net_path(device, workdir):
+    """Phase 13. Returns K1-K4's launch counts over train_net_step.main of
+    Mask R-CNN R-50-C4."""
+    import torch
+
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import init
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.tools import train_net_step
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
+    from detectron_tpu_torch.utils import detectron_weight_helper as dwh
+    from detectron_tpu_torch.utils import net as net_utils
+
+    t0 = time.perf_counter()
+    n_ann = make_valset(workdir, TRAIN_NET_IMAGES, "train2017")
+    set_cfg(tiny=False, dtype="bfloat16", c4=True,
+            extra=["DATA_DIR", workdir, "OUTPUT_DIR", workdir + "/out"])
+    # The calibrated C4 weights as a Detectron .pkl (res5_* under the box
+    # head, conv5_mask), read back exactly.
+    tree = make_tree()
+    pkl = workdir + "/model_final.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump({"blobs": dwh.to_detectron_blobs(tree)}, f,
+                    pickle.HIGHEST_PROTOCOL)
+    loaded = dict(opt.flatten(dwh.load_detectron_weight(init.init_model(1),
+                                                         pkl)))
+    ref = dict(opt.flatten(tree))
+    diff = [p for p, a in ref.items() if not np.array_equal(loaded[p], a)]
+    if set(loaded) != set(ref) or diff:
+        raise AssertionError("load_detectron_weight of the written .pkl "
+                             "differs from its tree at {}".format(diff[:5]))
+    print("C4 train_net set-up: {} images, {} annotations, Detectron .pkl "
+          "of {} blobs read back exactly, in {:.3f} s".format(
+              TRAIN_NET_IMAGES, n_ann, len(dwh.full_weight_mapping()),
+              time.perf_counter() - t0))
+
+    # The yaml's schedule is for NUM_GPUS x IMS_PER_BATCH = 8 images a
+    # step; over --bs 2 the linear-scaling rule makes MAX_ITER x 4 steps.
+    scale = cfg.NUM_GPUS * cfg.TRAIN.IMS_PER_BATCH // BATCH
+    max_iter = TRAIN_NET_STEPS // scale
+    assert max_iter * scale == TRAIN_NET_STEPS
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": roi_align_kernel.roi_window_pool,
+                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg,
+                "roi_window_accum": roi_align_kernel.roi_window_accum}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run = train_net_step.main([
+        "--dataset", "coco2017", "--bs", str(BATCH), "--nw", "4",
+        "--load_detectron", pkl, "--ckpt_num_per_epoch", "1",
+        "--disp_interval", "1", "--device", device, "--set",
+        "SOLVER.MAX_ITER", str(max_iter),
+        "SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS),
+        "TRAIN.USE_FLIPPED", "True"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+
+    steps = len(run["stats"])
+    if steps != TRAIN_NET_STEPS:
+        raise AssertionError("train_net_step took {} steps, not {}".format(
+            steps, TRAIN_NET_STEPS))
+    bad = [s for s in run["stats"] if "loss_mask" not in s
+           or not all(np.isfinite(list(s.values())))]
+    if bad:
+        raise AssertionError("non-finite training stats, or no loss_mask: "
+                             "{}".format(bad))
+    got = dict(opt.flatten(net_utils.load_ckpt_params(run["ckpt"])))
+    if set(got) != set(ref) or not all(
+            got[p].shape == a.shape and np.isfinite(got[p]).all()
+            for p, a in ref.items()):
+        raise AssertionError("the checkpoint {} does not read back as the "
+                             "model's tree of finite values".format(
+                                 run["ckpt"]))
+    moved = sum(not np.array_equal(got[p], a) for p, a in ref.items())
+    step_ms = [t * 1e3 for t in run["step_s"][1:]]
+    wait_ms = [t * 1e3 for t in run["loader_wait_s"]]
+    median = statistics.median(step_ms)
+    print("C4 train_net path (train_net_step.main, Mask R-CNN R-50-C4, bf16 "
+          "compute / f32 params, --bs {} --nw 4 --load_detectron, "
+          "TRAIN.SCALES {} / MAX_SIZE {}, USE_FLIPPED, CLIP_GRADIENTS {}, "
+          "RPN {} -> {}, {} RoIs/img): {} steps over {} images and their "
+          "flips in {:.3f} s, canvases {}; median step {:.3f} ms after the "
+          "first = {:.3f} img/s; loader wait per step median {:.3f} ms, mean "
+          "{:.3f} ms (first step {:.3f} ms); checkpoint {} read back, {} of "
+          "{} leaves moved; launches {}".format(
+              BATCH, cfg.TRAIN.SCALES, cfg.TRAIN.MAX_SIZE, CLIP_GRADIENTS,
+              cfg.TRAIN.RPN_PRE_NMS_TOP_N, cfg.TRAIN.RPN_POST_NMS_TOP_N,
+              cfg.TRAIN.BATCH_SIZE_PER_IM, steps, TRAIN_NET_IMAGES, wall,
+              sorted(set(run["canvases"])), median, BATCH / median * 1e3,
+              statistics.median(wait_ms), statistics.mean(wait_ms),
+              wait_ms[0], run["ckpt"], moved, len(got), launches))
+    print("C4 train_net step ms: {}; loader wait ms: {}".format(
+        [round(t, 3) for t in [run["step_s"][0] * 1e3] + step_ms],
+        [round(t, 3) for t in wait_ms]))
+    for i, row in enumerate(run["stats"]):
+        print("C4 train_net step {}: {}".format(
+            i, {k: round(v, 4) for k, v in row.items()}))
+    if moved == 0:
+        raise AssertionError("the training steps changed no param")
+    missing = [k for k in ("nms_keep_mask", "roi_window_pool",
+                           "roi_window_accum") if launches[k] == 0]
+    if missing:
+        raise AssertionError("kernels not launched on the C4 train_net "
+                             "path: " + ", ".join(missing))
+    return launches
+
+
 def main():
     import torch
 
@@ -2079,6 +2566,8 @@ def main():
     check_small_train(device)
     check_small_input(device, keypoints=True)
     check_small_train(device, keypoints=True)
+    check_small_input(device, c4=True)
+    check_small_train(device, c4=True)
     inference = run_main_path(device)
     training = run_train_path(device, args.profile_train, args.clip_gradients)
     fused = run_main_path(device, FUSED_RES2)
@@ -2091,6 +2580,11 @@ def main():
         kps_infer, kps_engine = run_keypoint_infer_path(device, workdir)
     with tempfile.TemporaryDirectory() as workdir:
         kps_train = run_keypoint_train_net_path(device, workdir)
+    c4_infer = run_c4_infer_path(device)
+    with tempfile.TemporaryDirectory() as workdir:
+        c4_engine = run_c4_engine_path(device, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        c4_train = run_c4_train_net_path(device, workdir)
 
     meta = {
         "nms_keep_mask": ("detectron_tpu_torch/csrc/nms_keep_mask.cu",
@@ -2125,7 +2619,10 @@ def main():
                    "train_net": train_net.get(name, 0),
                    "keypoint_infer": kps_infer.get(name, 0),
                    "keypoint_test_net": kps_engine.get(name, 0),
-                   "keypoint_train": kps_train.get(name, 0)}
+                   "keypoint_train": kps_train.get(name, 0),
+                   "c4_infer": c4_infer.get(name, 0),
+                   "c4_test_net": c4_engine.get(name, 0),
+                   "c4_train": c4_train.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": by_path[path_of[name]],
@@ -2133,7 +2630,9 @@ def main():
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "device_ms": e["device_ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": None,
-            "shape": e["shape"]})
+            "shape": e["shape"],
+            **{k: dict(v, library_ms=None) for k, v in e.items()
+               if k.startswith("c4")}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -165,13 +165,15 @@ def detect_raw(params, images, im_info):
 
 def _mask_logits(params, features, scales, det_boxes):
     """Mask head logits (B * D, M, M, C') on boxes (B, D, 4) in scaled
-    coords."""
+    coords; a v0upshare head runs the box head's res5 (JAX core/test.py
+    :231-238, :276-283)."""
     B, D = det_boxes.shape[:2]
     roi_feat = mb.roi_feature_transform(
         features, scales, det_boxes, cfg.MRCNN.ROI_XFORM_RESOLUTION,
         cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO, cfg.MRCNN.ROI_XFORM_METHOD)
     h = mask_rcnn_heads.apply_mask_head(
-        params["mask_head"], roi_feat.reshape((B * D,) + roi_feat.shape[2:]))
+        params["mask_head"], roi_feat.reshape((B * D,) + roi_feat.shape[2:]),
+        shared_res5_params=mask_rcnn_heads.shared_res5(params))
     return mask_rcnn_heads.apply_mask_outputs(params["mask_outs"], h)
 
 

@@ -130,10 +130,16 @@ def keypoint_results(det_boxes, kps_heatmaps):
     return kp_utils.heatmaps_to_keypoints(maps, det_boxes)
 
 
-def device_outputs_to_image_results(out, bi, im_info, num_classes):
+def device_outputs_to_image_results(out, bi, im_info, num_classes, im_hw):
     """Convert detect_graph outputs (numpy) for image `bi` into the
     reference's per-class results (cls_boxes, cls_segms, cls_keyps), None
-    for a head the model does not have."""
+    for a head the model does not have. Masks are pasted into an image of
+    im_hw (height, width), the original image's size. The JAX engine
+    (test_engine.py:130-131) takes the scaled size over the scale,
+    rounded, which misses the original by a pixel or more where the image
+    was scaled down (TEST.SCALE under its short side, or past
+    TEST.MAX_SIZE), and COCO's segm evaluation then fails on RLEs of two
+    sizes."""
     valid = out["valid"][bi]
     boxes = out["boxes"][bi][valid]
     scores = out["scores"][bi][valid]
@@ -149,8 +155,7 @@ def device_outputs_to_image_results(out, bi, im_info, num_classes):
 
     cls_segms = None
     if "mask_probs" in out:
-        im_h = int(round(im_info[bi][0] / scale))
-        im_w = int(round(im_info[bi][1] / scale))
+        im_h, im_w = im_hw
         probs = out["mask_probs"][bi][valid]
         rles = segm_results(boxes_orig, classes, probs, im_h, im_w)
         cls_segms = [[] for _ in range(num_classes)]
@@ -331,8 +336,10 @@ def test_net(params, roidb_entries, dataset, batch_size=8, output_dir=None,
 
         def one(bi_idx):
             bi, idx = bi_idx
+            entry = roidb_entries[idx]
             return idx, device_outputs_to_image_results(
-                out, bi, infos, num_classes)
+                out, bi, infos, num_classes,
+                (entry["height"], entry["width"]))
 
         for idx, (cls_boxes, cls_segms, cls_keyps) in post_pool.map(
                 one, list(enumerate(chunk))):

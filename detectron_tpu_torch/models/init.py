@@ -1,5 +1,5 @@
-"""Numpy weight init: the R-50-FPN Mask / Keypoint R-CNN params tree
-without JAX.
+"""Numpy weight init: the Mask / Faster / Keypoint R-CNN params tree
+(R-50-FPN, and R-50-C4 with its res5 RoI head) without JAX.
 
 Same fills as detectron_tpu/models/init.py (Caffe2 fan semantics on HWIO
 conv kernels and (in, out) dense kernels):
@@ -21,11 +21,22 @@ import numpy as np
 
 from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.models import resnet
+from detectron_tpu_torch.models import rpn as rpn_mod
 
 _NOT_PORTED = "not ported yet (ROADMAP Queue A, A7): "
 # The one keypoint head the port runs ("" selects it too, as in the JAX
 # package's model_builder.py:107-109).
 POSE_HEAD = "keypoint_rcnn_heads.roi_pose_head_v1convX"
+# The box heads: the 2-MLP head of an FPN model, and the res5 head of a C4
+# model ("" selects it, as in the JAX package's model_builder.py:83-84).
+MLP_HEAD = "fast_rcnn_heads.roi_2mlp_head"
+C4_HEAD = "ResNet.ResNet_roi_conv5_head"
+# The mask heads: four 3x3 convs and a deconv on the RoI features, or a
+# deconv on res5 of the RoI features, res5 shared with the C4 box head
+# (v0upshare) or its own (v0up).
+MASK_HEAD_V1UP4CONVS = "mask_rcnn_heads.mask_rcnn_fcn_head_v1up4convs"
+MASK_HEADS_V0UP = ("mask_rcnn_heads.mask_rcnn_fcn_head_v0upshare",
+                   "mask_rcnn_heads.mask_rcnn_fcn_head_v0up")
 
 
 def _fans(shape):
@@ -123,47 +134,99 @@ def init_fpn(rng):
 
 
 def init_rpn(rng, dim_in):
-    A = len(cfg.FPN.RPN_ASPECT_RATIOS)
+    """The RPN head (JAX rpn.init_single_scale_rpn, rpn.py:39-51, which the
+    FPN's shared head reuses)."""
+    A = rpn_mod.num_cell_anchors()
+    dim_out = dim_in if cfg.RPN.OUT_DIM_AS_IN_DIM else cfg.RPN.OUT_DIM
     return {
-        "conv_rpn": init_conv(rng, 3, 3, dim_in, dim_in,
+        "conv_rpn": init_conv(rng, 3, 3, dim_in, dim_out,
                               weight_init="GaussianFill", std=0.01),
-        "rpn_cls_logits": init_conv(rng, 1, 1, dim_in, A,
+        "rpn_cls_logits": init_conv(rng, 1, 1, dim_out, A,
                                     weight_init="GaussianFill", std=0.01),
-        "rpn_bbox_pred": init_conv(rng, 1, 1, dim_in, 4 * A,
+        "rpn_bbox_pred": init_conv(rng, 1, 1, dim_out, 4 * A,
                                    weight_init="GaussianFill", std=0.01),
     }
 
 
-def init_model(seed):
-    """The R-50-FPN Mask / Keypoint R-CNN params tree for the current cfg,
-    from a
-    numpy RandomState(seed). Raises NotImplementedError for any model the
+def init_res5_head(rng, in_c=1024):
+    """res5 of the C4 RoI head (JAX resnet.init_roi_conv5_head,
+    resnet.py:307-310): three bottlenecks, in_c -> 2048, inner 512."""
+    n = resnet.BLOCK_COUNTS[50][3]
+    return [_init_bottleneck(rng, in_c if i == 0 else 2048, 2048, 512,
+                             has_shortcut=(i == 0)) for i in range(n)]
+
+
+def roi_feat_dim():
+    """Channels of the RoI features: the FPN's, or res4's for a C4
+    model."""
+    return cfg.FPN.DIM if cfg.FPN.FPN_ON else 1024
+
+
+def check_model_supported():
+    """Raise NotImplementedError, naming what is missing, for a model the
     port does not run yet."""
     resnet.check_body_supported()
-    depth, num_stages = resnet.body_spec(cfg.MODEL.CONV_BODY)
-    if not (cfg.FPN.FPN_ON and cfg.FPN.MULTILEVEL_RPN):
-        raise NotImplementedError(_NOT_PORTED + "bodies other than FPN with "
-                                  "a multilevel RPN")
-    if cfg.FPN.USE_GN or cfg.FPN.EXTRA_CONV_LEVELS or \
-            cfg.FPN.ZERO_INIT_LATERAL:
-        raise NotImplementedError(_NOT_PORTED + "FPN GN / extra conv levels"
-                                  " / zero-init laterals")
-    if cfg.FAST_RCNN.ROI_BOX_HEAD != "fast_rcnn_heads.roi_2mlp_head":
-        raise NotImplementedError(_NOT_PORTED + cfg.FAST_RCNN.ROI_BOX_HEAD)
+    _, num_stages = resnet.body_spec(cfg.MODEL.CONV_BODY)
+    if cfg.FPN.FPN_ON:
+        if not cfg.FPN.MULTILEVEL_RPN or num_stages != 4:
+            raise NotImplementedError(
+                _NOT_PORTED + "an FPN on a conv4 body or with a "
+                "single-level RPN")
+        if cfg.FPN.USE_GN or cfg.FPN.EXTRA_CONV_LEVELS or \
+                cfg.FPN.ZERO_INIT_LATERAL:
+            raise NotImplementedError(_NOT_PORTED + "FPN GN / extra conv "
+                                      "levels / zero-init laterals")
+        box_heads = (MLP_HEAD,)
+    else:
+        if num_stages != 3:
+            raise NotImplementedError(
+                _NOT_PORTED + "a conv5 body without an FPN (res5 dilation "
+                "and the other single-level bodies)")
+        box_heads = ("", C4_HEAD)
+    if cfg.FAST_RCNN.ROI_BOX_HEAD not in box_heads:
+        raise NotImplementedError(
+            _NOT_PORTED + "box head {!r} on an {} body (the Xconv1fc heads, "
+            "GN, the dotted-name registry)".format(
+                cfg.FAST_RCNN.ROI_BOX_HEAD,
+                "FPN" if cfg.FPN.FPN_ON else "C4"))
+    if cfg.MODEL.MASK_ON:
+        head = cfg.MRCNN.ROI_MASK_HEAD
+        if head not in (MASK_HEAD_V1UP4CONVS,) + MASK_HEADS_V0UP:
+            raise NotImplementedError(
+                _NOT_PORTED + "mask head {!r} (v1up, the GN heads, the "
+                "dotted-name registry)".format(head))
+        if head == MASK_HEADS_V0UP[0] and cfg.FPN.FPN_ON:
+            raise ValueError(head + " shares the res5 of the C4 box head, "
+                             "which an FPN model does not have")
+        if cfg.MRCNN.USE_FC_OUTPUT:
+            raise NotImplementedError(_NOT_PORTED + "MRCNN.USE_FC_OUTPUT")
     if cfg.MODEL.KEYPOINTS_ON and cfg.KRCNN.ROI_KEYPOINTS_HEAD not in (
             "", POSE_HEAD):
         raise NotImplementedError(_NOT_PORTED + cfg.KRCNN.ROI_KEYPOINTS_HEAD)
 
+
+def init_model(seed):
+    """The params tree for the current cfg (R-50-FPN or R-50-C4; Mask,
+    Faster or Keypoint R-CNN), from a numpy RandomState(seed). Raises
+    NotImplementedError for any model the port does not run yet."""
+    check_model_supported()
+    depth, num_stages = resnet.body_spec(cfg.MODEL.CONV_BODY)
     rng = np.random.RandomState(seed)
-    params = {"body": init_body(rng, depth, num_stages),
-              "fpn": init_fpn(rng)}
+    params = {"body": init_body(rng, depth, num_stages)}
+    if cfg.FPN.FPN_ON:
+        params["fpn"] = init_fpn(rng)
+    d = roi_feat_dim()
     if cfg.RPN.RPN_ON:  # off in Fast R-CNN mode (precomputed proposals)
-        params["rpn"] = init_rpn(rng, cfg.FPN.DIM)
-    res = cfg.FAST_RCNN.ROI_XFORM_RESOLUTION
-    hidden = cfg.FAST_RCNN.MLP_HEAD_DIM
-    params["box_head"] = {
-        "fc6": init_fc(rng, cfg.FPN.DIM * res * res, hidden),
-        "fc7": init_fc(rng, hidden, hidden)}
+        params["rpn"] = init_rpn(rng, d)
+    if cfg.FPN.FPN_ON:
+        res = cfg.FAST_RCNN.ROI_XFORM_RESOLUTION
+        hidden = cfg.FAST_RCNN.MLP_HEAD_DIM
+        params["box_head"] = {
+            "fc6": init_fc(rng, d * res * res, hidden),
+            "fc7": init_fc(rng, hidden, hidden)}
+    else:
+        hidden = 2048
+        params["box_head"] = {"res5": init_res5_head(rng, d)}
     n_cls = cfg.MODEL.NUM_CLASSES
     n_reg = 2 if cfg.MODEL.CLS_AGNOSTIC_BBOX_REG else n_cls
     params["box_outs"] = {
@@ -171,21 +234,21 @@ def init_model(seed):
         "bbox_pred": init_fc(rng, hidden, 4 * n_reg, "GaussianFill", 0.001)}
 
     if cfg.MODEL.MASK_ON:
-        head = cfg.MRCNN.ROI_MASK_HEAD
-        if head != "mask_rcnn_heads.mask_rcnn_fcn_head_v1up4convs":
-            raise NotImplementedError(_NOT_PORTED + head)
-        if cfg.MRCNN.USE_FC_OUTPUT:
-            raise NotImplementedError(_NOT_PORTED + "MRCNN.USE_FC_OUTPUT")
         init = cfg.MRCNN.CONV_INIT
         dim = cfg.MRCNN.DIM_REDUCED
-        d = cfg.FPN.DIM
-        convs = []
-        for _ in range(4):
-            convs.append(init_conv(rng, 3, 3, d, dim, weight_init=init))
-            d = dim
-        params["mask_head"] = {
-            "convs": convs,
-            "deconv": init_conv(rng, 2, 2, d, dim, weight_init=init)}
+        if cfg.MRCNN.ROI_MASK_HEAD in MASK_HEADS_V0UP:
+            params["mask_head"] = {
+                "deconv": init_conv(rng, 2, 2, 2048, dim, weight_init=init)}
+            if cfg.MRCNN.ROI_MASK_HEAD == MASK_HEADS_V0UP[1]:
+                params["mask_head"]["res5"] = init_res5_head(rng, d)
+        else:
+            convs = []
+            for _ in range(4):
+                convs.append(init_conv(rng, 3, 3, d, dim, weight_init=init))
+                d = dim
+            params["mask_head"] = {
+                "convs": convs,
+                "deconv": init_conv(rng, 2, 2, d, dim, weight_init=init)}
         n_mask = n_cls if cfg.MRCNN.CLS_SPECIFIC_MASK else 1
         params["mask_outs"] = {"mask_fcn_logits": init_conv(
             rng, 1, 1, dim, n_mask, weight_init=init, std=0.001)}
@@ -205,7 +268,7 @@ def init_keypoint_heads(rng):
     init = cfg.KRCNN.CONV_INIT
     k = cfg.KRCNN.CONV_HEAD_KERNEL
     dim = cfg.KRCNN.CONV_HEAD_DIM
-    d = cfg.FPN.DIM
+    d = roi_feat_dim()
     convs = []
     for _ in range(cfg.KRCNN.NUM_STACKED_CONVS):
         convs.append(init_conv(rng, k, k, d, dim, weight_init=init))

@@ -1,22 +1,35 @@
-"""Mask R-CNN head and outputs (port of detectron_tpu/models/
-mask_rcnn_heads.py for mask_rcnn_fcn_head_v1up4convs: apply_mask_head
-:57-80, apply_mask_outputs :97-106)."""
+"""Mask R-CNN heads and outputs (port of detectron_tpu/models/
+mask_rcnn_heads.py: apply_mask_head :57-80 for
+mask_rcnn_fcn_head_v1up4convs and the res5 heads
+mask_rcnn_fcn_head_v0upshare / v0up, apply_mask_outputs :97-106)."""
 
 from detectron_tpu_torch.core.config import cfg
+from detectron_tpu_torch.models import init as init_mod
 from detectron_tpu_torch.models import layers as L
+from detectron_tpu_torch.models import resnet
 
 
-def apply_mask_head(p, roi_feat):
-    """roi_feat (R, P, P, C) -> (R, 2P, 2P, DIM_REDUCED): 4 dilated 3x3
-    convs with ReLU, then the 2x2 stride-2 deconv with ReLU."""
-    if cfg.MRCNN.ROI_MASK_HEAD != \
-            "mask_rcnn_heads.mask_rcnn_fcn_head_v1up4convs":
+def apply_mask_head(p, roi_feat, shared_res5_params=None):
+    """roi_feat (R, P, P, C) -> (R, 2P', 2P', DIM_REDUCED), then ReLU:
+    v1up4convs runs 4 dilated 3x3 convs with ReLU (P' = P); the v0up heads
+    run res5 at stride 2 (P' = P / 2), the box head's res5
+    (shared_res5_params) under v0upshare, their own under v0up; then the
+    2x2 stride-2 deconv."""
+    head = cfg.MRCNN.ROI_MASK_HEAD
+    if head in init_mod.MASK_HEADS_V0UP:
+        res5 = shared_res5_params if head == init_mod.MASK_HEADS_V0UP[0] \
+            else p["res5"]
+        resnet.check_body_supported()
+        x = resnet.apply_stage(res5, roi_feat, 2)
+    elif head == init_mod.MASK_HEAD_V1UP4CONVS:
+        x = roi_feat
+        d = cfg.MRCNN.DILATION
+        for cp in p["convs"]:
+            x = L.relu(L.conv2d(cp, x, stride=1, padding=d, dilation=d))
+    else:
         raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
-                                  + cfg.MRCNN.ROI_MASK_HEAD)
-    x = roi_feat
-    d = cfg.MRCNN.DILATION
-    for cp in p["convs"]:
-        x = L.relu(L.conv2d(cp, x, stride=1, padding=d, dilation=d))
+                                  "mask head {!r} (v1up, the GN heads, the "
+                                  "dotted-name registry)".format(head))
     return L.relu(L.conv_transpose2d(p["deconv"], x, stride=2,
                                      torch_padding=0))
 
@@ -27,3 +40,8 @@ def apply_mask_outputs(p, x):
         raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
                                   "MRCNN.USE_FC_OUTPUT")
     return L.conv2d(p["mask_fcn_logits"], x, stride=1, padding=0)
+
+
+def shared_res5(params):
+    """The box head's res5 params (a C4 model's), or None."""
+    return params.get("box_head", {}).get("res5")

@@ -1,13 +1,15 @@
 """Generalized R-CNN forward pieces (port of detectron_tpu/models/
 model_builder.py: forward_features :120-139, forward_rpn :142-144,
-generate_proposals :147-235, roi_feature_transform :297-320 on its
-FPN / pallas / ladder branch, forward_box_outputs :386-420), for the
-R-50-FPN body with a multilevel RPN and the 2-MLP box head, and the
-keypoint branch (the JAX package builds it at :105-112 and runs it in
-core/test.py:254-266 and models/train_graph.py:153-170). Every piece
-serves inference and training: the RoIAlign ladder is differentiable
-w.r.t. the features (kernel K4 in its backward), and proposals are
-detached.
+generate_proposals :147-235, roi_feature_transform :238-320 on its
+single-level and FPN / pallas / ladder branches, _c4_crop_and_head
+:364-383, forward_box_outputs :386-420), for the R-50-FPN body with a
+multilevel RPN and the 2-MLP box head, the R-50-C4 body with a
+single-level RPN and the res5 RoI head, and the keypoint branch (the JAX
+package builds it at :105-112 and runs it in core/test.py:254-266 and
+models/train_graph.py:153-170). Every piece serves inference and
+training: both RoIAlign paths (the FPN's window-rung ladder and the C4
+single-level ops/roi_align.py) are differentiable w.r.t. the features
+(kernel K4 in their backward), and proposals are detached.
 
 Params are the bridged tree (models/bridge.py); activations are NHWC in the
 compute dtype cfg.TPU.COMPUTE_DTYPE.
@@ -18,11 +20,13 @@ import torch
 from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.models import fast_rcnn_heads
 from detectron_tpu_torch.models import fpn as fpn_mod
+from detectron_tpu_torch.models import init as init_mod
 from detectron_tpu_torch.models import keypoint_rcnn_heads
 from detectron_tpu_torch.models import layers as L
 from detectron_tpu_torch.models import resnet
 from detectron_tpu_torch.models import rpn as rpn_mod
 from detectron_tpu_torch.ops import nms as nms_ops
+from detectron_tpu_torch.ops import roi_align as ra_ops
 from detectron_tpu_torch.ops import windowed_roi as win_ops
 
 
@@ -35,23 +39,22 @@ def compute_dtype():
     return _COMPUTE_DTYPES[cfg.TPU.COMPUTE_DTYPE]
 
 
-def _check_path_supported():
-    if not (cfg.FPN.FPN_ON and cfg.FPN.MULTILEVEL_RPN):
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
-                                  "non-FPN / single-level RPN models")
-
-
 def forward_features(params, images):
     """images (B, H, W, 3) BGR, mean-subtracted, zero-padded. Returns
-    ([P2, ..., P6], scales)."""
-    _check_path_supported()
+    (features, scales): the FPN's [P2, ..., P6] and their scales, or a C4
+    body's [res4] and [1/16]."""
+    init_mod.check_model_supported()
     _, num_stages = resnet.body_spec(cfg.MODEL.CONV_BODY)
-    body_p, fpn_p = params["body"], params["fpn"]
+    body_p, fpn_p = params["body"], params.get("fpn")
     if cfg.TRAIN.FREEZE_CONV_BODY:
         # The whole conv body, FPN included, trains no parameters.
-        body_p, fpn_p = L.stop_gradient(body_p), L.stop_gradient(fpn_p)
+        body_p = L.stop_gradient(body_p)
+        if fpn_p is not None:
+            fpn_p = L.stop_gradient(fpn_p)
     outs = resnet.apply_body(body_p, images.to(compute_dtype()), num_stages)
-    return fpn_mod.apply_fpn(fpn_p, outs)
+    if cfg.FPN.FPN_ON:
+        return fpn_mod.apply_fpn(fpn_p, outs)
+    return [outs[-1]], [1.0 / 16.0]
 
 
 def forward_rpn(params, features):
@@ -67,23 +70,21 @@ def generate_proposals(rpn_outs, features, im_info, training):
     (at most the number of slots). Never differentiable: the reference's
     proposals are host numpy, and NMS has no gradient.
 
-    Per level: top-k preselection, decode, clip, min-size filter; then NMS
-    of every level's lanes in one K1 call (nms_stacked_mask), and per level
-    one of two forms, as in the JAX package: the keep-mask form when post_n
-    covers every slot of the level, else the compacted form truncating
-    survivors to post_n."""
-    _check_path_supported()
+    Per level (the FPN's five, or a C4 model's one): top-k preselection,
+    decode, clip, min-size filter; then NMS of every level's lanes in one
+    K1 call (nms_stacked_mask), and per level one of two forms, as in the
+    JAX package: the keep-mask form when post_n covers every slot of the
+    level, else the compacted form truncating survivors to post_n."""
     phase = cfg.TRAIN if training else cfg.TEST
     pre_n, post_n = phase.RPN_PRE_NMS_TOP_N, phase.RPN_POST_NMS_TOP_N
     nms_thresh, min_size = phase.RPN_NMS_THRESH, phase.RPN_MIN_SIZE
     im_info = im_info.to(torch.float32)
 
     prepped = []
-    for (cls_logits, bbox_pred), (_, stride, size) in zip(
-            rpn_outs, rpn_mod.fpn_anchor_config()):
+    for (cls_logits, bbox_pred), (stride, sizes, ratios) in zip(
+            rpn_outs, rpn_mod.anchor_configs()):
         _, H, W, _ = cls_logits.shape
-        anchors = rpn_mod.level_anchors(stride, (size,),
-                                        cfg.FPN.RPN_ASPECT_RATIOS, H, W,
+        anchors = rpn_mod.level_anchors(stride, sizes, ratios, H, W,
                                         cls_logits.device)
         prepped.append(rpn_mod.proposals_prep(
             cls_logits, bbox_pred, anchors, im_info, min_size, pre_n))
@@ -114,14 +115,21 @@ def generate_proposals(rpn_outs, features, im_info, training):
 
 def roi_feature_transform(features, scales, rois, resolution,
                           sampling_ratio, method="RoIAlign"):
-    """FPN RoIAlign through the window-rung ladder, differentiable w.r.t.
-    the features. features: [P2, ...]; rois (B, R, 4). Returns
+    """RoIAlign, differentiable w.r.t. the features: on one feature map
+    (a C4 model's res4) single-level RoIAlign (ops/roi_align.py, K2 / K4),
+    on an FPN's levels the window-rung ladder. rois (B, R, 4). Returns
     (B, R, P, P, C) in (p, q) order."""
-    if method != "RoIAlign" or cfg.TPU.ROI_IMPL != "pallas" or \
-            not cfg.TPU.ROI_LADDER or cfg.TPU.ROI_LADDER_NARROW:
+    if method != "RoIAlign":
+        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
+                                  "ROI_XFORM_METHOD " + method)
+    if len(features) == 1:
+        return ra_ops.roi_align_batched(features[0], rois, scales[0],
+                                        resolution, sampling_ratio)
+    if cfg.TPU.ROI_IMPL != "pallas" or not cfg.TPU.ROI_LADDER or \
+            cfg.TPU.ROI_LADDER_NARROW:
         raise NotImplementedError(
-            "not ported yet (ROADMAP Queue A, A7): only RoIAlign on the "
-            "windowed ladder (TPU.ROI_IMPL='pallas', ROI_LADDER on, "
+            "not ported yet (ROADMAP Queue A, A7): FPN RoIAlign other than "
+            "the windowed ladder (TPU.ROI_IMPL='pallas', ROI_LADDER on, "
             "ROI_LADDER_NARROW off)")
     lo = fpn_mod.lowest_backbone_lvl()
     k_min, k_max = cfg.FPN.ROI_MIN_LEVEL, cfg.FPN.ROI_MAX_LEVEL
@@ -134,18 +142,23 @@ def roi_feature_transform(features, scales, rois, resolution,
 
 
 def forward_box_outputs(params, features, scales, rois):
-    """RoIAlign + 2-MLP head + outputs. rois (B, R, 4) -> (cls_logits
+    """RoIAlign + box head + outputs: the 2-MLP head on an FPN's pooled
+    features, or (C4) res5 and a spatial mean on 14 x 14 pooled res4
+    features, all RoIs of the batch at once (the JAX package runs the C4
+    head in RoI chunks of TPU.ROI_CHUNK to bound its RoIAlign's dense
+    intermediate, which K2 does not make). rois (B, R, 4) -> (cls_logits
     (B, R, C), bbox_pred (B, R, 4C'), head features (B*R, D))."""
-    if cfg.FAST_RCNN.ROI_BOX_HEAD != "fast_rcnn_heads.roi_2mlp_head":
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
-                                  + cfg.FAST_RCNN.ROI_BOX_HEAD)
+    init_mod.check_model_supported()
     B, R = rois.shape[:2]
     roi_feat = roi_feature_transform(
         features, scales, rois, cfg.FAST_RCNN.ROI_XFORM_RESOLUTION,
         cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO,
         cfg.FAST_RCNN.ROI_XFORM_METHOD)
-    feat = fast_rcnn_heads.apply_roi_2mlp_head(
-        params["box_head"], roi_feat.reshape((B * R,) + roi_feat.shape[2:]))
+    flat = roi_feat.reshape((B * R,) + roi_feat.shape[2:])
+    if cfg.FPN.FPN_ON:
+        feat = fast_rcnn_heads.apply_roi_2mlp_head(params["box_head"], flat)
+    else:
+        feat = resnet.apply_roi_conv5_head(params["box_head"], flat)
     cls_logits, bbox_pred = fast_rcnn_heads.apply_fast_rcnn_outputs(
         params["box_outs"], feat)
     return cls_logits.reshape(B, R, -1), bbox_pred.reshape(B, R, -1), feat

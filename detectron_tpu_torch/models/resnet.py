@@ -1,6 +1,9 @@
-"""ResNet conv body, Detectron semantics (port of detectron_tpu/models/
-resnet.py: resnet.py:45-56, :80-116 and :210-300, with the TPU.FUSED_RES2
-branch :232-291).
+"""ResNet conv body and the C4 models' res5 RoI head, Detectron semantics
+(port of detectron_tpu/models/resnet.py: resnet.py:45-56, :80-116 and
+:210-300, with the TPU.FUSED_RES2 branch :232-291, and
+apply_roi_conv5_head :307-325). A conv5 body (res2-res5) feeds an FPN; a
+conv4 body (res2-res4, stride 16) feeds a C4 model, whose box head runs
+res5 on each RoI's pooled features.
 
 Frozen BN is AffineChannel, whose params never get a gradient; the stem
 and the stages up to RESNETS.FREEZE_AT are frozen too (their params enter
@@ -9,9 +12,9 @@ RESNETS.STRIDE_1X1 picks the Caffe (stride on the 1x1) or torch (stride on
 the 3x3) bottleneck. With TPU.FUSED_RES2, the stem post-ops and res2 run
 through kernels K5 and K6 (ops/cuda/fused_stem_kernel.py) under the JAX
 package's gates, with the fused path's own rounding; on the CPU their
-plain versions. GroupNorm, ResNeXt groups, res5 dilation and the s2d stems
-(S2D_STEM, S2D_INPUT) are not ported yet: check_body_supported raises on
-them.
+plain versions. GroupNorm, ResNeXt groups, res5 dilation (of a body or
+of the res5 head) and the s2d stems (S2D_STEM, S2D_INPUT) are not ported
+yet: check_body_supported raises on them.
 """
 
 import torch
@@ -76,6 +79,24 @@ def apply_bottleneck(p, x, stride):
     return L.relu(h + sc)
 
 
+def apply_stage(blocks, x, stride):
+    """A stage's bottleneck blocks; the first one strides."""
+    for i, bp in enumerate(blocks):
+        x = apply_bottleneck(bp, x, stride if i == 0 else 1)
+    return x
+
+
+def apply_roi_conv5_head(p, roi_feat):
+    """ResNet_roi_conv5_head: roi_feat (R, P, P, 1024) -> res5 at stride 2
+    -> the mean over its spatial cells, (R, 2048). The mean sums in at
+    least float32, as jnp.mean does for bfloat16, and returns the input
+    dtype."""
+    check_body_supported()
+    h = apply_stage(p["res5"], roi_feat, 2)
+    acc = torch.promote_types(h.dtype, torch.float32)
+    return h.to(acc).mean((1, 2)).to(h.dtype)
+
+
 def _fused_mode(p, h, freeze_at, num_stages):
     """The JAX package's TPU.FUSED_RES2 gates (resnet.py:239-257) on the
     raw stem-conv output h: "packed" (K5, then K6), "auto" (the unfused
@@ -123,7 +144,6 @@ def apply_body(p, x, num_stages):
                               fk.fold_res2_weights(sp, h.dtype))
             outs.append(h)
             continue
-        for i, bp in enumerate(sp):
-            h = apply_bottleneck(bp, h, (1 if s == 0 else 2) if i == 0 else 1)
+        h = apply_stage(sp, h, 1 if s == 0 else 2)
         outs.append(h)
     return outs

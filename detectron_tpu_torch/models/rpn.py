@@ -1,6 +1,10 @@
 """RPN heads and proposal generation (port of detectron_tpu/models/rpn.py:
-apply_rpn_head :54-59, level_anchors, proposals_prep_one_level :80-101,
-collect_proposals :147-157, fpn_anchor_config), batched over images.
+num_cell_anchors :33-37, apply_rpn_head :54-59, level_anchors,
+proposals_prep_one_level :80-101, collect_proposals :147-157, and
+fpn_anchor_config as anchor_configs), batched over images. An FPN model
+runs one head, shared by its levels, with one anchor size a level; a C4
+model runs it on the res4 map alone, with every RPN.SIZES x
+RPN.ASPECT_RATIOS anchor at stride RPN.STRIDE.
 """
 
 import torch
@@ -26,11 +30,28 @@ def level_anchors(stride, sizes, aspect_ratios, feat_h, feat_w, device):
         stride, sizes, aspect_ratios, feat_h, feat_w)).to(device)
 
 
-def fpn_anchor_config():
-    """(level, stride, size) triples for the FPN RPN levels."""
-    return [(lvl, 2 ** lvl,
-             cfg.FPN.RPN_ANCHOR_START_SIZE * 2 ** (lvl - cfg.FPN.RPN_MIN_LEVEL))
-            for lvl in range(cfg.FPN.RPN_MIN_LEVEL, cfg.FPN.RPN_MAX_LEVEL + 1)]
+def is_multilevel():
+    return bool(cfg.FPN.FPN_ON and cfg.FPN.MULTILEVEL_RPN)
+
+
+def num_cell_anchors():
+    """Anchors per feature cell: the aspect ratios of an FPN level, or
+    every size and ratio of the single-level RPN."""
+    if is_multilevel():
+        return len(cfg.FPN.RPN_ASPECT_RATIOS)
+    return len(cfg.RPN.ASPECT_RATIOS) * len(cfg.RPN.SIZES)
+
+
+def anchor_configs():
+    """(stride, sizes, aspect_ratios) of each RPN level, in the order of
+    forward_rpn's outputs: one size a level on the FPN's, from
+    RPN_ANCHOR_START_SIZE at RPN_MIN_LEVEL doubling a level."""
+    if is_multilevel():
+        lo = cfg.FPN.RPN_MIN_LEVEL
+        return [(2 ** lvl, (cfg.FPN.RPN_ANCHOR_START_SIZE * 2 ** (lvl - lo),),
+                 cfg.FPN.RPN_ASPECT_RATIOS)
+                for lvl in range(lo, cfg.FPN.RPN_MAX_LEVEL + 1)]
+    return [(cfg.RPN.STRIDE, tuple(cfg.RPN.SIZES), cfg.RPN.ASPECT_RATIOS)]
 
 
 def proposals_prep(cls_logits, bbox_pred, anchors, im_info, min_size,

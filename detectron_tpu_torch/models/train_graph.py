@@ -1,6 +1,8 @@
 """The training forward: features -> RPN -> proposals -> RoI sampling ->
 heads -> losses (port of detectron_tpu/models/train_graph.py: _all_anchors
-:31-53, training_losses :56-175), for the box, mask and keypoint branches.
+:31-53, training_losses :56-175), for the box, mask and keypoint branches,
+on an FPN or a C4 model (whose v0upshare mask head runs the box head's
+res5, so res5 gets the gradient of both branches).
 With RPN.RPN_ON off (Fast R-CNN training) the RoIs are the batch's
 precomputed proposals, and there are no RPN losses.
 
@@ -52,9 +54,9 @@ def _check_supported():
 
 
 def _level_size(n, lvl):
-    """Feature size at FPN level lvl (stride 2**lvl) of an input side n:
-    every stride-2 layer of the body (7x7/2 stem, 3x3/2 pool, the stride-2
-    1x1 or 3x3 of res3-5) and P6's [::2] map n to (n - 1) // 2 + 1."""
+    """Feature size at level lvl (stride 2**lvl) of an input side n: every
+    stride-2 layer of the body (7x7/2 stem, 3x3/2 pool, the stride-2 1x1
+    or 3x3 of res3-5) and P6's [::2] map n to (n - 1) // 2 + 1."""
     for _ in range(lvl):
         n = (n - 1) // 2 + 1
     return n
@@ -62,19 +64,21 @@ def _level_size(n, lvl):
 
 def draw_sizes(image_hw, num_gt):
     """(A_tot, R + G) for images of (H, W): the anchor count over the RPN
-    levels and the RoI candidates per image (the proposals that
-    generate_proposals returns in training, plus the gt boxes). With the
-    RPN off: (0, TPU.MAX_TRAIN_PROPOSALS + G), the precomputed proposals'
-    padded count plus the gt boxes."""
+    levels (the FPN's, or a C4 model's one at RPN.STRIDE) and the RoI
+    candidates per image (the proposals that generate_proposals returns
+    in training, plus the gt boxes). With the RPN off: (0,
+    TPU.MAX_TRAIN_PROPOSALS + G), the precomputed proposals' padded count
+    plus the gt boxes."""
     if not cfg.RPN.RPN_ON:
         return 0, cfg.TPU.MAX_TRAIN_PROPOSALS + num_gt
-    A = len(cfg.FPN.RPN_ASPECT_RATIOS)
     pre_n = cfg.TRAIN.RPN_PRE_NMS_TOP_N
     post_n = cfg.TRAIN.RPN_POST_NMS_TOP_N
     n_anchors = 0
     n_props = 0
-    for lvl in range(cfg.FPN.RPN_MIN_LEVEL, cfg.FPN.RPN_MAX_LEVEL + 1):
-        n = _level_size(image_hw[0], lvl) * _level_size(image_hw[1], lvl) * A
+    for stride, sizes, ratios in rpn_mod.anchor_configs():
+        lvl = int(stride).bit_length() - 1
+        n = _level_size(image_hw[0], lvl) * _level_size(image_hw[1], lvl) \
+            * len(sizes) * len(ratios)
         n_anchors += n
         k = min(pre_n, n)
         n_props += k if post_n >= k else post_n
@@ -99,12 +103,11 @@ def _all_anchors(rpn_outs):
     """The anchor fields of every RPN level concatenated (A_tot, 4), with
     the logits (B, A_tot) and deltas (B, A_tot, 4) in the same order."""
     anchors, logits, deltas = [], [], []
-    for (cls_logits, bbox_pred), (_, stride, size) in zip(
-            rpn_outs, rpn_mod.fpn_anchor_config()):
+    for (cls_logits, bbox_pred), (stride, sizes, ratios) in zip(
+            rpn_outs, rpn_mod.anchor_configs()):
         B, H, W, A = cls_logits.shape
-        anchors.append(rpn_mod.level_anchors(
-            stride, (size,), cfg.FPN.RPN_ASPECT_RATIOS, H, W,
-            cls_logits.device))
+        anchors.append(rpn_mod.level_anchors(stride, sizes, ratios, H, W,
+                                             cls_logits.device))
         logits.append(cls_logits.reshape(B, H * W * A))
         deltas.append(bbox_pred.reshape(B, H * W * A, 4))
     return (torch.cat(anchors, dim=0), torch.cat(logits, dim=1),
@@ -176,7 +179,8 @@ def training_losses(params, batch, draws):
             cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO, cfg.MRCNN.ROI_XFORM_METHOD)
         mh = mask_rcnn_heads.apply_mask_head(
             params["mask_head"],
-            roi_feat.reshape((B * fg_cap,) + roi_feat.shape[2:]))
+            roi_feat.reshape((B * fg_cap,) + roi_feat.shape[2:]),
+            shared_res5_params=mask_rcnn_heads.shared_res5(params))
         mlogits = mask_rcnn_heads.apply_mask_outputs(params["mask_outs"], mh)
         res = cfg.MRCNN.RESOLUTION
         mtgt, mw = T.mask_targets(mask_rois, sampled["fg"][:, :fg_cap],

@@ -43,6 +43,12 @@ def _acc_dtype(dtype):
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+# The plain versions gather each RoI's whole window: they take RoIs in
+# chunks whose gathered windows stay within this many bytes (a whole-map
+# window of the C4 models' res4 is 17.9 MB a RoI in float32).
+PLAIN_CHUNK_BYTES = 1 << 30
+
+
 def roi_window_pool_plain(canvas, starts, vy, vx, rows=None):
     """Plain PyTorch version. canvas (B, Hc, Wc, C); starts (N, 3) int32
     [img, y0, x0]; vy (N, P, WY), vx (N, P, WX) in the canvas dtype.
@@ -53,15 +59,18 @@ def roi_window_pool_plain(canvas, starts, vy, vx, rows=None):
     C = canvas.shape[-1]
     lo, hi = (0, N) if rows is None else rows
     out = torch.empty((N, P, P, C), dtype=canvas.dtype, device=canvas.device)
-    s = starts[lo:hi].long()
     dev = canvas.device
-    ys = s[:, 1:2] + torch.arange(WY, device=dev)
-    xs = s[:, 2:3] + torch.arange(WX, device=dev)
-    win = canvas[s[:, 0, None, None], ys[:, :, None], xs[:, None, :]]
     acc = _acc_dtype(canvas.dtype)
-    t1 = torch.einsum("nph,nhwc->npwc", vy[lo:hi].to(acc), win.to(acc))
-    out[lo:hi] = torch.einsum("nqw,npwc->npqc", vx[lo:hi].to(acc),
-                              t1).to(canvas.dtype)
+    chunk = max(1, PLAIN_CHUNK_BYTES // (WY * WX * C * 8))
+    for s0 in range(lo, hi, chunk):
+        e = min(hi, s0 + chunk)
+        s = starts[s0:e].long()
+        ys = s[:, 1:2] + torch.arange(WY, device=dev)
+        xs = s[:, 2:3] + torch.arange(WX, device=dev)
+        win = canvas[s[:, 0, None, None], ys[:, :, None], xs[:, None, :]]
+        t1 = torch.einsum("nph,nhwc->npwc", vy[s0:e].to(acc), win.to(acc))
+        out[s0:e] = torch.einsum("nqw,npwc->npqc", vx[s0:e].to(acc),
+                                 t1).to(canvas.dtype)
     return out
 
 
@@ -129,11 +138,13 @@ def roi_window_accum_plain(canvas_grad, starts, ct, vy, vx, rows=None,
                            chunk=128):
     """Plain PyTorch version of K4, in place: per RoI, the window gradient
     einsum("ph,pqc,qw->hwc") scattered into canvas_grad with index_put_
-    (accumulate=True), `chunk` rows at a time. Cells past the canvas edge
-    are dropped. Returns canvas_grad."""
+    (accumulate=True), `chunk` rows at a time (fewer where their windows
+    pass PLAIN_CHUNK_BYTES). Cells past the canvas edge are dropped.
+    Returns canvas_grad."""
     B, Hc, Wc, C = canvas_grad.shape
     N, P, WY = vy.shape
     WX = vx.shape[2]
+    chunk = max(1, min(chunk, PLAIN_CHUNK_BYTES // (WY * WX * C * 8)))
     lo, hi = (0, N) if rows is None else rows
     dev = canvas_grad.device
     dy = torch.arange(WY, device=dev)

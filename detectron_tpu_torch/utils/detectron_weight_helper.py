@@ -76,12 +76,14 @@ def body_weight_mapping(depth, num_stages):
     return m
 
 
-def res5_head_mapping(depth, prefix=("box_head",)):
-    """C4 RoI head (res5) blobs (shared names with the backbone res5)."""
+def res5_head_mapping(depth, prefix=("box_head",), blob="res5"):
+    """A C4 RoI head's res5 blobs, named blob_{block}_...: "res5" for the
+    box head (the backbone res5's names), "_[mask]_res5" for the v0up mask
+    head's own res5 (Detectron's add_ResNet_roi_conv5_head_for_masks)."""
     m = {}
     counts = BLOCK_COUNTS[depth]
     for b in range(counts[3]):
-        base = "res5_{}_".format(b)
+        base = "{}_{}_".format(blob, b)
         for br in ("branch2a", "branch2b", "branch2c"):
             m[base + br + "_w"] = (prefix + ("res5", b, br, "w"), _conv)
             m[base + br + "_bn_s"] = (
@@ -190,7 +192,11 @@ def mask_head_weight_mapping():
                 m["_[mask]_fcn{}_gn_b".format(i + 1)] = (
                     ("mask_head", "gns", i, "b"), _id)
     elif "v0up" in head and not head.endswith("share"):
-        m.update(res5_head_mapping(50, prefix=("mask_head",)))
+        # Detectron names this res5 "_[mask]_res5"; the JAX package's table
+        # maps it from the box head's "res5" names, so that its later
+        # entries take those blobs from the box head.
+        m.update(res5_head_mapping(50, prefix=("mask_head",),
+                                   blob="_[mask]_res5"))
     m["conv5_mask_w"] = (("mask_head", "deconv", "w"), _deconv)
     m["conv5_mask_b"] = (("mask_head", "deconv", "b"), _id)
     m["mask_fcn_logits_w"] = (("mask_outs", "mask_fcn_logits", "w"),

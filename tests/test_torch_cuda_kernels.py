@@ -537,3 +537,102 @@ def test_keypoint_detect_graph_matches_cpu(device):
             assert err <= 1e-4 * float(ref.abs().max()), (b, i, err)
             n += 1
     assert n > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C,n", [(52, 84, 1024, 300), (9, 300, 64, 40)])
+def test_single_level_roi_align_on_the_card(device, H, W, C, n, dtype):
+    """ops/roi_align.py's K2 (one window spanning the map: the C4 res4 map
+    of an 832 x 1344 canvas, 52 x 84; on a 300-cell side each RoI's own
+    reach) against the plain version on the same inputs, and its K4
+    backward against the plain backward: forward to 1e-5 relative in
+    float32 and 2 bf16 ulps, gradient within 1e-5 max|ref| + 1e-6 (and an
+    ulp of each value in bfloat16)."""
+    from detectron_tpu_torch.ops import roi_align as ra
+
+    rng = np.random.RandomState(H + W)
+    feat = torch.tensor(rng.randn(2, H, W, C), dtype=dtype, device=device)
+    xy = rng.uniform(-8, 16 * np.array([W, H]) * 0.9, (2, n // 2, 2))
+    wh = rng.lognormal(4.5, 0.8, (2, n // 2, 2)).clip(4, 800)
+    if W > 128:
+        wh = wh.clip(4, 1500)
+    rois = torch.tensor(np.concatenate([xy, xy + wh], -1),
+                        dtype=torch.float32, device=device)
+    ct = torch.tensor(rng.randn(2, n // 2, 14, 14, C), dtype=torch.float32,
+                      device=device)
+    pool, accum = rk.roi_window_pool.launches, rk.roi_window_accum.launches
+    x = feat.clone().requires_grad_(True)
+    got = ra.roi_align_batched(x, rois, 1.0 / 16, 14, 0)
+    g_got, = torch.autograd.grad(got, x, ct.to(dtype))
+    assert rk.roi_window_pool.launches == pool + 1
+    assert rk.roi_window_accum.launches == accum + 1
+    saved = ra.roi_window_pool, ra.roi_window_accum
+    ra.roi_window_pool = rk.roi_window_pool_plain
+    ra.roi_window_accum = rk.roi_window_accum_plain
+    try:
+        x = feat.clone().requires_grad_(True)
+        ref = ra.roi_align_batched(x, rois, 1.0 / 16, 14, 0)
+        g_ref, = torch.autograd.grad(ref, x, ct.to(dtype))
+    finally:
+        ra.roi_window_pool, ra.roi_window_accum = saved
+    got, ref = got.detach().float(), ref.detach().float()
+    top = float(ref.abs().max())
+    if dtype == torch.float32:
+        assert float((got - ref).abs().max()) <= 1e-5 * top
+    else:
+        assert bool(((got - ref).abs() <= ref.abs() / 64 + 1e-3 * top).all())
+    # The map gradient sums in float32 in both, then takes the feature
+    # dtype: in bfloat16 an ulp of the value on top.
+    g_got, g_ref = g_got.float(), g_ref.float()
+    ulp = 0.0 if dtype == torch.float32 else 1.0 / 128
+    assert bool(((g_got - g_ref).abs() <= ulp * g_ref.abs() + 1e-5 * float(
+        g_ref.abs().max()) + 1e-6).all())
+
+
+@pytest.mark.parametrize("mask_on", [False, True])
+def test_c4_detect_graph_matches_cpu(device, mask_on):
+    """Faster / Mask R-CNN R-50-C4 detect_graph on the card (K1, K2 with
+    whole-map windows) against the CPU's plain path in float32, at tiny
+    sizes: the same detections (IoU > 0.99, scores within 1e-4) and their
+    masks within 1e-4."""
+    from detectron_tpu_torch.core import config
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core.configs_presets import mask_rcnn_r50_c4_keys
+    from detectron_tpu_torch.models import bridge, init
+    from detectron_tpu_torch.utils.synthetic import calibrate_detector_params
+
+    config.reset_cfg()
+    config.merge_cfg_from_list(mask_rcnn_r50_c4_keys(mask_on) + [
+        "TEST.RPN_PRE_NMS_TOP_N", "256", "TEST.RPN_POST_NMS_TOP_N", "64",
+        "TEST.DETECTIONS_PER_IM", "20"])
+    config.assert_and_infer_cfg(make_immutable=False)
+    tree = calibrate_detector_params(init.init_model(0),
+                                     np.random.RandomState(0))
+    tree["box_outs"]["cls_score"]["b"][1:] += 5.0
+    rng = np.random.RandomState(1)
+    images = torch.from_numpy(rng.randn(2, 256, 320, 3).astype(np.float32)
+                              * 0.3)
+    im_info = torch.tensor([[250.0, 310.0, 1.0]] * 2)
+    before = rk.roi_window_pool.launches
+    outs = [{k: v.cpu() for k, v in det.detect_graph(
+        bridge.to_torch(tree, dev), images.to(dev), im_info.to(dev)).items()}
+        for dev in ("cpu", device)]
+    assert rk.roi_window_pool.launches > before
+    cpu, gpu = outs
+    assert ("mask_probs" in gpu) == mask_on
+    n = 0
+    for b in range(2):
+        cv, gv = cpu["valid"][b], gpu["valid"][b]
+        assert int(cv.sum()) == int(gv.sum()) > 0
+        for i in range(int(cv.sum())):
+            d = (gpu["boxes"][b][gv] - cpu["boxes"][b][cv][i]).abs().amax(1)
+            j = int(d.argmin())
+            assert float(d[j]) < 1e-2
+            assert abs(float(gpu["scores"][b][gv][j]
+                             - cpu["scores"][b][cv][i])) < 1e-4
+            if mask_on:
+                assert float((gpu["mask_probs"][b][gv][j]
+                              - cpu["mask_probs"][b][cv][i]).abs().max()) \
+                    < 1e-4
+            n += 1
+    assert n > 0

@@ -12,7 +12,7 @@ from __graft_entry__ import _tiny_cfg
 from detectron_tpu.core import config as jax_config
 from detectron_tpu_torch.core import config as port_config
 from detectron_tpu_torch.core.configs_presets import (
-    keypoint_rcnn_r50_fpn_keys, mask_rcnn_r50_fpn)
+    keypoint_rcnn_r50_fpn_keys, mask_rcnn_r50_c4_keys, mask_rcnn_r50_fpn)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -68,6 +68,31 @@ assert TRAIN_KEYS[0] == "MODEL.NUM_CLASSES"
 KPS_TRAIN_KEYS = KPS_KEYS + TRAIN_KEYS[2:]
 
 
+# Mask R-CNN R-50-C4 at the tiny sizes: the mask_rcnn_r50_c4 preset's keys
+# (e2e_mask_rcnn_R-50-C4_1x.yaml), then tests/test_model_forward.py's
+# _tiny_c4_cfg sizes (4 classes, RoIAlign 14 x 14 at the adaptive ratio 0,
+# RPN 64 -> 8 proposals at test) and its v0upshare training step's (16
+# RoIs and 32 anchors per image, RPN 64 -> 8, 4 gt boxes of 28 x 28
+# masks), 2 images a batch, D = 8, and a 32-channel mask deconv.
+C4_TINY_KEYS = [
+    "MODEL.NUM_CLASSES", "4",
+    "MRCNN.DIM_REDUCED", "32",
+    "TEST.RPN_PRE_NMS_TOP_N", "64",
+    "TEST.RPN_POST_NMS_TOP_N", "8",
+    "TEST.DETECTIONS_PER_IM", "8",
+    "TPU.NMS_TILE_SIZE", "32",
+    "TRAIN.IMS_PER_BATCH", "2",
+    "TRAIN.BATCH_SIZE_PER_IM", "16",
+    "TRAIN.RPN_PRE_NMS_TOP_N", "64",
+    "TRAIN.RPN_POST_NMS_TOP_N", "8",
+    "TRAIN.RPN_BATCH_SIZE_PER_IM", "32",
+    "TPU.MAX_GT_BOXES", "4",
+    "TPU.GT_MASK_SIZE", "28",
+]
+C4_KEYS = mask_rcnn_r50_c4_keys() + C4_TINY_KEYS
+FASTER_C4_KEYS = mask_rcnn_r50_c4_keys(mask_on=False) + C4_TINY_KEYS
+
+
 def _same(a, b, path=""):
     if isinstance(a, dict):
         assert set(a) == set(b), path
@@ -100,7 +125,8 @@ def set_cfgs(mask_on=True, batch=2, extra=()):
 
 
 @pytest.mark.parametrize("extra", [(), ["TPU.COMPUTE_DTYPE", "bfloat16"],
-                                   TRAIN_KEYS, KPS_KEYS, KPS_TRAIN_KEYS])
+                                   TRAIN_KEYS, KPS_KEYS, KPS_TRAIN_KEYS,
+                                   C4_KEYS, FASTER_C4_KEYS])
 def test_set_cfgs_gives_both_packages_one_cfg(extra):
     set_cfgs(extra=extra)
     assert port_config.cfg.TRAIN.RPN_POST_NMS_TOP_N == \
