@@ -131,7 +131,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      res5 head, the v0upshare mask head with 14 x 14 masks): detect_graph
      at full width in bfloat16, 2 images in the 832 x 1344 canvas,
      MAIN_RUNS batches, with cls_score calibrated so scores spread
-     (calibrate_c4_scores), a torch.profiler batch, and the same batch
+     (calibrate_scores), a torch.profiler batch, and the same batch
      through the plain K1 and K2 on the card (plain_kernels): the same
      detections, as phase 3 matches them.
   12. The C4 engine: run_inference over C4_ENGINE_IMAGES synthetic PPM
@@ -144,26 +144,62 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      NMS_TOP_N 12000 -> 2000, 512 RoIs an image, CLIP_GRADIENTS,
      TRAIN_NET_STEPS steps: loss_mask finite on every step, the
      checkpoint read back.
+  14. Deterministic training (ROADMAP C2): two identical full-width Mask
+     R-CNN R-50-FPN training steps (phase 5's cfg, params, batch and one
+     set of sampling draws) under torch.use_deterministic_algorithms:
+     losses and every gradient leaf bit-equal, K4's deterministic variant
+     (roi_window_accum_det) launched and the atomic K4 not; torch raises
+     for any op of the step without a deterministic implementation. The
+     same two steps with the switch off are printed beside them. Then
+     train_net_step --deterministic at phase 8's sizes for 4 steps, and
+     for 2 steps then --resume to 4: the two checkpoints (params,
+     momentum, step) and the stats of steps 2-3 bit-equal, through K4's
+     deterministic variant only. main() sets
+     CUBLAS_WORKSPACE_CONFIG=:4096:8 (deterministic cuBLAS, read when
+     cuBLAS starts) before any CUDA work, for every phase.
+  15-17. Mask R-CNN X-152-32x8d-FPN-IN5k (configs/baselines/e2e_mask_rcnn_
+     X-152-32x8d-FPN-IN5k_1.44x.yaml: ResNeXt-152 with 32 groups of 8,
+     50 bottlenecks, the stride on the 3x3 convs): phase 11's inference
+     (cls_score calibrated so scores spread: calibrate_scores), the
+     plain-K1-K3 match included; the engine over X152_ENGINE_IMAGES
+     images to COCO box and mask AP; train_net_step from a Detectron .pkl
+     for MODEL_TRAIN_STEPS steps at the yaml's multi-scale TRAIN.SCALES
+     (640-800) and MAX_SIZE 1333 (NUM_GPUS 1: one step a MAX_ITER), with
+     torch.cuda.max_memory_allocated.
+  18. Mask R-CNN R-50-FPN with GroupNorm from scratch (configs/
+     gn_baselines/scratch_e2e_mask_rcnn_R-50-FPN_3x_gn.yaml: GN body with
+     no stage frozen, GN FPN, the Xconv1fc_gn box head, the v1up4convs_gn
+     mask head): phase 11's inference and MODEL_TRAIN_STEPS
+     train_net_step steps, in which every GN param and the stem move.
   Phase 2 also holds K1 at the C4 RPN's one-level lanes (2, 6000) and
   (2, 12000), K2 with the whole res4 map as its window (P = 14, N = 2000
-  and 200, bf16) and K4 at the C4 training shapes (N = 1024 and 256);
-  phase 3 also checks a tiny Keypoint R-CNN detect_graph (heatmaps of
-  matched detections within 1e-4 of max|cpu|) and train_step (loss_kps
-  among the losses), and a tiny Mask R-CNN R-50-C4 detect_graph and
+  and 200, bf16), K4 at the C4 training shapes (N = 1024 and 256), and
+  K4's deterministic variant at every FPN and C4 shape of K4 (two calls
+  bit-equal, K4's tolerance, its time beside the atomic kernel's on the
+  same inputs, and its two kernels' device times by name); phase 3 also checks a tiny Keypoint R-CNN detect_graph
+  (heatmaps of matched detections within 1e-4 of max|cpu|) and
+  train_step (loss_kps among the losses), a tiny Mask R-CNN R-50-C4, a
+  tiny ResNeXt-50 32x8d and a tiny GN Mask R-CNN detect_graph and
   train_step, on the GPU against the CPU, at its tolerances.
-  Phases 4-13 each zero the launch counters just before a path's run and
+  Phases 4-18 each zero the launch counters just before a path's run and
   read them just after; every kernel of the path must have launched (in
-  phases 8, 10 and 13 K1, K2 and K4, in 11 and 12 K1 and K2; K3 is
-  reported).
+  the trainers K1, K2 and K4, in 11-12, 15-16 and 18's inference K1 and
+  K2, in 14 K4's deterministic variant; K3 is reported).
 Prints a {"kernels": [...]} line (each kernel's launches on its own path:
-the inference main path for K1-K3, training for K4, the TPU.FUSED_RES2
-path for K5/K6; launches_by_path has all eleven, "test_net" being phase
-7's run_inference, "train_net" phase 8's train_net_step,
-"keypoint_infer" and "keypoint_test_net" phase 9's detect_graph and
-run_inference, "keypoint_train" phase 10's train_net_step, "c4_infer",
-"c4_test_net" and "c4_train" phases 11-13; K1, K2 and K4 carry their C4
+the inference main path for K1-K3, training for K4, phase 14 for K4's
+deterministic variant, the TPU.FUSED_RES2 path for K5/K6;
+launches_by_path has every path: "test_net" being phase 7's
+run_inference, "train_net" phase 8's train_net_step, "keypoint_infer"
+and "keypoint_test_net" phase 9's detect_graph and run_inference,
+"keypoint_train" phase 10's train_net_step, "c4_infer", "c4_test_net"
+and "c4_train" phases 11-13, "deterministic_train" and
+"deterministic_resume" phase 14's steps and its trainer, "x152_infer",
+"x152_test_net", "x152_train" phases 15-17, "gn_infer" and "gn_train"
+phase 18; K1, K2, K4 and K4's deterministic variant carry their C4
 shapes' measurements under "c4" (and K1's 12000-box lanes under
-"c4_train")), then as the last line
+"c4_train"), the variant its atomic twin's times as atomic_ms /
+atomic_device_ms and its kernels' as roi_reach_kernel_device_ms /
+roi_window_accum_det_kernel_device_ms with their events a call), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No single PyTorch call computes any of K1-K6 (there is no torchvision),
 so every kernel's library_ms is null. --profile-train adds a torch.profiler
@@ -180,6 +216,7 @@ False), so the float32 checks of phases 2 and 3 run in full float32.
 import argparse
 import contextlib
 import json
+import os
 import pickle
 import statistics
 import subprocess
@@ -206,6 +243,23 @@ KPS_ENGINE_IMAGES = 24
 KPS_VAL = "keypoints_coco_2017_val"
 # Phase 12: the C4 engine's synthetic val set (batch ENGINE_BATCH).
 C4_ENGINE_IMAGES = 24
+# Phases 15-18: the repository's X-152 and GN yamls, the X-152 engine's
+# synthetic val set, and train_net_step's steps for both.
+X152_YAML = "configs/baselines/e2e_mask_rcnn_X-152-32x8d-FPN-IN5k_1.44x.yaml"
+GN_YAML = "configs/gn_baselines/scratch_e2e_mask_rcnn_R-50-FPN_3x_gn.yaml"
+X152_ENGINE_IMAGES = 16
+MODEL_TRAIN_STEPS = 4
+# Phase 3's tiny ResNeXt and GN models on the mask_rcnn_r50_fpn preset:
+# ResNeXt-50 with the X-101-32x8d yamls' group plan, and the GN scratch
+# yaml's model (GN body with no stage frozen, GN FPN, the Xconv1fc_gn box
+# head and the v1up4convs_gn mask head).
+RESNEXT_TINY = ["RESNETS.NUM_GROUPS", "32", "RESNETS.WIDTH_PER_GROUP", "8",
+                "RESNETS.STRIDE_1X1", "False"]
+GN_TINY = ["RESNETS.USE_GN", "True", "RESNETS.FREEZE_AT", "0",
+           "FPN.USE_GN", "True",
+           "FAST_RCNN.ROI_BOX_HEAD", "fast_rcnn_heads.roi_Xconv1fc_gn_head",
+           "MRCNN.ROI_MASK_HEAD",
+           "mask_rcnn_heads.mask_rcnn_fcn_head_v1up4convs_gn"]
 # Global-norm gradient clipping of the training main path (the cfg's
 # from-scratch setting, SOLVER.CLIP_GRADIENTS; Detectron's preset has none).
 # From random weights with no trained BN statistics the warm-up step's loss
@@ -234,7 +288,8 @@ RES2_WEIGHTS = RES2_MACS      # one weight per multiply-add of a pixel
 RES2_BIASES = 3 * (64 + 64 + 256)
 # Names of the port's CUDA kernels (csrc/*.cu), as the profiler lists them.
 PORT_KERNELS = ("nms_iou_mask_kernel", "nms_scan", "roi_window_pool_kernel",
-                "roi_window_accum_kernel", "stem_pool", "fused_res2")
+                "roi_window_accum_kernel", "roi_window_accum_det_kernel",
+                "roi_reach_kernel", "stem_pool", "fused_res2")
 
 
 def cuda_ms(fn, reps):
@@ -256,36 +311,51 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=10):
-    """Device milliseconds of one fn() call: the time of the kernels it
-    launches, summed from torch.profiler's device events over reps calls
-    after one warm-up call, over reps. Unlike cuda_ms it leaves out the
-    host time of the wrapper between launches, which exceeds a small
-    kernel's own time."""
+def device_kernels(fn, reps=10):
+    """torch.profiler's device events of reps fn() calls, each after a
+    synchronize as cuda_ms times them, recorded after two warm-up calls
+    under the profiler (without them it missed some calls' kernels, 8 of
+    10 for K4's deterministic variant): {event name: (device ms a call,
+    events a call)}."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=2, active=reps,
+                                   repeat=1)) as prof:
+        for _ in range(2 + reps):
             fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+            torch.cuda.synchronize()
+            prof.step()
+    return {e.key: (e.self_device_time_total / 1e3 / reps, e.count / reps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
 
 
-def set_cfg(tiny, dtype, extra=(), keypoints=False, c4=False):
+def device_ms(fn, reps=10):
+    """Device milliseconds of one fn() call: the time of the kernels it
+    launches, summed from torch.profiler's device events over reps calls
+    (device_kernels), over reps. Unlike cuda_ms it leaves out the
+    host time of the wrapper between launches, which exceeds a small
+    kernel's own time."""
+    return sum(ms for ms, _ in device_kernels(fn, reps).values())
+
+
+def set_cfg(tiny, dtype, extra=(), keypoints=False, c4=False, yaml=None):
     """The mask_rcnn_r50_fpn preset (keypoint_rcnn_r50_fpn with
-    `keypoints`, mask_rcnn_r50_c4 with `c4`), the compute dtype, with
-    `tiny` phase 3's sizes (and a 2-conv, 64-channel pose head), then
-    `extra`."""
+    `keypoints`, mask_rcnn_r50_c4 with `c4`, the repository's yaml file
+    `yaml`), the compute dtype, with `tiny` phase 3's sizes (and a 2-conv,
+    64-channel pose head), then `extra`."""
     from detectron_tpu_torch.core import config
     from detectron_tpu_torch.core import configs_presets
 
     config.reset_cfg()
-    if keypoints:
+    if yaml:
+        config.merge_cfg_from_file(yaml)
+    elif keypoints:
         configs_presets.keypoint_rcnn_r50_fpn()
     elif c4:
         configs_presets.mask_rcnn_r50_c4()
@@ -471,19 +541,20 @@ def check_kernels(device):
     rng = np.random.RandomState(0)
     entries = {}
 
-    def record(name, shape, err, fn, plain, bnd, primary, tag=None):
+    def record(name, shape, err, fn, plain, bnd, primary, tag=None, **more):
         """Times the kernel's wrapper fn (CUDA events per call, and device
-        time alone) and its plain version, and prints and keeps them: as
-        the kernel's entry at its primary shape, and under entry[tag] (the
-        C4 paths' shapes: "c4")."""
+        time alone) and its plain version, and prints and keeps them (with
+        the fields `more`): as the kernel's entry at its primary shape, and
+        under entry[tag] (the C4 paths' shapes: "c4")."""
         ms, dev, plain_ms = cuda_ms(fn, 20), device_ms(fn), cuda_ms(plain, 3)
         print("check {} {}: max_abs_err={} kernel_ms={:.4f} device_ms={:.4f} "
-              "plain_ms={:.4f} bound_ms={:.4f} ({})".format(
-                  name, shape, err, ms, dev, plain_ms, *bnd))
+              "plain_ms={:.4f} bound_ms={:.4f} ({}){}".format(
+                  name, shape, err, ms, dev, plain_ms, *bnd, "".join(
+                      " {}={:.4f}".format(k, v) for k, v in more.items())))
         e = entries.setdefault(name, {"max_abs_err": 0.0})
         e["max_abs_err"] = max(e["max_abs_err"], float(err))
         fields = dict(shape=shape, ms=ms, device_ms=dev, plain_ms=plain_ms,
-                      bound_ms=bnd[0], bound_by=bnd[1])
+                      bound_ms=bnd[0], bound_by=bnd[1], **more)
         if primary:
             e.update(fields)
         if tag:
@@ -591,10 +662,52 @@ def check_kernels(device):
                                                    (starts, vy, vx)), False),
                    (wy, wx) == (64, 48))
 
+    def det_accum_check(shape, zero, starts, ct, vy, vx, rows, bnd, primary,
+                        tag=None):
+        """K4's deterministic variant on K4's inputs: two calls bit-equal,
+        within K4's tolerance of the plain version; timed beside the atomic
+        kernel on the same inputs."""
+        rk = roi_align_kernel
+        args = (starts, ct, vy, vx, rows)
+        runs = [rk.roi_window_accum_det(zero.clone(), *args)
+                for _ in range(2)]
+        ref = rk.roi_window_accum_plain(zero.clone(), *args)
+        torch.cuda.synchronize()
+        err = float((runs[0] - ref).abs().max())
+        tol = 1e-5 * float(ref.abs().max()) + 1e-6
+        if not torch.equal(runs[0], runs[1]) or err > tol or not bool(
+                torch.isfinite(runs[0]).all()):
+            raise AssertionError("K4's deterministic variant at {}: two "
+                                 "calls equal {}, max_abs_err {} (bound {})"
+                                 .format(shape, torch.equal(*runs), err,
+                                         tol))
+        got = runs[0]
+        # The variant's two kernels by name, with their events a call
+        # (1 each when the profiler sees every launch).
+        named = {}
+        for key, (ms, count) in device_kernels(
+                lambda: rk.roi_window_accum_det(got, *args)).items():
+            kernel = next((k for k in ("roi_reach_kernel",
+                                       "roi_window_accum_det_kernel")
+                           if k in key), "other")
+            old = named.get(kernel, (0.0, 0.0))
+            named[kernel] = (old[0] + ms, old[1] + count)
+        record("roi_window_accum_det", shape + ", two calls bit-equal", err,
+               lambda: rk.roi_window_accum_det(got, *args),
+               lambda: rk.roi_window_accum_plain(ref, *args), bnd, primary,
+               tag, atomic_ms=cuda_ms(lambda: rk.roi_window_accum(got, *args),
+                                      20),
+               atomic_device_ms=device_ms(
+                   lambda: rk.roi_window_accum(got, *args)),
+               **{"{}_{}".format(k, f): v[i] for k, v in named.items()
+                  for i, f in enumerate(("device_ms", "events"))})
+
     # K4: the training backward's window accumulate into the f32 gradient
     # canvas: base window at box (P = 7, N = B * 512) and mask (P = 14,
     # N = B * 128) shapes, and the (16, 96) fix-up rung with 12% of a
     # 1024-row capacity active. Atomic adds: within 1e-5 max|ref| + 1e-6.
+    # At each shape K4's deterministic variant too, and at the rung also
+    # rows [300, 423) (its entry: the box shape's).
     for pooled, n, window, rows in ((7, BATCH * 512, None, None),
                                     (14, BATCH * 128, None, None),
                                     (7, 1024, (16, 96), (0, 123))):
@@ -627,9 +740,19 @@ def check_kernels(device):
                window_bound(canvas.shape, 4, *(t[lo:hi] for t in
                                                (starts, vy, vx)), True),
                (pooled, rows) == (7, None))
+        # The variant also at a row range that starts past row 0.
+        for r in (rows, (300, 423)) if rows else (rows,):
+            lo, hi = r or (0, n)
+            det_accum_check(
+                "P={} N={} rows={} window={} canvas={}".format(
+                    pooled, n, (lo, hi), window, tuple(canvas.shape)),
+                zero, starts, ct, vy, vx, r,
+                window_bound(canvas.shape, 4, *(t[lo:hi] for t in
+                                                (starts, vy, vx)), True),
+                (pooled, r) == (7, None))
         del canvas, zero, got, ref
 
-    check_c4_window_kernels(device, pool_check, record)
+    check_c4_window_kernels(device, pool_check, record, det_accum_check)
     check_fused_kernels(device, rng, record)
     return entries
 
@@ -659,13 +782,13 @@ def c4_roi_inputs(rng, n, device, dtype):
     return feat, starts, vy.to(dtype).contiguous(), vx.to(dtype).contiguous()
 
 
-def check_c4_window_kernels(device, pool_check, record):
+def check_c4_window_kernels(device, pool_check, record, det_accum_check):
     """Phase 2, the C4 models' single-level RoIAlign (ops/roi_align.py):
     K2 with one window spanning the (B, 52, 84, 1024) res4 map, P = 14,
     bf16, at the inference box head's N = B * 1000 and mask head's B *
     100; K4, its backward into the f32 map gradient, at the training box
-    (N = B * 512) and mask (B * 128) shapes. Tolerances as the FPN
-    shapes'."""
+    (N = B * 512) and mask (B * 128) shapes, and K4's deterministic variant
+    at both. Tolerances as the FPN shapes'."""
     import torch
 
     from detectron_tpu_torch.ops.cuda import roi_align_kernel as rk
@@ -704,6 +827,9 @@ def check_c4_window_kernels(device, pool_check, record):
                lambda: rk.roi_window_accum_plain(ref, starts, ct, vy, vx),
                window_bound(feat.shape, 4, starts, vy, vx, True), False,
                "c4" if n == BATCH * 512 else None)
+        det_accum_check(shape, zero, starts, ct, vy, vx, None,
+                        window_bound(feat.shape, 4, starts, vy, vx, True),
+                        False, "c4" if n == BATCH * 512 else None)
         del feat, zero, got, ref, ct
 
 
@@ -816,7 +942,7 @@ def check_fused_kernels(device, rng, record):
     bn = params["body"]["res_conv1_bn"]
 
     def unfused():
-        y = L.max_pool(L.relu(resnet._affine(bn, x)), 3, 2, 1)
+        y = L.max_pool(L.relu(resnet._norm(bn, x)), 3, 2, 1)
         for bp in stage:
             y = resnet.apply_bottleneck(bp, y, 1)
         return y
@@ -976,12 +1102,16 @@ def check_ladder_grad(device):
                                  errs, routes))
 
 
-def check_small_input(device, extra=(), keypoints=False, c4=False):
+def check_small_input(device, extra=(), keypoints=False, c4=False,
+                      pixel_scale=0.3, cls_scale=1.0):
     """Phase 3: GPU kernels vs CPU plain versions, tiny float32 config
     (with the cfg keys `extra`; Keypoint R-CNN with `keypoints`, whose
     matched detections' heatmaps must agree within 1e-4 of max|cpu|; Mask
     R-CNN R-50-C4 with `c4`). With TPU.FUSED_RES2 the GPU run must launch
-    K6 (the "auto" mode in float32)."""
+    K6 (the "auto" mode in float32). Images N(0, pixel_scale); cls_score's
+    weights times cls_scale (a ResNeXt or GN body's random-init features
+    stay near unit scale, and its class logits then barely leave their
+    biases)."""
     import torch
 
     from detectron_tpu_torch.core import test as det
@@ -1000,11 +1130,12 @@ def check_small_input(device, extra=(), keypoints=False, c4=False):
         # on these inputs under the calibration's background bias:
         # every foreground bias up by 5.
         tree["box_outs"]["cls_score"]["b"][1:] += 5.0
+    tree["box_outs"]["cls_score"]["w"] *= np.float32(cls_scale)
     rng = np.random.RandomState(1)
     # x0.3, not the main path's x20: random weights without trained BN
-    # statistics grow activations through the body, and larger inputs
+    # statistics grow activations through a ResNet body, and larger inputs
     # saturate every score at 1.0, which would hide a mis-ordering.
-    images = rng.randn(BATCH, 256, 320, 3).astype(np.float32) * 0.3
+    images = rng.randn(BATCH, 256, 320, 3).astype(np.float32) * pixel_scale
     im_info = np.array([[250.0, 310.0, 1.0]] * BATCH, np.float32)
     outs = {}
     k6 = fk.fused_res2.launches
@@ -1112,7 +1243,7 @@ def relu_flips(inputs, ref):
     return n, worst, err
 
 
-def check_small_train(device, keypoints=False, c4=False):
+def check_small_train(device, keypoints=False, c4=False, extra=()):
     """Phase 3, training: one float32 train_step on the GPU (kernels)
     against the same step on the CPU (plain versions), with the same
     params, batch and sampling draws; gradients against the CPU plain path
@@ -1129,14 +1260,16 @@ def check_small_train(device, keypoints=False, c4=False):
     RoIAlign, K4 in its backward), its RPN deltas calibrated: uncalibrated,
     the decode of rail-clipped deltas moves the proposals by ~4e-3 px
     between a float32 and a float64 run, and RoIAlign carries that into
-    every gradient of the heads (~1e-4 of max|g|)."""
+    every gradient of the heads (~1e-4 of max|g|). `extra`: more cfg keys
+    (phase 3's ResNeXt and GN models)."""
     import torch
 
     from detectron_tpu_torch.models import init
     from detectron_tpu_torch.parallel import optimizer as opt
     from detectron_tpu_torch.utils.synthetic import calibrate_detector_params
 
-    set_cfg(tiny=True, dtype="float32", keypoints=keypoints, c4=c4)
+    set_cfg(tiny=True, dtype="float32", keypoints=keypoints, c4=c4,
+            extra=extra)
     H, W = 128, 160
     tree = init.init_model(1)
     if c4:
@@ -1155,7 +1288,8 @@ def check_small_train(device, keypoints=False, c4=False):
         out["cpu f64, signs of " + name] = _small_train_run(
             tree, "cpu", torch.float64, H, W,
             masks=[x > 0 for x in out[name][2]])
-    set_cfg(tiny=True, dtype="float32", keypoints=keypoints, c4=c4)
+    set_cfg(tiny=True, dtype="float32", keypoints=keypoints, c4=c4,
+            extra=extra)
 
     (_, g64, _), _, relu64 = out["cpu f64"]
     cpu_loss = out["cpu f32"][1]
@@ -1177,7 +1311,7 @@ def check_small_train(device, keypoints=False, c4=False):
             grad_f64=worst(g, g64), grad=worst(g, g_ref),
             update=worst(upd, upd_ref))
         r = report[name]
-        print("small-input train check ({}2 x {} x {}), {}: losses {}; max "
+        print("small-input train check ({}{}2 x {} x {}), {}: losses {}; max "
               "relative loss diff vs cpu f32 {:.3e}; ReLU inputs vs cpu f64: "
               "{} sign flips, largest |input| at a flip / its call's max "
               "{:.3e}, worst diff / its call's max {:.3e}; "
@@ -1185,7 +1319,9 @@ def check_small_train(device, keypoints=False, c4=False):
               "with this run's ReLU signs {:.3e} {}; worst update diff / "
               "max update vs the latter {:.3e} {}".format(
                   "Keypoint R-CNN, " if keypoints else
-                  "Mask R-CNN R-50-C4, " if c4 else "", H, W, name, loss,
+                  "Mask R-CNN R-50-C4, " if c4 else "",
+                  "".join("{} {}, ".format(*extra[i:i + 2])
+                          for i in range(0, len(extra), 2)), H, W, name, loss,
                   r["loss"], *r["flips"], *r["grad_f64"],
                   *r["grad"], *r["update"]))
     # With its own ReLU signs a float32 step is within ~1e-5 of float64
@@ -2174,22 +2310,40 @@ def run_keypoint_train_net_path(device, workdir):
 
 
 # ---------------------------------------------------------------------------
-# Phases 11-13: Faster / Mask R-CNN R-50-C4
+# Phases 11-13 (R-50-C4) and 15-18 (X-152, GN): one model's inference,
+# engine and trainer
 # ---------------------------------------------------------------------------
+
+# The models these phases drive: a label for the printed lines, set_cfg's
+# model arguments, and the trainer's extra --set keys and its check.
+C4_MODEL = dict(label="C4", name="Mask R-CNN R-50-C4", cfg=dict(c4=True),
+                train_set=[], engine_images=C4_ENGINE_IMAGES,
+                train_steps=TRAIN_NET_STEPS)
+X152_MODEL = dict(label="X-152", name="Mask R-CNN X-152-32x8d-FPN-IN5k",
+                  cfg=dict(yaml=X152_YAML), train_set=["NUM_GPUS", "1"],
+                  engine_images=X152_ENGINE_IMAGES,
+                  train_steps=MODEL_TRAIN_STEPS)
+GN_MODEL = dict(label="GN", name="Mask R-CNN R-50-FPN GN from scratch",
+                cfg=dict(yaml=GN_YAML), train_set=["NUM_GPUS", "1"],
+                engine_images=0, train_steps=MODEL_TRAIN_STEPS)
+
 
 @contextlib.contextmanager
 def plain_kernels():
-    """K1, K2 and K4 replaced, where the C4 path calls them
-    (ops/nms.py, ops/roi_align.py), by their plain versions, which run on
-    CUDA tensors too: the path's reference run on the card."""
-    from detectron_tpu_torch.ops import nms, roi_align
+    """K1, K2, K3 and K4 replaced, where the paths call them (ops/nms.py,
+    ops/roi_align.py, the ladder in ops/windowed_roi.py), by their plain
+    versions, which run on CUDA tensors too: a path's reference run on the
+    card."""
+    from detectron_tpu_torch.ops import nms, roi_align, windowed_roi
     from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
 
-    swaps = [(nms, "nms_keep_mask", nms_kernel.nms_keep_mask_plain),
-             (roi_align, "roi_window_pool",
-              roi_align_kernel.roi_window_pool_plain),
-             (roi_align, "roi_window_accum",
-              roi_align_kernel.roi_window_accum_plain)]
+    rk = roi_align_kernel
+    swaps = [(nms, "nms_keep_mask", nms_kernel.nms_keep_mask_plain)]
+    for m in (roi_align, windowed_roi):
+        swaps += [(m, "roi_window_pool", rk.roi_window_pool_plain),
+                  (m, "roi_window_accum", rk.roi_window_accum_plain)]
+    swaps.append((windowed_roi, "roi_window_pool_seg",
+                  rk.roi_window_pool_plain))
     saved = [getattr(m, n) for m, n, _ in swaps]
     try:
         for m, n, f in swaps:
@@ -2200,23 +2354,26 @@ def plain_kernels():
             setattr(m, n, f)
 
 
-def calibrate_c4_scores(tree, device, pixel_std=20.0, spread=1.5,
-                        frac=0.25):
+def calibrate_scores(tree, device, pixel_std=20.0, spread=1.5, frac=0.25):
     """Scale cls_score's weights so that the class logits of the main
     inputs' proposals (images N(0, pixel_std)) spread by about `spread`
     (their standard deviation over valid RoIs and classes), then move the
     background bias so that about `frac` of those proposals score some
-    foreground class above the background. Under random weights the res5
-    head's 2048 features grow with the input (the body and head are
-    positively homogeneous: zero biases): on the x20 main inputs the
-    logits spread by hundreds, every proposal scores one class at 1.0 and
-    the detections tie; scaled down, the calibration's background bias
-    leaves none. Updates and returns `tree`."""
+    foreground class above the background. Under random weights a C4
+    model's res5 head features grow with the input (zero biases: the body
+    and head are positively homogeneous), so on the x20 main inputs the
+    logits spread by hundreds and every proposal scores one class at 1.0;
+    an X-152 or GN body's features stay near unit scale, and the logits
+    barely leave their biases. Returns a copy of `tree` whose box_outs are
+    calibrated."""
+    import copy
+
     import torch
 
     from detectron_tpu_torch.models import bridge
     from detectron_tpu_torch.models import model_builder as mb
 
+    tree = dict(tree, box_outs=copy.deepcopy(tree["box_outs"]))
     params = bridge.to_torch(tree, device, torch.bfloat16)
     _, images, im_info = main_inputs(device, params=False)
     images = images * (pixel_std / 20.0)
@@ -2225,6 +2382,7 @@ def calibrate_c4_scores(tree, device, pixel_std=20.0, spread=1.5,
         rois, _, valid = mb.generate_proposals(
             mb.forward_rpn(params, feats), feats, im_info, False)
         f = mb.forward_box_outputs(params, feats, scales, rois)[2]
+    del params, feats
     f = f.float()[valid.reshape(-1)].cpu().numpy().astype(np.float64)
     w, b = (tree["box_outs"]["cls_score"][k] for k in ("w", "b"))
     w *= np.float32(spread / (f @ w.astype(np.float64)).std())
@@ -2234,9 +2392,33 @@ def calibrate_c4_scores(tree, device, pixel_std=20.0, spread=1.5,
     return tree
 
 
-def run_c4_infer_path(device):
-    """Phase 11. Returns K1-K3's launch counts over MAIN_RUNS detect_graph
-    batches of Mask R-CNN R-50-C4."""
+def check_outputs(out, label):
+    """detect_graph's outputs: the expected keys and shapes at BATCH and
+    the cfg's D and mask size, finite."""
+    import torch
+
+    from detectron_tpu_torch.core.config import cfg
+
+    D, M = cfg.TEST.DETECTIONS_PER_IM, cfg.MRCNN.RESOLUTION
+    shapes = {"boxes": (BATCH, D, 4), "scores": (BATCH, D),
+              "classes": (BATCH, D), "valid": (BATCH, D),
+              "mask_probs": (BATCH, D, M, M)}
+    if set(out) != set(shapes):
+        raise AssertionError("{} detect_graph returned {}".format(
+            label, sorted(out)))
+    for k, shape in shapes.items():
+        if tuple(out[k].shape) != shape:
+            raise AssertionError("{} {} has shape {}, expected {}".format(
+                label, k, tuple(out[k].shape), shape))
+        if out[k].is_floating_point() and not bool(
+                torch.isfinite(out[k]).all()):
+            raise AssertionError(label + " " + k + " has non-finite values")
+
+
+def run_model_infer_path(device, model, base):
+    """Phase 11 (C4) or 15 / 18 (X-152, GN): detect_graph of the model at
+    full width, bf16, with cls_score calibrated on the base tree. Returns
+    K1-K3's launch counts over MAIN_RUNS batches."""
     import torch
 
     from detectron_tpu_torch.core import test as det
@@ -2244,12 +2426,15 @@ def run_c4_infer_path(device):
     from detectron_tpu_torch.models import bridge
     from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
 
-    set_cfg(tiny=False, dtype="bfloat16", c4=True)
-    tree = calibrate_c4_scores(make_tree(), device)
-    params = bridge.to_torch(tree, device, torch.bfloat16)
+    label = model["label"]
+    set_cfg(tiny=False, dtype="bfloat16", **model["cfg"])
+    params = bridge.to_torch(calibrate_scores(base, device), device,
+                             torch.bfloat16)
     _, images, im_info = main_inputs(device, params=False)
+    t0 = time.perf_counter()
     det.detect_graph(params, images, im_info)   # warm-up (cuDNN plans)
     torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
     wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
                 "roi_window_pool": roi_align_kernel.roi_window_pool,
                 "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
@@ -2261,40 +2446,30 @@ def run_c4_infer_path(device):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in wrappers.items()}
-
-    D, M = cfg.TEST.DETECTIONS_PER_IM, cfg.MRCNN.RESOLUTION
-    shapes = {"boxes": (BATCH, D, 4), "scores": (BATCH, D),
-              "classes": (BATCH, D), "valid": (BATCH, D),
-              "mask_probs": (BATCH, D, M, M)}
-    if set(out) != set(shapes):
-        raise AssertionError("detect_graph returned {}".format(sorted(out)))
-    for k, shape in shapes.items():
-        if tuple(out[k].shape) != shape:
-            raise AssertionError("{} has shape {}, expected {}".format(
-                k, tuple(out[k].shape), shape))
-        if out[k].is_floating_point() and not bool(
-                torch.isfinite(out[k]).all()):
-            raise AssertionError(k + " has non-finite values")
+    check_outputs(out, label)
     per_image = out["valid"].sum(1).tolist()
-    print("C4 inference path (Mask R-CNN R-50-C4, bf16, {} x {} x {}, RPN "
-          "{} -> {} proposals, res5 head on 14 x 14 RoIAlign, D={}, masks "
-          "{} x {}): {:.3f} img/s over {} batches, valid detections per "
-          "image {}, launches {}".format(
-              BATCH, *CANVAS, cfg.TEST.RPN_PRE_NMS_TOP_N,
-              cfg.TEST.RPN_POST_NMS_TOP_N, D, M, M,
-              BATCH * MAIN_RUNS / dt, MAIN_RUNS, per_image, launches))
+    print("{} inference path ({}, bf16, {} x {} x {}, RPN {} -> {} "
+          "proposals, D={}, masks {} x {}): {:.3f} img/s over {} batches "
+          "(warm-up batch {:.3f} s), valid detections per image {}, "
+          "launches {}".format(
+              label, model["name"], BATCH, *CANVAS,
+              cfg.TEST.RPN_PRE_NMS_TOP_N, cfg.TEST.RPN_POST_NMS_TOP_N,
+              cfg.TEST.DETECTIONS_PER_IM, cfg.MRCNN.RESOLUTION,
+              cfg.MRCNN.RESOLUTION, BATCH * MAIN_RUNS / dt, MAIN_RUNS, warm,
+              per_image, launches))
     if sum(per_image) == 0:
-        raise AssertionError("the C4 path produced no detections")
+        raise AssertionError("the {} path produced no detections".format(
+            label))
     missing = [k for k in ("nms_keep_mask", "roi_window_pool")
                if launches[k] == 0]
     if missing:
-        raise AssertionError("kernels not launched on the C4 inference "
-                             "path: " + ", ".join(missing))
-    profile_call("one C4 inference batch",
+        raise AssertionError("kernels not launched on the {} inference "
+                             "path: {}".format(label, ", ".join(missing)))
+    profile_call("one {} inference batch".format(label),
                  lambda: det.detect_graph(params, images, im_info),
                  n_kernels=15, n_ops=0)
 
-    # The same batch through the plain versions of K1 and K2, on the card.
+    # The same batch through the plain versions of K1-K3, on the card.
     with plain_kernels():
         ref = det.detect_graph(params, images, im_info)
     got = {k: v.float() if v.is_floating_point() else v
@@ -2304,18 +2479,19 @@ def run_c4_infer_path(device):
     frac = match_detections(got, ref)
     n_ref, n_got = int(ref["valid"].sum()), int(got["valid"].sum())
     mask_err = float((got["mask_probs"] - ref["mask_probs"]).abs().max())
-    print("C4 inference against the plain K1 / K2 on the card: valid "
+    print("{} inference against the plain K1-K3 on the card: valid "
           "plain={} kernels={} matched={:.4f}, largest mask probability "
-          "diff {:.3e}".format(n_ref, n_got, frac, mask_err))
+          "diff {:.3e}".format(label, n_ref, n_got, frac, mask_err))
     if n_ref == 0 or frac < 0.95 or abs(n_ref - n_got) > 0.05 * n_ref:
-        raise AssertionError("the C4 path's kernels disagree with their "
-                             "plain versions at full width")
+        raise AssertionError("the {} path's kernels disagree with their "
+                             "plain versions at full width".format(label))
     return launches
 
 
-def run_c4_engine_path(device, workdir):
-    """Phase 12. Returns K1-K3's launch counts over run_inference of Mask
-    R-CNN R-50-C4."""
+def run_model_engine_path(device, workdir, model, base):
+    """Phase 12 (C4) or 16 (X-152): run_inference over the model's
+    synthetic val set, to COCO box and mask AP. Returns K1-K3's launch
+    counts."""
     import types
 
     import torch
@@ -2329,19 +2505,21 @@ def run_c4_engine_path(device, workdir):
     from detectron_tpu_torch.utils import net as net_utils
     from detectron_tpu_torch.utils.logging import setup_logging
 
+    label = model["label"]
     setup_logging(__name__)
     t0 = time.perf_counter()
-    n_ann = make_valset(workdir, C4_ENGINE_IMAGES)
-    set_cfg(tiny=False, dtype="bfloat16", c4=True)
+    n_images = model["engine_images"]
+    n_ann = make_valset(workdir, n_images)
+    set_cfg(tiny=False, dtype="bfloat16", **model["cfg"])
     # The synthetic images are uniform 0-255 noise: 74 about the means.
-    tree = calibrate_c4_scores(make_tree(), device, pixel_std=74.0)
-    set_cfg(tiny=False, dtype="bfloat16", c4=True,
+    tree = calibrate_scores(base, device, pixel_std=74.0)
+    set_cfg(tiny=False, dtype="bfloat16",
             extra=["DATA_DIR", workdir, "TEST.DATASETS",
-                   "('coco_2017_val',)"])
+                   "('coco_2017_val',)"], **model["cfg"])
     ckpt = net_utils.save_ckpt(workdir + "/train", 0, tree)
     args = types.SimpleNamespace(load_ckpt=ckpt, load_detectron=None)
-    print("C4 engine set-up: {} images, {} annotations, checkpoint {}, in "
-          "{:.3f} s".format(C4_ENGINE_IMAGES, n_ann, ckpt,
+    print("{} engine set-up: {} images, {} annotations, checkpoint {}, in "
+          "{:.3f} s".format(label, n_images, n_ann, ckpt,
                             time.perf_counter() - t0))
     wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
                 "roi_window_pool": roi_align_kernel.roi_window_pool,
@@ -2366,20 +2544,21 @@ def run_c4_engine_path(device, workdir):
           for task in ("box", "mask")}
     if not all(np.isfinite(v) for v in ap.values()):
         raise AssertionError("non-finite COCO AP: {}".format(ap))
-    print("C4 engine path (run_inference, Mask R-CNN R-50-C4, bf16, batch "
-          "{}, TEST.SCALE {} / MAX_SIZE {}, masks {} x {}): {} images, {} "
-          "detections, box AP {}, mask AP {} (random weights), {:.3f} s in "
-          "all, launches {}".format(
-              ENGINE_BATCH, cfg.TEST.SCALE, cfg.TEST.MAX_SIZE,
-              cfg.MRCNN.RESOLUTION, cfg.MRCNN.RESOLUTION, len(roidb), n_dets,
-              ap["box"], ap["mask"], wall, launches))
+    print("{} engine path (run_inference, {}, bf16, batch {}, TEST.SCALE {} "
+          "/ MAX_SIZE {}, masks {} x {}): {} images, {} detections, box AP "
+          "{}, mask AP {} (random weights), {:.3f} s in all, launches {}"
+          .format(label, model["name"], ENGINE_BATCH, cfg.TEST.SCALE,
+                  cfg.TEST.MAX_SIZE, cfg.MRCNN.RESOLUTION,
+                  cfg.MRCNN.RESOLUTION, len(roidb), n_dets, ap["box"],
+                  ap["mask"], wall, launches))
     missing = [k for k in ("nms_keep_mask", "roi_window_pool")
                if launches[k] == 0]
     if missing:
-        raise AssertionError("kernels not launched on the C4 test_net path: "
-                             + ", ".join(missing))
+        raise AssertionError("kernels not launched on the {} test_net path: "
+                             "{}".format(label, ", ".join(missing)))
     if n_dets == 0:
-        raise AssertionError("the C4 engine produced no detections")
+        raise AssertionError("the {} engine produced no detections".format(
+            label))
 
     # The first batch against detect_graph on the batch the engine
     # prepared: boxes equal, RLE strings identical.
@@ -2403,17 +2582,19 @@ def run_c4_engine_path(device, workdir):
             out, bi, im_info, C, (roidb[idx]["height"], roidb[idx]["width"]))
         diff = _same_image_results(cls_boxes, cls_segms, dets, idx, C)
         if diff:
-            raise AssertionError("C4 engine image {} differs from "
+            raise AssertionError("{} engine image {} differs from "
                                  "detect_graph on its prepared batch: {}"
-                                 .format(idx, diff))
-    print("C4 engine first batch: {} images equal to detect_graph on the "
-          "prepared batch (boxes and RLE strings)".format(len(first)))
+                                 .format(label, idx, diff))
+    print("{} engine first batch: {} images equal to detect_graph on the "
+          "prepared batch (boxes and RLE strings)".format(label, len(first)))
     return launches
 
 
-def run_c4_train_net_path(device, workdir):
-    """Phase 13. Returns K1-K4's launch counts over train_net_step.main of
-    Mask R-CNN R-50-C4."""
+def run_model_train_net_path(device, workdir, model, base):
+    """Phase 13 (C4) or 17 / 18 (X-152, GN): train_net_step.main from a
+    Detectron .pkl of the base tree (read back exactly) on a synthetic
+    training set, at the model's TRAIN.SCALES and MAX_SIZE, for its
+    train_steps steps. Returns K1-K4's launch counts."""
     import torch
 
     from detectron_tpu_torch.core.config import cfg
@@ -2425,40 +2606,43 @@ def run_c4_train_net_path(device, workdir):
     from detectron_tpu_torch.utils import detectron_weight_helper as dwh
     from detectron_tpu_torch.utils import net as net_utils
 
+    label = model["label"]
     t0 = time.perf_counter()
     n_ann = make_valset(workdir, TRAIN_NET_IMAGES, "train2017")
-    set_cfg(tiny=False, dtype="bfloat16", c4=True,
-            extra=["DATA_DIR", workdir, "OUTPUT_DIR", workdir + "/out"])
-    # The calibrated C4 weights as a Detectron .pkl (res5_* under the box
-    # head, conv5_mask), read back exactly.
-    tree = make_tree()
+    set_cfg(tiny=False, dtype="bfloat16",
+            extra=["DATA_DIR", workdir, "OUTPUT_DIR", workdir + "/out"]
+            + model["train_set"], **model["cfg"])
+    # The base tree as a Detectron .pkl, read back exactly.
     pkl = workdir + "/model_final.pkl"
     with open(pkl, "wb") as f:
-        pickle.dump({"blobs": dwh.to_detectron_blobs(tree)}, f,
+        pickle.dump({"blobs": dwh.to_detectron_blobs(base)}, f,
                     pickle.HIGHEST_PROTOCOL)
     loaded = dict(opt.flatten(dwh.load_detectron_weight(init.init_model(1),
                                                          pkl)))
-    ref = dict(opt.flatten(tree))
+    ref = dict(opt.flatten(base))
     diff = [p for p, a in ref.items() if not np.array_equal(loaded[p], a)]
     if set(loaded) != set(ref) or diff:
         raise AssertionError("load_detectron_weight of the written .pkl "
                              "differs from its tree at {}".format(diff[:5]))
-    print("C4 train_net set-up: {} images, {} annotations, Detectron .pkl "
+    del loaded
+    print("{} train_net set-up: {} images, {} annotations, Detectron .pkl "
           "of {} blobs read back exactly, in {:.3f} s".format(
-              TRAIN_NET_IMAGES, n_ann, len(dwh.full_weight_mapping()),
+              label, TRAIN_NET_IMAGES, n_ann, len(dwh.full_weight_mapping()),
               time.perf_counter() - t0))
 
-    # The yaml's schedule is for NUM_GPUS x IMS_PER_BATCH = 8 images a
-    # step; over --bs 2 the linear-scaling rule makes MAX_ITER x 4 steps.
+    # train_net_step's linear-scaling rule takes MAX_ITER x (NUM_GPUS x
+    # IMS_PER_BATCH / --bs) steps.
+    steps = model["train_steps"]
     scale = cfg.NUM_GPUS * cfg.TRAIN.IMS_PER_BATCH // BATCH
-    max_iter = TRAIN_NET_STEPS // scale
-    assert max_iter * scale == TRAIN_NET_STEPS
+    max_iter = steps // scale
+    assert max_iter * scale == steps
     wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
                 "roi_window_pool": roi_align_kernel.roi_window_pool,
                 "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg,
                 "roi_window_accum": roi_align_kernel.roi_window_accum}
     for fn in wrappers.values():
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run = train_net_step.main([
         "--dataset", "coco2017", "--bs", str(BATCH), "--nw", "4",
@@ -2466,15 +2650,15 @@ def run_c4_train_net_path(device, workdir):
         "--disp_interval", "1", "--device", device, "--set",
         "SOLVER.MAX_ITER", str(max_iter),
         "SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS),
-        "TRAIN.USE_FLIPPED", "True"])
+        "TRAIN.USE_FLIPPED", "True"] + model["train_set"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {name: fn.launches for name, fn in wrappers.items()}
 
-    steps = len(run["stats"])
-    if steps != TRAIN_NET_STEPS:
-        raise AssertionError("train_net_step took {} steps, not {}".format(
-            steps, TRAIN_NET_STEPS))
+    if len(run["stats"]) != steps:
+        raise AssertionError("{} train_net_step took {} steps, not {}"
+                             .format(label, len(run["stats"]), steps))
     bad = [s for s in run["stats"] if "loss_mask" not in s
            or not all(np.isfinite(list(s.values())))]
     if bad:
@@ -2487,37 +2671,223 @@ def run_c4_train_net_path(device, workdir):
         raise AssertionError("the checkpoint {} does not read back as the "
                              "model's tree of finite values".format(
                                  run["ckpt"]))
-    moved = sum(not np.array_equal(got[p], a) for p, a in ref.items())
+    moved = {p for p, a in ref.items() if not np.array_equal(got[p], a)}
     step_ms = [t * 1e3 for t in run["step_s"][1:]]
     wait_ms = [t * 1e3 for t in run["loader_wait_s"]]
     median = statistics.median(step_ms)
-    print("C4 train_net path (train_net_step.main, Mask R-CNN R-50-C4, bf16 "
-          "compute / f32 params, --bs {} --nw 4 --load_detectron, "
-          "TRAIN.SCALES {} / MAX_SIZE {}, USE_FLIPPED, CLIP_GRADIENTS {}, "
-          "RPN {} -> {}, {} RoIs/img): {} steps over {} images and their "
-          "flips in {:.3f} s, canvases {}; median step {:.3f} ms after the "
-          "first = {:.3f} img/s; loader wait per step median {:.3f} ms, mean "
-          "{:.3f} ms (first step {:.3f} ms); checkpoint {} read back, {} of "
-          "{} leaves moved; launches {}".format(
-              BATCH, cfg.TRAIN.SCALES, cfg.TRAIN.MAX_SIZE, CLIP_GRADIENTS,
+    print("{} train_net path (train_net_step.main, {}, bf16 compute / f32 "
+          "params, --bs {} --nw 4 --load_detectron, TRAIN.SCALES {} / "
+          "MAX_SIZE {}, USE_FLIPPED, CLIP_GRADIENTS {}, RPN {} -> {}, {} "
+          "RoIs/img, FREEZE_AT {}): {} steps over {} images and their flips "
+          "in {:.3f} s, canvases {}; median step {:.3f} ms after the first "
+          "= {:.3f} img/s; peak memory {:.3f} GiB "
+          "(torch.cuda.max_memory_allocated); loader wait per step median "
+          "{:.3f} ms (first step {:.3f} ms); checkpoint read back, {} of {} "
+          "leaves moved; launches {}".format(
+              label, model["name"], BATCH, cfg.TRAIN.SCALES,
+              cfg.TRAIN.MAX_SIZE, CLIP_GRADIENTS,
               cfg.TRAIN.RPN_PRE_NMS_TOP_N, cfg.TRAIN.RPN_POST_NMS_TOP_N,
-              cfg.TRAIN.BATCH_SIZE_PER_IM, steps, TRAIN_NET_IMAGES, wall,
-              sorted(set(run["canvases"])), median, BATCH / median * 1e3,
-              statistics.median(wait_ms), statistics.mean(wait_ms),
-              wait_ms[0], run["ckpt"], moved, len(got), launches))
-    print("C4 train_net step ms: {}; loader wait ms: {}".format(
-        [round(t, 3) for t in [run["step_s"][0] * 1e3] + step_ms],
+              cfg.TRAIN.BATCH_SIZE_PER_IM, cfg.RESNETS.FREEZE_AT, steps,
+              TRAIN_NET_IMAGES, wall, sorted(set(run["canvases"])), median,
+              BATCH / median * 1e3, peak, statistics.median(wait_ms),
+              wait_ms[0], len(moved), len(got), launches))
+    print("{} train_net step ms: {}; loader wait ms: {}".format(
+        label, [round(t, 3) for t in [run["step_s"][0] * 1e3] + step_ms],
         [round(t, 3) for t in wait_ms]))
     for i, row in enumerate(run["stats"]):
-        print("C4 train_net step {}: {}".format(
-            i, {k: round(v, 4) for k, v in row.items()}))
-    if moved == 0:
+        print("{} train_net step {}: {}".format(
+            label, i, {k: round(v, 4) for k, v in row.items()}))
+    if not moved:
         raise AssertionError("the training steps changed no param")
+    if cfg.RESNETS.USE_GN:
+        # GN params train, and with FREEZE_AT 0 so does the stem.
+        gn = [p for p in ref if opt.param_kind(p) == "gn"]
+        still = [p for p in gn if p not in moved]
+        if cfg.RESNETS.FREEZE_AT != 0 or ("body", "conv1", "w") not in \
+                moved or not gn or still:
+            raise AssertionError("{}: GN params that did not move: {} (of "
+                                 "{}); FREEZE_AT {}".format(
+                                     label, still[:5], len(gn),
+                                     cfg.RESNETS.FREEZE_AT))
+        print("{} train_net: all {} GN params moved, the stem's "
+              "included".format(label, len(gn)))
     missing = [k for k in ("nms_keep_mask", "roi_window_pool",
                            "roi_window_accum") if launches[k] == 0]
     if missing:
-        raise AssertionError("kernels not launched on the C4 train_net "
-                             "path: " + ", ".join(missing))
+        raise AssertionError("kernels not launched on the {} train_net "
+                             "path: {}".format(label, ", ".join(missing)))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: deterministic training steps on the card (K4 without atomics)
+# ---------------------------------------------------------------------------
+
+def run_det_train_check(device):
+    """Phase 14: two identical full-width Mask R-CNN R-50-FPN training
+    steps (phase 5's cfg, params, batch and one set of sampling draws:
+    loss and gradients, no update) under torch.use_deterministic_algorithms
+    give bit-equal losses and gradients, through the deterministic K4
+    (roi_window_accum_det) only; torch raises for any op of the step that
+    has no deterministic implementation on the card. Then the same two
+    steps with the switch off, for comparison (the atomic K4). Returns the
+    kernels' launch counts under the switch."""
+    import torch
+
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import train_graph
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from detectron_tpu_torch.parallel import train_step as ts
+    from detectron_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    rk = roi_align_kernel
+    set_cfg(tiny=False, dtype="bfloat16",
+            extra=["SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS)])
+    params = make_params(device, torch.float32)
+    batch = synthetic_train_batch(BATCH, *CANVAS, device,
+                                  np.random.RandomState(0))
+    draws = train_graph.make_draws(torch.Generator().manual_seed(0), BATCH,
+                                   CANVAS, cfg.TPU.MAX_GT_BOXES, device)
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": rk.roi_window_pool,
+                "roi_window_pool_seg": rk.roi_window_pool_seg,
+                "roi_window_accum": rk.roi_window_accum,
+                "roi_window_accum_det": rk.roi_window_accum_det}
+
+    def two_steps(deterministic):
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            runs, times = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                total, _, grads = ts.loss_and_grads(params, batch, draws)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                runs.append((total, _flat(grads)))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (t0_, g0), (t1_, g1) = runs
+        differ = sum(not torch.equal(a, b) for a, b in zip(g0, g1))
+        return bool(torch.equal(t0_, t1_)), differ, len(g0), times
+
+    two_steps(True)   # warm-up: cuDNN's deterministic plans
+    for fn in wrappers.values():
+        fn.launches = 0
+    same_loss, differ, n, times = two_steps(True)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    off_loss, off_differ, _, off_times = two_steps(False)
+    print("deterministic training (Mask R-CNN R-50-FPN, bf16 / f32 params, "
+          "{} x {} x {}, loss and gradients twice on the same inputs; "
+          "CUBLAS_WORKSPACE_CONFIG {}): under "
+          "torch.use_deterministic_algorithms losses equal {}, {} of {} "
+          "gradient leaves differ, step ms {}, launches {}; with the switch "
+          "off losses equal {}, {} leaves differ, step ms {}".format(
+              BATCH, *CANVAS, os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+              same_loss, differ, n, [round(t, 3) for t in times], launches,
+              off_loss, off_differ, [round(t, 3) for t in off_times]))
+    if not same_loss or differ:
+        raise AssertionError("two training steps under the deterministic "
+                             "switch differ: {} of {} gradient leaves"
+                             .format(differ, n))
+    if launches["roi_window_accum"] or not launches["roi_window_accum_det"]:
+        raise AssertionError("under the switch K4 must run its "
+                             "deterministic variant only: {}".format(
+                                 launches))
+    return launches
+
+
+def run_det_resume_check(device, workdir):
+    """Phase 14, the trainer: train_net_step --deterministic at phase 8's
+    full width (calibrated weights from a Detectron .pkl, TRAIN.SCALES
+    (800,), flips, batch 2) for four steps, and for two steps then
+    --resume to four. The resumed run must end in the uninterrupted run's
+    checkpoint bit for bit (params, momentum and step) with the same
+    stats, through K4's deterministic variant only. Returns the kernels'
+    launch counts over the three runs."""
+    import torch
+
+    from detectron_tpu_torch.models import init
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.tools import train_net_step
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
+    from detectron_tpu_torch.utils import detectron_weight_helper as dwh
+    from detectron_tpu_torch.utils import net as net_utils
+    from detectron_tpu_torch.utils.synthetic import calibrate_detector_params
+
+    rk = roi_align_kernel
+    make_valset(workdir, TRAIN_NET_IMAGES, "train2017")
+    # One image batch a step, as the preset's schedule counts them: no
+    # linear scaling, so MAX_ITER is the number of steps.
+    extra = ["DATA_DIR", workdir, "NUM_GPUS", "1", "TRAIN.IMS_PER_BATCH",
+             str(BATCH)]
+    set_cfg(tiny=False, dtype="bfloat16", extra=extra)
+    tree = calibrate_detector_params(init.init_model(0),
+                                     np.random.RandomState(0))
+    pkl = workdir + "/model_final.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump({"blobs": dwh.to_detectron_blobs(tree)}, f,
+                    pickle.HIGHEST_PROTOCOL)
+    del tree
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": rk.roi_window_pool,
+                "roi_window_pool_seg": rk.roi_window_pool_seg,
+                "roi_window_accum": rk.roi_window_accum,
+                "roi_window_accum_det": rk.roi_window_accum_det}
+    for fn in wrappers.values():
+        fn.launches = 0
+
+    def cli(out, steps, *flags):
+        set_cfg(tiny=False, dtype="bfloat16",
+                extra=extra + ["OUTPUT_DIR", workdir + "/" + out])
+        t0 = time.perf_counter()
+        run = train_net_step.main([
+            "--dataset", "coco2017", "--bs", str(BATCH), "--nw", "4",
+            "--load_detectron", pkl, "--ckpt_num_per_epoch", "1",
+            "--disp_interval", "1", "--device", device, "--deterministic",
+            "--set", "SOLVER.MAX_ITER", str(steps),
+            "SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS),
+            "TRAIN.USE_FLIPPED", "True", "TRAIN.SCALES", "(800,)",
+            "TRAIN.MAX_SIZE", "1333"] + list(flags))
+        torch.cuda.synchronize()
+        if torch.are_deterministic_algorithms_enabled():
+            raise AssertionError("train_net_step --deterministic left the "
+                                 "switch on")
+        return run, time.perf_counter() - t0
+
+    full, t_full = cli("full", 4)
+    half, t_half = cli("half", 2)
+    rest, t_rest = cli("rest", 4, "--load_ckpt", half["ckpt"], "--resume")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    got = net_utils.load_ckpt(rest["ckpt"])
+    ref = net_utils.load_ckpt(full["ckpt"])
+    flat_got, flat_ref = opt.flatten(got[1]), opt.flatten(ref[1])
+    differ = [p for (p, a), (_, b) in zip(flat_got, flat_ref)
+              if a.shape != b.shape or not np.array_equal(a, b)]
+    finite = all(np.isfinite(list(row.values())).all()
+                 for row in full["stats"])
+    print("deterministic resume (train_net_step --deterministic, Mask R-CNN "
+          "R-50-FPN, bf16 / f32 params, --bs {} --load_detectron, "
+          "TRAIN.SCALES (800,) / MAX_SIZE 1333, USE_FLIPPED, CLIP_GRADIENTS "
+          "{}): 4 steps in {:.3f} s; 2 steps in {:.3f} s, then --resume from "
+          "step {} to 4 in {:.3f} s; checkpoints at steps {} / {}, {} of {} "
+          "leaves (params and momentum) differ; stats of steps 2-3 equal "
+          "{}; launches {}".format(
+              BATCH, CLIP_GRADIENTS, t_full, t_half, rest["start_step"],
+              t_rest, got[0], ref[0], len(differ), len(flat_ref),
+              rest["stats"] == full["stats"][2:], launches))
+    if rest["start_step"] != 2 or len(rest["stats"]) != 2 or \
+            got[0] != ref[0] or len(flat_got) != len(flat_ref) or differ \
+            or rest["stats"] != full["stats"][2:] or not finite:
+        raise AssertionError("a --resume'd deterministic run differs from "
+                             "the uninterrupted one: {} leaves ({}), stats "
+                             "{} / {}".format(len(differ), differ[:5],
+                                              rest["stats"],
+                                              full["stats"][2:]))
+    if launches["roi_window_accum"] or not launches["roi_window_accum_det"]:
+        raise AssertionError("under --deterministic K4 must run its "
+                             "deterministic variant only: {}".format(
+                                 launches))
     return launches
 
 
@@ -2539,6 +2909,9 @@ def main():
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # Phase 14 runs under torch.use_deterministic_algorithms, whose matmuls
+    # need a deterministic cuBLAS workspace, read when cuBLAS starts.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     device = "cuda"
 
     smi = subprocess.run(
@@ -2568,23 +2941,47 @@ def main():
     check_small_train(device, keypoints=True)
     check_small_input(device, c4=True)
     check_small_train(device, c4=True)
-    inference = run_main_path(device)
-    training = run_train_path(device, args.profile_train, args.clip_gradients)
-    fused = run_main_path(device, FUSED_RES2)
+    check_small_input(device, RESNEXT_TINY, pixel_scale=20.0, cls_scale=30.0)
+    check_small_train(device, extra=RESNEXT_TINY)
+    check_small_input(device, GN_TINY, pixel_scale=20.0, cls_scale=100.0)
+    check_small_train(device, extra=GN_TINY)
+    paths = {"inference": run_main_path(device),
+             "training": run_train_path(device, args.profile_train,
+                                        args.clip_gradients),
+             "inference_fused_res2": run_main_path(device, FUSED_RES2)}
     compare_fused_inference(device)
     with tempfile.TemporaryDirectory() as workdir:
-        engine = run_engine_path(device, workdir)
+        paths["test_net"] = run_engine_path(device, workdir)
     with tempfile.TemporaryDirectory() as workdir:
-        train_net = run_train_net_path(device, workdir)
+        paths["train_net"] = run_train_net_path(device, workdir)
     with tempfile.TemporaryDirectory() as workdir:
-        kps_infer, kps_engine = run_keypoint_infer_path(device, workdir)
+        paths["keypoint_infer"], paths["keypoint_test_net"] = \
+            run_keypoint_infer_path(device, workdir)
     with tempfile.TemporaryDirectory() as workdir:
-        kps_train = run_keypoint_train_net_path(device, workdir)
-    c4_infer = run_c4_infer_path(device)
-    with tempfile.TemporaryDirectory() as workdir:
-        c4_engine = run_c4_engine_path(device, workdir)
-    with tempfile.TemporaryDirectory() as workdir:
-        c4_train = run_c4_train_net_path(device, workdir)
+        paths["keypoint_train"] = run_keypoint_train_net_path(device,
+                                                              workdir)
+    for model, key, engine in ((C4_MODEL, "c4", True),
+                               (X152_MODEL, "x152", True),
+                               (GN_MODEL, "gn", False)):
+        if key == "x152":
+            paths["deterministic_train"] = run_det_train_check(device)
+            with tempfile.TemporaryDirectory() as workdir:
+                paths["deterministic_resume"] = run_det_resume_check(
+                    device, workdir)
+        t0 = time.perf_counter()
+        set_cfg(tiny=False, dtype="bfloat16", **model["cfg"])
+        base = make_tree()
+        print("{} set-up: init_model and calibrate_detector_params in "
+              "{:.3f} s".format(model["label"], time.perf_counter() - t0))
+        paths[key + "_infer"] = run_model_infer_path(device, model, base)
+        if engine:
+            with tempfile.TemporaryDirectory() as workdir:
+                paths[key + "_test_net"] = run_model_engine_path(
+                    device, workdir, model, base)
+        with tempfile.TemporaryDirectory() as workdir:
+            paths[key + "_train"] = run_model_train_net_path(
+                device, workdir, model, base)
+        del base
 
     meta = {
         "nms_keep_mask": ("detectron_tpu_torch/csrc/nms_keep_mask.cu",
@@ -2597,40 +2994,39 @@ def main():
         "roi_window_accum": (
             "detectron_tpu_torch/csrc/roi_window_accum.cu",
             "detectron_tpu/ops/pallas/roi_align_kernel.py:458"),
+        "roi_window_accum_det": (
+            "detectron_tpu_torch/csrc/roi_window_accum_det.cu",
+            "detectron_tpu/ops/pallas/roi_align_kernel.py:458"),
         "stem_pool": ("detectron_tpu_torch/csrc/stem_pool.cu",
                       "detectron_tpu/ops/pallas/fused_stem_kernel.py:473"),
         "fused_res2": ("detectron_tpu_torch/csrc/fused_res2.cu",
                        "detectron_tpu/ops/pallas/fused_stem_kernel.py:328"),
     }
     # The path each kernel's launches are read from: the main (inference)
-    # path for K1-K3, training for K4, TPU.FUSED_RES2 inference for K5/K6.
+    # path for K1-K3, training for K4, the deterministic training steps
+    # for K4's deterministic variant, TPU.FUSED_RES2 inference for K5/K6.
     path_of = {"nms_keep_mask": "inference", "roi_window_pool": "inference",
                "roi_window_pool_seg": "inference",
                "roi_window_accum": "training",
+               "roi_window_accum_det": "deterministic_train",
                "stem_pool": "inference_fused_res2",
                "fused_res2": "inference_fused_res2"}
     kernels = []
     for name, (src, rep) in meta.items():
         e = entries[name]
-        by_path = {"inference": inference.get(name, 0),
-                   "training": training.get(name, 0),
-                   "inference_fused_res2": fused.get(name, 0),
-                   "test_net": engine.get(name, 0),
-                   "train_net": train_net.get(name, 0),
-                   "keypoint_infer": kps_infer.get(name, 0),
-                   "keypoint_test_net": kps_engine.get(name, 0),
-                   "keypoint_train": kps_train.get(name, 0),
-                   "c4_infer": c4_infer.get(name, 0),
-                   "c4_test_net": c4_engine.get(name, 0),
-                   "c4_train": c4_train.get(name, 0)}
+        by_path = {path: counts.get(name, 0)
+                   for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": by_path[path_of[name]],
             "launches_by_path": by_path,
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-            "device_ms": e["device_ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-            "bound_by": e["bound_by"], "library_ms": None,
-            "shape": e["shape"],
+            "device_ms": e["device_ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+            "library_ms": None, "shape": e["shape"],
+            **{k: v for k, v in e.items() if k.startswith((
+                "atomic_", "roi_reach_kernel_",
+                "roi_window_accum_det_kernel_", "other_"))},
             **{k: dict(v, library_ms=None) for k, v in e.items()
                if k.startswith("c4")}})
     print(json.dumps({"kernels": kernels}))

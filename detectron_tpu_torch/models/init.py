@@ -1,5 +1,7 @@
 """Numpy weight init: the Mask / Faster / Keypoint R-CNN params tree
-(R-50-FPN, and R-50-C4 with its res5 RoI head) without JAX.
+(ResNet-50/101/152 and ResNeXt FPN bodies, R-50-C4 with its res5 RoI
+head, AffineChannel or GroupNorm, the 2-MLP and Xconv1fc(_gn) box heads,
+the v1up4convs(_gn) and v0up mask heads) without JAX.
 
 Same fills as detectron_tpu/models/init.py (Caffe2 fan semantics on HWIO
 conv kernels and (in, out) dense kernels):
@@ -7,7 +9,9 @@ conv kernels and (in, out) dense kernels):
 - XavierFill: uniform(-s, s), s = sqrt(3 / fan_in)
 - MSRAFill:   normal(0, sqrt(2 / fan_out))
 - GaussianFill(std): normal(0, std)
-- AffineChannel: s = 1, b = 0; biases 0
+- AffineChannel and GroupNorm: s = 1, b = 0; biases 0
+- a grouped conv kernel is HWIO (kh, kw, in_c / groups, out_c), its fans
+  taken from that shape, as the JAX package's L.init_conv(groups=...)
 
 init_model(seed) builds the tree with the same keys and shapes as
 detectron_tpu.models.model_builder.init_model, in the JAX layout (HWIO conv
@@ -31,10 +35,14 @@ POSE_HEAD = "keypoint_rcnn_heads.roi_pose_head_v1convX"
 # model ("" selects it, as in the JAX package's model_builder.py:83-84).
 MLP_HEAD = "fast_rcnn_heads.roi_2mlp_head"
 C4_HEAD = "ResNet.ResNet_roi_conv5_head"
+# NUM_STACKED_CONVS 3x3 convs, then fc6: without and with GroupNorm.
+XCONV_HEADS = ("fast_rcnn_heads.roi_Xconv1fc_head",
+               "fast_rcnn_heads.roi_Xconv1fc_gn_head")
 # The mask heads: four 3x3 convs and a deconv on the RoI features, or a
 # deconv on res5 of the RoI features, res5 shared with the C4 box head
 # (v0upshare) or its own (v0up).
 MASK_HEAD_V1UP4CONVS = "mask_rcnn_heads.mask_rcnn_fcn_head_v1up4convs"
+MASK_HEAD_V1UP4CONVS_GN = MASK_HEAD_V1UP4CONVS + "_gn"
 MASK_HEADS_V0UP = ("mask_rcnn_heads.mask_rcnn_fcn_head_v0upshare",
                    "mask_rcnn_heads.mask_rcnn_fcn_head_v0up")
 
@@ -73,8 +81,8 @@ def _fill(rng, shape, weight_init, std=0.01):
 
 
 def init_conv(rng, kh, kw, in_c, out_c, weight_init="MSRAFill", bias=True,
-              std=0.01):
-    p = {"w": _fill(rng, (kh, kw, in_c, out_c), weight_init, std)}
+              std=0.01, groups=1):
+    p = {"w": _fill(rng, (kh, kw, in_c // groups, out_c), weight_init, std)}
     if bias:
         p["b"] = np.zeros((out_c,), np.float32)
     return p
@@ -90,11 +98,14 @@ def init_affine(channels):
             "b": np.zeros((channels,), np.float32)}
 
 
-def _init_bottleneck(rng, in_c, out_c, inner_c, has_shortcut):
+def _init_bottleneck(rng, in_c, out_c, inner_c, has_shortcut, groups):
+    """A bottleneck's params; the `*_bn` norms are AffineChannel or, with
+    RESNETS.USE_GN, GroupNorm (the same s = 1, b = 0)."""
     p = {
         "branch2a": init_conv(rng, 1, 1, in_c, inner_c, bias=False),
         "branch2a_bn": init_affine(inner_c),
-        "branch2b": init_conv(rng, 3, 3, inner_c, inner_c, bias=False),
+        "branch2b": init_conv(rng, 3, 3, inner_c, inner_c, bias=False,
+                              groups=groups),
         "branch2b_bn": init_affine(inner_c),
         "branch2c": init_conv(rng, 1, 1, inner_c, out_c, bias=False),
         "branch2c_bn": init_affine(out_c),
@@ -106,30 +117,37 @@ def _init_bottleneck(rng, in_c, out_c, inner_c, has_shortcut):
 
 
 def init_body(rng, depth, num_stages):
+    """The stem and num_stages stages of a ResNet-{depth} body on the
+    channel plan of resnet.inner_dims (ResNeXt's grouped 3x3 convs)."""
     counts = resnet.BLOCK_COUNTS[depth]
-    inner = [64 * 2 ** i for i in range(4)]
-    outer = [256 * 2 ** i for i in range(4)]
+    inner, outer, groups = resnet.inner_dims()
     p = {"conv1": init_conv(rng, 7, 7, 3, 64, bias=False),
          "res_conv1_bn": init_affine(64)}
     in_c = 64
     for s in range(num_stages):
         p["res{}".format(s + 2)] = [
             _init_bottleneck(rng, in_c if i == 0 else outer[s], outer[s],
-                             inner[s], has_shortcut=(i == 0))
+                             inner[s], (i == 0), groups)
             for i in range(counts[s])]
         in_c = outer[s]
     return p
 
 
 def init_fpn(rng):
+    """Laterals and posthoc convs; with FPN.USE_GN they lose their bias and
+    each gains a GroupNorm, `<conv>_gn` (JAX fpn.py:42-63)."""
     dims = [256, 512, 1024, 2048]
+    use_gn = cfg.FPN.USE_GN
     p = {}
     for i, d in enumerate(dims):
         lvl = i + 2
-        p["fpn_inner_res{}".format(lvl)] = init_conv(
-            rng, 1, 1, d, cfg.FPN.DIM, weight_init="XavierFill")
-        p["fpn_res{}".format(lvl)] = init_conv(
-            rng, 3, 3, cfg.FPN.DIM, cfg.FPN.DIM, weight_init="XavierFill")
+        for name, k, c_in in (("fpn_inner_res{}", 1, d),
+                              ("fpn_res{}", 3, cfg.FPN.DIM)):
+            name = name.format(lvl)
+            p[name] = init_conv(rng, k, k, c_in, cfg.FPN.DIM,
+                                weight_init="XavierFill", bias=not use_gn)
+            if use_gn:
+                p[name + "_gn"] = init_affine(cfg.FPN.DIM)
     return p
 
 
@@ -150,10 +168,12 @@ def init_rpn(rng, dim_in):
 
 def init_res5_head(rng, in_c=1024):
     """res5 of the C4 RoI head (JAX resnet.init_roi_conv5_head,
-    resnet.py:307-310): three bottlenecks, in_c -> 2048, inner 512."""
+    resnet.py:307-310): three bottlenecks, in_c -> 2048, inner 512 x
+    NUM_GROUPS x WIDTH_PER_GROUP / 64."""
     n = resnet.BLOCK_COUNTS[50][3]
-    return [_init_bottleneck(rng, in_c if i == 0 else 2048, 2048, 512,
-                             has_shortcut=(i == 0)) for i in range(n)]
+    inner, outer, groups = resnet.inner_dims()
+    return [_init_bottleneck(rng, in_c if i == 0 else outer[3], outer[3],
+                             inner[3], (i == 0), groups) for i in range(n)]
 
 
 def roi_feat_dim():
@@ -172,11 +192,10 @@ def check_model_supported():
             raise NotImplementedError(
                 _NOT_PORTED + "an FPN on a conv4 body or with a "
                 "single-level RPN")
-        if cfg.FPN.USE_GN or cfg.FPN.EXTRA_CONV_LEVELS or \
-                cfg.FPN.ZERO_INIT_LATERAL:
-            raise NotImplementedError(_NOT_PORTED + "FPN GN / extra conv "
-                                      "levels / zero-init laterals")
-        box_heads = (MLP_HEAD,)
+        if cfg.FPN.EXTRA_CONV_LEVELS or cfg.FPN.ZERO_INIT_LATERAL:
+            raise NotImplementedError(_NOT_PORTED + "FPN extra conv levels "
+                                      "/ zero-init laterals (A7.4)")
+        box_heads = (MLP_HEAD,) + XCONV_HEADS
     else:
         if num_stages != 3:
             raise NotImplementedError(
@@ -185,16 +204,17 @@ def check_model_supported():
         box_heads = ("", C4_HEAD)
     if cfg.FAST_RCNN.ROI_BOX_HEAD not in box_heads:
         raise NotImplementedError(
-            _NOT_PORTED + "box head {!r} on an {} body (the Xconv1fc heads, "
-            "GN, the dotted-name registry)".format(
+            _NOT_PORTED + "box head {!r} on an {} body (the dotted-name "
+            "registry, A7.3)".format(
                 cfg.FAST_RCNN.ROI_BOX_HEAD,
                 "FPN" if cfg.FPN.FPN_ON else "C4"))
     if cfg.MODEL.MASK_ON:
         head = cfg.MRCNN.ROI_MASK_HEAD
-        if head not in (MASK_HEAD_V1UP4CONVS,) + MASK_HEADS_V0UP:
+        if head not in (MASK_HEAD_V1UP4CONVS, MASK_HEAD_V1UP4CONVS_GN) + \
+                MASK_HEADS_V0UP:
             raise NotImplementedError(
-                _NOT_PORTED + "mask head {!r} (v1up, the GN heads, the "
-                "dotted-name registry)".format(head))
+                _NOT_PORTED + "mask head {!r} (v1up, the dotted-name "
+                "registry)".format(head))
         if head == MASK_HEADS_V0UP[0] and cfg.FPN.FPN_ON:
             raise ValueError(head + " shares the res5 of the C4 box head, "
                              "which an FPN model does not have")
@@ -206,9 +226,10 @@ def check_model_supported():
 
 
 def init_model(seed):
-    """The params tree for the current cfg (R-50-FPN or R-50-C4; Mask,
-    Faster or Keypoint R-CNN), from a numpy RandomState(seed). Raises
-    NotImplementedError for any model the port does not run yet."""
+    """The params tree for the current cfg (ResNet / ResNeXt FPN bodies or
+    R-50-C4; Mask, Faster or Keypoint R-CNN), from a numpy
+    RandomState(seed). Raises NotImplementedError for any model the port
+    does not run yet."""
     check_model_supported()
     depth, num_stages = resnet.body_spec(cfg.MODEL.CONV_BODY)
     rng = np.random.RandomState(seed)
@@ -221,9 +242,12 @@ def init_model(seed):
     if cfg.FPN.FPN_ON:
         res = cfg.FAST_RCNN.ROI_XFORM_RESOLUTION
         hidden = cfg.FAST_RCNN.MLP_HEAD_DIM
-        params["box_head"] = {
-            "fc6": init_fc(rng, d * res * res, hidden),
-            "fc7": init_fc(rng, hidden, hidden)}
+        if cfg.FAST_RCNN.ROI_BOX_HEAD in XCONV_HEADS:
+            params["box_head"] = init_xconv1fc_head(rng, d, res, hidden)
+        else:
+            params["box_head"] = {
+                "fc6": init_fc(rng, d * res * res, hidden),
+                "fc7": init_fc(rng, hidden, hidden)}
     else:
         hidden = 2048
         params["box_head"] = {"res5": init_res5_head(rng, d)}
@@ -242,13 +266,11 @@ def init_model(seed):
             if cfg.MRCNN.ROI_MASK_HEAD == MASK_HEADS_V0UP[1]:
                 params["mask_head"]["res5"] = init_res5_head(rng, d)
         else:
-            convs = []
-            for _ in range(4):
-                convs.append(init_conv(rng, 3, 3, d, dim, weight_init=init))
-                d = dim
-            params["mask_head"] = {
-                "convs": convs,
-                "deconv": init_conv(rng, 2, 2, d, dim, weight_init=init)}
+            params["mask_head"] = _init_conv_stack(
+                rng, 4, d, dim, init,
+                cfg.MRCNN.ROI_MASK_HEAD == MASK_HEAD_V1UP4CONVS_GN)
+            params["mask_head"]["deconv"] = init_conv(rng, 2, 2, dim, dim,
+                                                      weight_init=init)
         n_mask = n_cls if cfg.MRCNN.CLS_SPECIFIC_MASK else 1
         params["mask_outs"] = {"mask_fcn_logits": init_conv(
             rng, 1, 1, dim, n_mask, weight_init=init, std=0.001)}
@@ -256,6 +278,34 @@ def init_model(seed):
     if cfg.MODEL.KEYPOINTS_ON:
         params["kps_head"], params["kps_outs"] = init_keypoint_heads(rng)
     return params
+
+
+def _init_conv_stack(rng, n, dim_in, dim, weight_init, use_gn):
+    """n 3x3 convs of `dim` channels ("convs"), without bias and each with a
+    GroupNorm ("gns") under `use_gn`."""
+    p = {"convs": [], "gns": []}
+    for _ in range(n):
+        p["convs"].append(init_conv(rng, 3, 3, dim_in, dim,
+                                    weight_init=weight_init,
+                                    bias=not use_gn))
+        if use_gn:
+            p["gns"].append(init_affine(dim))
+        dim_in = dim
+    if not use_gn:
+        del p["gns"]
+    return p
+
+
+def init_xconv1fc_head(rng, dim_in, res, hidden):
+    """roi_Xconv1fc_head / roi_Xconv1fc_gn_head (JAX fast_rcnn_heads.py:
+    63-80): FAST_RCNN.NUM_STACKED_CONVS MSRAFill 3x3 convs of
+    CONV_HEAD_DIM, then fc6 over their (C, P, P) output to `hidden`."""
+    dim = cfg.FAST_RCNN.CONV_HEAD_DIM
+    p = _init_conv_stack(rng, cfg.FAST_RCNN.NUM_STACKED_CONVS, dim_in, dim,
+                         "MSRAFill",
+                         cfg.FAST_RCNN.ROI_BOX_HEAD == XCONV_HEADS[1])
+    p["fc6"] = init_fc(rng, dim * res * res, hidden)
+    return p
 
 
 def init_keypoint_heads(rng):

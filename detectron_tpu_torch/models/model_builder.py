@@ -2,9 +2,10 @@
 model_builder.py: forward_features :120-139, forward_rpn :142-144,
 generate_proposals :147-235, roi_feature_transform :238-320 on its
 single-level and FPN / pallas / ladder branches, _c4_crop_and_head
-:364-383, forward_box_outputs :386-420), for the R-50-FPN body with a
-multilevel RPN and the 2-MLP box head, the R-50-C4 body with a
-single-level RPN and the res5 RoI head, and the keypoint branch (the JAX
+:364-383, forward_box_outputs :386-420), for FPN bodies (ResNet-50/101/
+152 and ResNeXt, AffineChannel or GroupNorm) with a multilevel RPN and the
+2-MLP or Xconv1fc(_gn) box head, the R-50-C4 body with a single-level RPN
+and the res5 RoI head, and the keypoint branch (the JAX
 package builds it at :105-112 and runs it in core/test.py:254-266 and
 models/train_graph.py:153-170). Every piece serves inference and
 training: both RoIAlign paths (the FPN's window-rung ladder and the C4
@@ -155,7 +156,10 @@ def forward_box_outputs(params, features, scales, rois):
         cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO,
         cfg.FAST_RCNN.ROI_XFORM_METHOD)
     flat = roi_feat.reshape((B * R,) + roi_feat.shape[2:])
-    if cfg.FPN.FPN_ON:
+    if cfg.FPN.FPN_ON and cfg.FAST_RCNN.ROI_BOX_HEAD in init_mod.XCONV_HEADS:
+        feat = fast_rcnn_heads.apply_roi_Xconv1fc_head(params["box_head"],
+                                                       flat)
+    elif cfg.FPN.FPN_ON:
         feat = fast_rcnn_heads.apply_roi_2mlp_head(params["box_head"], flat)
     else:
         feat = resnet.apply_roi_conv5_head(params["box_head"], flat)

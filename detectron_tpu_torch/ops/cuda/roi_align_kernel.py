@@ -23,7 +23,10 @@ active range, in f32 and in place,
 
 over the cells the weights reach only, with overlapping windows summed
 (16-byte vector reductions on the card, so the order of the sum, and its
-last bits, change from run to run).
+last bits, change from run to run). Under torch.use_deterministic_algorithms
+the wrapper launches roi_window_accum_det (csrc/roi_window_accum_det.cu)
+instead: the same function with no atomics, one CTA owning each canvas
+tile and adding the RoIs that reach it in row order, so its bits repeat.
 """
 
 import ctypes
@@ -165,14 +168,8 @@ def roi_window_accum_plain(canvas_grad, starts, ct, vy, vx, rows=None,
     return canvas_grad
 
 
-def roi_window_accum(canvas_grad, starts, ct, vy, vx, rows=None):
-    """K4: accumulate the window gradients of rows [lo, hi) = `rows`
-    (default all) into canvas_grad (B, Hc, Wc, C) float32, in place.
-    starts (N, 3) int32 [img, y0, x0]; ct (N, P, P, C), vy (N, P, WY) and
-    vx (N, P, WX) float32. Returns canvas_grad."""
-    if canvas_grad.device.type == "cpu":
-        return roi_window_accum_plain(canvas_grad, starts, ct, vy, vx, rows)
-    name = "roi_window_accum"
+def _check_accum(name, canvas_grad, starts, ct, vy, vx, rows):
+    """Validate K4's inputs on the card; returns (lo, hi)."""
     if not all(t.is_cuda and t.device == canvas_grad.device
                for t in (starts, ct, vy, vx)):
         raise ValueError(name + ": all inputs must be on one CUDA device "
@@ -183,7 +180,7 @@ def roi_window_accum(canvas_grad, starts, ct, vy, vx, rows=None):
                         "starts int32; got {} {} {} {} {}".format(
                             canvas_grad.dtype, ct.dtype, vy.dtype, vx.dtype,
                             starts.dtype))
-    B, Hc, Wc, C = canvas_grad.shape
+    C = canvas_grad.shape[-1]
     N, P, WY = vy.shape
     WX = vx.shape[2]
     if starts.shape != (N, 3) or vx.shape[:2] != (N, P) or \
@@ -203,18 +200,65 @@ def roi_window_accum(canvas_grad, starts, ct, vy, vx, rows=None):
             lo, hi, N))
     if not all(t.is_contiguous() for t in (canvas_grad, starts, ct, vy, vx)):
         raise ValueError(name + " needs contiguous inputs")
+    return lo, hi
+
+
+def roi_window_accum(canvas_grad, starts, ct, vy, vx, rows=None):
+    """K4: accumulate the window gradients of rows [lo, hi) = `rows`
+    (default all) into canvas_grad (B, Hc, Wc, C) float32, in place.
+    starts (N, 3) int32 [img, y0, x0]; ct (N, P, P, C), vy (N, P, WY) and
+    vx (N, P, WX) float32. Returns canvas_grad. While
+    torch.use_deterministic_algorithms is on, a CUDA call runs
+    roi_window_accum_det instead (no atomics: equal bits from call to
+    call)."""
+    if canvas_grad.device.type == "cpu":
+        return roi_window_accum_plain(canvas_grad, starts, ct, vy, vx, rows)
+    if torch.are_deterministic_algorithms_enabled():
+        return roi_window_accum_det(canvas_grad, starts, ct, vy, vx, rows)
+    name = "roi_window_accum"
+    lo, hi = _check_accum(name, canvas_grad, starts, ct, vy, vx, rows)
+    B, Hc, Wc, C = canvas_grad.shape
+    N, P, WY = vy.shape
     fn = build.load("roi_window_accum.cu", "roi_window_accum_launch",
                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                     + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(canvas_grad.device).cuda_stream
     err = fn(canvas_grad.data_ptr(), starts.data_ptr(), ct.data_ptr(),
-             vy.data_ptr(), vx.data_ptr(), B, Hc, Wc, C, lo, hi, WY, WX, P,
-             stream)
+             vy.data_ptr(), vx.data_ptr(), B, Hc, Wc, C, lo, hi, WY,
+             vx.shape[2], P, stream)
     build.check(err, name)
     roi_window_accum.launches += int(hi > lo)
+    return canvas_grad
+
+
+def roi_window_accum_det(canvas_grad, starts, ct, vy, vx, rows=None):
+    """K4 without atomics (kernel csrc/roi_window_accum_det.cu): the same
+    function and arguments as roi_window_accum, each canvas cell owned by
+    one CTA that adds the RoI rows reaching it in row order, so two calls
+    on the same inputs give the same bits. The wrapper allocates the
+    kernel's (rows, 5) int32 scratch of reach rectangles. CPU tensors take
+    the plain version."""
+    if canvas_grad.device.type == "cpu":
+        return roi_window_accum_plain(canvas_grad, starts, ct, vy, vx, rows)
+    name = "roi_window_accum_det"
+    lo, hi = _check_accum(name, canvas_grad, starts, ct, vy, vx, rows)
+    B, Hc, Wc, C = canvas_grad.shape
+    N, P, WY = vy.shape
+    fn = build.load("roi_window_accum_det.cu", "roi_window_accum_det_launch",
+                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                    + [ctypes.c_void_p])
+    reach = torch.empty((max(hi - lo, 1), 5), dtype=torch.int32,
+                        device=canvas_grad.device)
+    stream = torch.cuda.current_stream(canvas_grad.device).cuda_stream
+    err = fn(canvas_grad.data_ptr(), starts.data_ptr(), reach.data_ptr(),
+             ct.data_ptr(), vy.data_ptr(), vx.data_ptr(), B, Hc, Wc, C, lo,
+             hi, WY, vx.shape[2], P, stream)
+    build.check(err, name)
+    roi_window_accum_det.launches += int(hi > lo)
     return canvas_grad
 
 
 roi_window_pool.launches = 0
 roi_window_pool_seg.launches = 0
 roi_window_accum.launches = 0
+roi_window_accum_det.launches = 0

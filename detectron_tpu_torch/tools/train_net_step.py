@@ -6,10 +6,15 @@ tools/train_net_step.py:28-251).
         [--lr_decay_gamma X] [--load_detectron PKL | --load_ckpt DIR \
         [--resume] [--start_step N]] [--use_tfboard] [--no_save] \
         [--ckpt_num_per_epoch N] [--disp_interval N] [--set KEY VALUE ...] \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--deterministic]
 
 The JAX tool's flags, with its meaning, plus --device (default cuda; cpu
-only where asked for, and cuda raises without a GPU). The pieces:
+only where asked for, and cuda raises without a GPU) and --deterministic:
+the steps run under torch.use_deterministic_algorithms (the RoIAlign
+backward takes K4's atomic-free variant), so that a --resume'd run follows
+an uninterrupted one bit for bit, as the JAX tool's runs do; on the card
+cuBLAS then needs CUBLAS_WORKSPACE_CONFIG=:4096:8 in the environment
+before the process starts (torch raises without it). The pieces:
 
 - the roidb of cfg.TRAIN.DATASETS (data/roidb.py), with
   TRAIN.PROPOSAL_FILES in Fast R-CNN mode (RPN.RPN_ON off);
@@ -79,6 +84,10 @@ def parse_args(argv=None):
     parser.add_argument("--host_rank", type=int, default=None)
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (cuda, or cpu)")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="run the steps under "
+                        "torch.use_deterministic_algorithms (on the card "
+                        "with CUBLAS_WORKSPACE_CONFIG=:4096:8 set)")
     return parser.parse_args(argv)
 
 
@@ -242,6 +251,9 @@ def main(argv=None):
     run = {"output_dir": output_dir, "ckpt": None, "start_step": start_step,
            "stats": [], "step_s": [], "loader_wait_s": [], "canvases": []}
     pending = None
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(was_deterministic or
+                                       args.deterministic)
     try:
         for step in range(start_step, cfg.SOLVER.MAX_ITER):
             t0 = time.perf_counter()
@@ -277,6 +289,7 @@ def main(argv=None):
             save(opt_state["step"])
         raise
     finally:
+        torch.use_deterministic_algorithms(was_deterministic)
         loader.close()
         if tblogger:
             tblogger.close()

@@ -12,6 +12,18 @@ transform into the JAX layout that models/init.init_model builds:
   fc      (out, in) -> (in, out) (transpose)
   bn/gn   s, b copied verbatim
 
+A grouped conv blob (O, I / groups, kh, kw) takes the same transform into
+HWIO (kh, kw, I / groups, O). GroupNorm blobs follow Detectron's ConvGN
+(lib/modeling/detector.py), which names a conv's norm `<conv>_gn_s` /
+`<conv>_gn_b` and gives the conv no bias: the body's `conv1_gn_*`,
+`res{s}_{b}_branch2a_gn_*` and `branch1_gn_*` (the tree keeps its `*_bn`
+keys for them), the FPN's `<lateral or posthoc>_gn_*`, the box head's
+`head_conv{i}_gn_*` and the GN mask head's `_mask_fcn{i}_gn_*`, whose
+convs Detectron names `_mask_fcn{i}` (the AffineChannel head's are
+`_[mask]_fcn{i}`). The JAX package's table names only `*_bn_*` blobs for
+a GN body and maps biases the GN convs do not have, so it cannot load a
+GN model; the port's tables follow Detectron.
+
 The loaded tree is a numpy tree like init_model's; models/bridge.to_torch
 then lays it out for torch (OIHW, the deconv flip undone, fc6's Caffe2
 (C, P, P) rows permuted), so each layout hazard lives in one place. fc6_w
@@ -48,31 +60,37 @@ def _id(x):
     return np.asarray(x)
 
 
+def _norm_blob(conv):
+    """The blob prefix of a body conv's norm: `<conv>_bn` (AffineChannel)
+    or, with RESNETS.USE_GN, `<conv>_gn` (Detectron's ConvGN)."""
+    return conv + ("_gn" if cfg.RESNETS.USE_GN else "_bn")
+
+
+def _stage_mapping(m, blob, n_blocks, prefix):
+    """The blobs blob_{block}_branch* of a stage into prefix + (block,
+    ...)."""
+    for b in range(n_blocks):
+        base = "{}_{}_".format(blob, b)
+        for br in ("branch2a", "branch2b", "branch2c") + (
+                ("branch1",) if b == 0 else ()):
+            m[base + br + "_w"] = (prefix + (b, br, "w"), _conv)
+            for k in ("s", "b"):
+                m["{}_{}".format(_norm_blob(base + br), k)] = (
+                    prefix + (b, br + "_bn", k), _id)
+    return m
+
+
 def body_weight_mapping(depth, num_stages):
     """Backbone blob map: detectron name -> (path tuple, transform)."""
-    m = {
-        "conv1_w": (("body", "conv1", "w"), _conv),
-        "res_conv1_bn_s": (("body", "res_conv1_bn", "s"), _id),
-        "res_conv1_bn_b": (("body", "res_conv1_bn", "b"), _id),
-    }
+    stem = "conv1" if cfg.RESNETS.USE_GN else "res_conv1"
+    m = {"conv1_w": (("body", "conv1", "w"), _conv)}
+    for k in ("s", "b"):
+        m["{}_{}".format(_norm_blob(stem), k)] = (
+            ("body", "res_conv1_bn", k), _id)
     counts = BLOCK_COUNTS[depth]
     for s in range(num_stages):
         stage = "res{}".format(s + 2)
-        for b in range(counts[s]):
-            base = "{}_{}_".format(stage, b)
-            for br in ("branch2a", "branch2b", "branch2c"):
-                m[base + br + "_w"] = (("body", stage, b, br, "w"), _conv)
-                m[base + br + "_bn_s"] = (
-                    ("body", stage, b, br + "_bn", "s"), _id)
-                m[base + br + "_bn_b"] = (
-                    ("body", stage, b, br + "_bn", "b"), _id)
-            if b == 0:
-                m[base + "branch1_w"] = (
-                    ("body", stage, b, "branch1", "w"), _conv)
-                m[base + "branch1_bn_s"] = (
-                    ("body", stage, b, "branch1_bn", "s"), _id)
-                m[base + "branch1_bn_b"] = (
-                    ("body", stage, b, "branch1_bn", "b"), _id)
+        _stage_mapping(m, stage, counts[s], ("body", stage))
     return m
 
 
@@ -80,47 +98,30 @@ def res5_head_mapping(depth, prefix=("box_head",), blob="res5"):
     """A C4 RoI head's res5 blobs, named blob_{block}_...: "res5" for the
     box head (the backbone res5's names), "_[mask]_res5" for the v0up mask
     head's own res5 (Detectron's add_ResNet_roi_conv5_head_for_masks)."""
-    m = {}
-    counts = BLOCK_COUNTS[depth]
-    for b in range(counts[3]):
-        base = "{}_{}_".format(blob, b)
-        for br in ("branch2a", "branch2b", "branch2c"):
-            m[base + br + "_w"] = (prefix + ("res5", b, br, "w"), _conv)
-            m[base + br + "_bn_s"] = (
-                prefix + ("res5", b, br + "_bn", "s"), _id)
-            m[base + br + "_bn_b"] = (
-                prefix + ("res5", b, br + "_bn", "b"), _id)
-        if b == 0:
-            m[base + "branch1_w"] = (prefix + ("res5", b, "branch1", "w"),
-                                     _conv)
-            m[base + "branch1_bn_s"] = (
-                prefix + ("res5", b, "branch1_bn", "s"), _id)
-            m[base + "branch1_bn_b"] = (
-                prefix + ("res5", b, "branch1_bn", "b"), _id)
-    return m
+    return _stage_mapping({}, blob, BLOCK_COUNTS[depth][3],
+                          prefix + ("res5",))
 
 
 def fpn_weight_mapping(depth):
     """FPN lateral/posthoc blobs. Caffe2 names carry the top block index of
     each stage (e.g. fpn_inner_res4_5_sum for R-50, fpn_inner_res4_22_sum
-    for R-101); non-top laterals carry a '_lateral' suffix."""
+    for R-101); non-top laterals carry a '_lateral' suffix. With FPN.USE_GN
+    each conv has no bias and a `<conv>_gn_s` / `_gn_b` pair."""
     counts = BLOCK_COUNTS[depth]
-    top = {2: counts[0] - 1, 3: counts[1] - 1, 4: counts[2] - 1,
-           5: counts[3] - 1}
     m = {}
     for lvl in range(2, 6):
-        suffix = "res{}_{}_sum".format(lvl, top[lvl])
+        suffix = "res{}_{}_sum".format(lvl, counts[lvl - 2] - 1)
         lateral = "fpn_inner_{}".format(suffix)
         if lvl != 5:
             lateral += "_lateral"
-        m[lateral + "_w"] = (("fpn", "fpn_inner_res{}".format(lvl), "w"),
-                             _conv)
-        m[lateral + "_b"] = (("fpn", "fpn_inner_res{}".format(lvl), "b"),
-                             _id)
-        m["fpn_{}_w".format(suffix)] = (
-            ("fpn", "fpn_res{}".format(lvl), "w"), _conv)
-        m["fpn_{}_b".format(suffix)] = (
-            ("fpn", "fpn_res{}".format(lvl), "b"), _id)
+        for blob, key in ((lateral, "fpn_inner_res{}".format(lvl)),
+                          ("fpn_" + suffix, "fpn_res{}".format(lvl))):
+            m[blob + "_w"] = (("fpn", key, "w"), _conv)
+            if cfg.FPN.USE_GN:
+                m[blob + "_gn_s"] = (("fpn", key + "_gn", "s"), _id)
+                m[blob + "_gn_b"] = (("fpn", key + "_gn", "b"), _id)
+            else:
+                m[blob + "_b"] = (("fpn", key, "b"), _id)
     return m
 
 
@@ -161,18 +162,27 @@ def box_head_weight_mapping(is_fpn):
                 "fc7_b": (("box_head", "fc7", "b"), _id),
             })
         elif "Xconv1fc" in head:
-            for i in range(cfg.FAST_RCNN.NUM_STACKED_CONVS):
-                m["head_conv{}_w".format(i + 1)] = (
-                    ("box_head", "convs", i, "w"), _conv)
-                m["head_conv{}_b".format(i + 1)] = (
-                    ("box_head", "convs", i, "b"), _id)
-                if "_gn" in head:
-                    m["head_conv{}_gn_s".format(i + 1)] = (
-                        ("box_head", "gns", i, "s"), _id)
-                    m["head_conv{}_gn_b".format(i + 1)] = (
-                        ("box_head", "gns", i, "b"), _id)
+            _conv_stack_mapping(m, "head_conv", "box_head",
+                                cfg.FAST_RCNN.NUM_STACKED_CONVS,
+                                "_gn" in head)
             m["fc6_w"] = (("box_head", "fc6", "w"), _fc)
             m["fc6_b"] = (("box_head", "fc6", "b"), _id)
+    return m
+
+
+def _conv_stack_mapping(m, blob, head, n, use_gn):
+    """A head's 3x3 convs blob{i}_w (i from 1) into (head, "convs", i - 1),
+    with their biases blob{i}_b, or under `use_gn` their GroupNorms
+    blob{i}_gn_s / _gn_b into (head, "gns", i - 1) (Detectron's ConvGN
+    convs have no bias)."""
+    for i in range(n):
+        name = "{}{}".format(blob, i + 1)
+        m[name + "_w"] = ((head, "convs", i, "w"), _conv)
+        if use_gn:
+            m[name + "_gn_s"] = ((head, "gns", i, "s"), _id)
+            m[name + "_gn_b"] = ((head, "gns", i, "b"), _id)
+        else:
+            m[name + "_b"] = ((head, "convs", i, "b"), _id)
     return m
 
 
@@ -180,17 +190,12 @@ def mask_head_weight_mapping():
     head = cfg.MRCNN.ROI_MASK_HEAD
     m = {}
     if "v1up" in head:
-        n = 4 if "v1up4convs" in head else 2
-        for i in range(n):
-            m["_[mask]_fcn{}_w".format(i + 1)] = (
-                ("mask_head", "convs", i, "w"), _conv)
-            m["_[mask]_fcn{}_b".format(i + 1)] = (
-                ("mask_head", "convs", i, "b"), _id)
-            if "_gn" in head:
-                m["_[mask]_fcn{}_gn_s".format(i + 1)] = (
-                    ("mask_head", "gns", i, "s"), _id)
-                m["_[mask]_fcn{}_gn_b".format(i + 1)] = (
-                    ("mask_head", "gns", i, "b"), _id)
+        # Detectron's mask_rcnn_fcn_head_v1upXconvs_gn names its convs
+        # _mask_fcn{i}; the AffineChannel variant _[mask]_fcn{i}.
+        use_gn = head.endswith("_gn")
+        _conv_stack_mapping(m, "_mask_fcn" if use_gn else "_[mask]_fcn",
+                            "mask_head", 4 if "v1up4convs" in head else 2,
+                            use_gn)
     elif "v0up" in head and not head.endswith("share"):
         # Detectron names this res5 "_[mask]_res5"; the JAX package's table
         # maps it from the box head's "res5" names, so that its later

@@ -9,6 +9,11 @@ Loads the caffe-converted torch .pth checkpoints Detectron uses
 the body params of the numpy params tree (JAX layout: HWIO kernels).
 RESNETS.STRIDE_1X1 needs no re-ordering (the caffe blobs already follow
 the stride-on-1x1 convention); BN folds into the AffineChannel s / b.
+Depths 101 and 152 take their block counts from resnet.BLOCK_COUNTS. A
+grouped (ResNeXt) or GroupNorm body loads from a Detectron-format .pkl
+(X-101-32x8d.pkl, X-152-32x8d-IN5k.pkl, R-50-GN.pkl: the body's blob
+names of detectron_weight_helper, `*_gn_*` under RESNETS.USE_GN); a
+caffe .pth holds BN statistics, so a GN body raises on one.
 
 A C4 model's res5 lives in its RoI heads, not in its conv4 body: the
 ImageNet res5 (res5_* blobs, layer4.* tensors) goes into box_head.res5,
@@ -116,6 +121,10 @@ def load_pretrained_imagenet_weights(params, weights_file=None):
         logger.info("Loaded %d ImageNet blobs from %s", n, weights_file)
         return params
 
+    if cfg.RESNETS.USE_GN:
+        raise ValueError("{}: a caffe .pth holds BatchNorm statistics; a "
+                         "GroupNorm body loads its ImageNet weights from a "
+                         "Detectron .pkl".format(weights_file))
     state_dict = torch.load(weights_file, map_location="cpu",
                             weights_only=False)
     if "state_dict" in state_dict:

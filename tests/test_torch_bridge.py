@@ -135,7 +135,7 @@ def test_calibration_matches_jax(jax_tree):
 
 
 @pytest.mark.parametrize("setting", [
-    ("FAST_RCNN.ROI_BOX_HEAD", "fast_rcnn_heads.roi_Xconv1fc_head"),
+    ("FPN.EXTRA_CONV_LEVELS", "True"),
     ("MRCNN.ROI_MASK_HEAD", "mask_rcnn_heads.mask_rcnn_fcn_head_v1up"),
     ("TPU.S2D_STEM", "True"),
 ])

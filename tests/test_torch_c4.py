@@ -379,7 +379,7 @@ def test_c4_train_step_matches_jax():
      "v1up"),
     (["FAST_RCNN.ROI_BOX_HEAD", "fast_rcnn_heads.roi_Xconv1fc_head"],
      "Xconv1fc"),
-    (["RESNETS.USE_GN", "True"], "USE_GN"),
+    (["RESNETS.RES5_DILATION", "2"], "RES5_DILATION"),
     (["FAST_RCNN.ROI_XFORM_METHOD", "RoIPoolF"], "RoIPoolF"),
 ])
 def test_c4_heads_left_out_raise_naming_a7(setting, what):

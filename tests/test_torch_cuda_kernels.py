@@ -8,11 +8,17 @@ value plus 2 to 4 at the top magnitude) with under 20% of the elements
 differing: the kernel and cuDNN sum in other orders, so a bf16 rounding
 may fall the other way, later convs carry that on, and a residual add
 that cancels keeps its operands' ulps; a systematic rounding fault would
-move about half the elements. Every test skips where no CUDA device is present. On a machine with an NVIDIA GPU (no
+move about half the elements. Under torch.use_deterministic_algorithms,
+K4's deterministic variant (roi_window_accum_det) gives equal bits in two
+calls, and two identical training steps equal gradients. Every test skips
+where no CUDA device is present. On a machine with an NVIDIA GPU (no
 JAX needed, so without the suite's conftest):
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py
 """
+
+import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -25,6 +31,10 @@ from detectron_tpu_torch.ops.cuda import nms_kernel
 from detectron_tpu_torch.ops.cuda import roi_align_kernel as rk
 
 pytestmark = pytest.mark.cuda
+
+# Deterministic cuBLAS (torch.use_deterministic_algorithms raises in a
+# matmul without it); read when cuBLAS starts, so set before any test runs.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -636,3 +646,185 @@ def test_c4_detect_graph_matches_cpu(device, mask_on):
                     < 1e-4
             n += 1
     assert n > 0
+
+
+@contextlib.contextmanager
+def _deterministic():
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _det_inputs(case, device):
+    """K4 inputs: the ladder's sparse weights at the base window (P = 7
+    and 14) and at the (128, 128) rung with P = 16 and an active row range,
+    64 RoIs on one spot, windows past the canvas edges with C = 35 (the
+    scalar path), and whole-map windows of a 52 x 84 map (the C4 box
+    head's K4, 1024 channels)."""
+    if case in ("base7", "base14", "rung128"):
+        P, window, C = {"base7": (7, None, 256), "base14": (14, None, 80),
+                        "rung128": (16, (128, 128), 64)}[case]
+        canvas, starts, vy, vx = _ladder_pool_inputs(P + C, 60, P, window,
+                                                     torch.float32, device,
+                                                     C=C)
+    elif case == "one_spot":
+        canvas, starts, vy, vx = _ladder_pool_inputs(80, 64, 7, None,
+                                                     torch.float32, device,
+                                                     C=80)
+        k = int((vy.ne(0).any(1).sum(1) * vx.ne(0).any(1).sum(1)).argmax())
+        starts[:], vy[:], vx[:] = starts[k].clone(), vy[k].clone(), \
+            vx[k].clone()
+    elif case == "edges":
+        canvas, starts, vy, vx = _pool_inputs(35, 12, 16, 128, 128,
+                                              torch.float32, device, C=35,
+                                              Hc=140, Wc=150)
+        starts[:, 1] = torch.arange(12, device=device) % 4 * 70 // 3
+        starts[:, 2] = torch.arange(12, device=device) // 4 * 108 // 2
+    else:
+        from detectron_tpu_torch.ops import roi_align as ra
+
+        rng = np.random.RandomState(4)
+        canvas = torch.zeros((2, 52, 84, 1024), device=device)
+        xy = rng.uniform(-8, 16 * np.array([84, 52]) * 0.9, (200, 2))
+        wh = rng.lognormal(4.5, 0.8, (200, 2)).clip(4, 800)
+        rois = torch.tensor(np.concatenate([xy, xy + wh], -1),
+                            dtype=torch.float32, device=device)
+        vy, vx = ra.roi_weights(rois, 1.0 / 16, 14, 0, 52, 84)
+        starts = torch.zeros((200, 3), dtype=torch.int32, device=device)
+        starts[:, 0] = torch.arange(200, device=device) % 2
+    P = vy.shape[1]
+    ct = torch.randn((vy.shape[0], P, P, canvas.shape[-1]), device=device,
+                     generator=torch.Generator(device).manual_seed(P))
+    rows = (5, 41) if case == "rung128" else None
+    return canvas, starts, ct, vy.contiguous(), vx.contiguous(), rows
+
+
+@pytest.mark.parametrize("case", ["base7", "base14", "rung128", "one_spot",
+                                  "edges", "c4_map"])
+def test_roi_window_accum_det_repeats_its_bits(device, case):
+    """Under the deterministic switch K4 runs its atomic-free variant: two
+    calls on the same inputs give equal bits, within K4's tolerance (1e-5
+    max|ref| + 1e-6) of the plain version; with the switch off the wrapper
+    launches the atomic kernel again."""
+    canvas, starts, ct, vy, vx, rows = _det_inputs(case, device)
+    base = torch.randn(canvas.shape, device=device,
+                       generator=torch.Generator(device).manual_seed(1))
+    runs = [base.clone(), base.clone()]
+    det = rk.roi_window_accum_det.launches
+    atomic = rk.roi_window_accum.launches
+    with _deterministic():
+        for got in runs:
+            assert rk.roi_window_accum(got, starts, ct, vy, vx, rows) is got
+    assert rk.roi_window_accum_det.launches == det + 2
+    assert rk.roi_window_accum.launches == atomic
+    ref = rk.roi_window_accum_plain(base.clone(), starts, ct, vy, vx, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert bool(torch.isfinite(runs[0]).all())
+    assert float((runs[0] - base).abs().max()) > 0
+    bound = 1e-5 * float(ref.abs().max()) + 1e-6
+    assert float((runs[0] - ref).abs().max()) <= bound
+    rk.roi_window_accum(base.clone(), starts, ct, vy, vx, rows)
+    assert rk.roi_window_accum.launches == atomic + 1
+    assert rk.roi_window_accum_det.launches == det + 2
+
+
+def test_train_step_gradients_repeat_under_the_switch(device):
+    """Two identical Mask R-CNN R-50-FPN training steps (tiny float32
+    configuration, 2 x 128 x 160, the same params, batch and sampling
+    draws) under torch.use_deterministic_algorithms give bit-equal losses
+    and gradients, through the deterministic K4 (the atomic one is not
+    launched); torch raises for any op of the step that has no
+    deterministic implementation on the card."""
+    from detectron_tpu_torch.core import config
+    from detectron_tpu_torch.core.configs_presets import mask_rcnn_r50_fpn
+    from detectron_tpu_torch.models import bridge, init, train_graph
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.parallel import train_step as ts
+    from detectron_tpu_torch.utils.synthetic import (
+        calibrate_detector_params, synthetic_train_batch)
+
+    config.reset_cfg()
+    mask_rcnn_r50_fpn()
+    config.merge_cfg_from_list([
+        "TRAIN.BATCH_SIZE_PER_IM", "64", "TRAIN.RPN_PRE_NMS_TOP_N", "256",
+        "TRAIN.RPN_POST_NMS_TOP_N", "64", "TRAIN.RPN_BATCH_SIZE_PER_IM",
+        "64", "TPU.MAX_GT_BOXES", "8", "TPU.GT_MASK_SIZE", "84"])
+    config.assert_and_infer_cfg(make_immutable=False)
+    params = bridge.to_torch(calibrate_detector_params(
+        init.init_model(1), np.random.RandomState(1)), device)
+    batch = synthetic_train_batch(2, 128, 160, device,
+                                  np.random.RandomState(2), 1.0)
+    batch["images"] = batch["images"] / 20.0
+    draws = train_graph.make_draws(torch.Generator().manual_seed(3), 2,
+                                   (128, 160), 8, device)
+    det = rk.roi_window_accum_det.launches
+    atomic = rk.roi_window_accum.launches
+    with _deterministic():
+        runs = [ts.loss_and_grads(params, batch, draws) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert rk.roi_window_accum_det.launches > det
+    assert rk.roi_window_accum.launches == atomic
+    (t0, parts0, g0), (t1, parts1, g1) = runs
+    assert torch.equal(t0, t1) and bool(torch.isfinite(t0))
+    assert all(torch.equal(parts0[k], parts1[k]) for k in parts0)
+    flat0, flat1 = opt.flatten(g0), opt.flatten(g1)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(flat0, flat1))
+    assert any(float(a.abs().max()) > 0 for _, a in flat0)
+
+
+def test_cli_resume_follows_an_uninterrupted_run_under_the_switch(
+        device, tmp_path):
+    """train_net_step --deterministic on the card (tiny Mask R-CNN R-50-FPN
+    on a synthetic coco_2017_train of 8 images at TRAIN.SCALES 128): two
+    steps, then --resume to four, end in the checkpoint of four
+    uninterrupted steps bit for bit (params, momentum and step) with the
+    same stats, through K4's deterministic variant only; the switch is off
+    again after each run."""
+    from detectron_tpu_torch.core import config
+    from detectron_tpu_torch.core.configs_presets import mask_rcnn_r50_fpn
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.tools import train_net_step
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
+    from detectron_tpu_torch.utils import net as net_utils
+
+    data = str(tmp_path / "data")
+    make_valset(data, 8, "train2017")
+
+    def cli(out, steps, *flags):
+        config.reset_cfg()
+        mask_rcnn_r50_fpn()
+        config.merge_cfg_from_list([
+            "DATA_DIR", data, "OUTPUT_DIR", str(tmp_path / out),
+            "NUM_GPUS", "1", "TRAIN.IMS_PER_BATCH", "2",
+            "SOLVER.MAX_ITER", str(steps), "SOLVER.BASE_LR", "0.0005",
+            "SOLVER.CLIP_GRADIENTS", "10", "TRAIN.SCALES", "(128,)",
+            "TRAIN.MAX_SIZE", "160", "TRAIN.BATCH_SIZE_PER_IM", "64",
+            "TRAIN.RPN_PRE_NMS_TOP_N", "256", "TRAIN.RPN_POST_NMS_TOP_N",
+            "64", "TRAIN.RPN_BATCH_SIZE_PER_IM", "64"])
+        run = train_net_step.main([
+            "--dataset", "coco2017", "--bs", "2", "--nw", "2", "--device",
+            "cuda", "--deterministic", "--ckpt_num_per_epoch", "1",
+            "--disp_interval", "1"] + list(flags))
+        assert not torch.are_deterministic_algorithms_enabled()
+        return run
+
+    det = rk.roi_window_accum_det.launches
+    atomic = rk.roi_window_accum.launches
+    full = cli("full", 4)
+    half = cli("half", 2)
+    rest = cli("rest", 4, "--load_ckpt", half["ckpt"], "--resume")
+    assert rk.roi_window_accum_det.launches > det
+    assert rk.roi_window_accum.launches == atomic
+    assert rest["start_step"] == 2 and len(rest["stats"]) == 2
+    assert all(np.isfinite(list(s.values())).all() for s in full["stats"])
+    assert rest["stats"] == full["stats"][2:]
+    got = net_utils.load_ckpt(rest["ckpt"])
+    ref = net_utils.load_ckpt(full["ckpt"])
+    assert got[0] == ref[0] == 4
+    flat_got, flat_ref = opt.flatten(got[1]), opt.flatten(ref[1])
+    assert [p for p, _ in flat_got] == [p for p, _ in flat_ref]
+    for (path, a), (_, b) in zip(flat_got, flat_ref):
+        np.testing.assert_array_equal(a, b, err_msg=str(path))

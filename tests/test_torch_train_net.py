@@ -215,6 +215,24 @@ def test_cli_resume_equals_an_uninterrupted_run(train_root, tmp_path,
         np.testing.assert_array_equal(a, b, err_msg=str(path))
 
 
+def test_cli_deterministic_flag_holds_the_switch_for_the_steps(
+        train_root, tmp_path, monkeypatch):
+    """--deterministic runs every step under
+    torch.use_deterministic_algorithms and gives the switch back as it
+    found it."""
+    seen = []
+    real = port_ts.train_step
+
+    def spy(*args):
+        seen.append(torch.are_deterministic_algorithms_enabled())
+        return real(*args)
+
+    monkeypatch.setattr(port_ts, "train_step", spy)
+    run = _cli(train_root, tmp_path, 2, "--deterministic", "--no_save")
+    assert seen == [True, True] and len(run["stats"]) == 2
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
 def test_cli_iter_size_is_one_accumulated_step(train_root, tmp_path):
     run = _cli(train_root, tmp_path, 2, "--iter_size", "2", "--no_save")
     # Linear scaling: batch 2 x iter_size 2 against 1 x 2 halves MAX_ITER.

@@ -92,6 +92,41 @@ C4_TINY_KEYS = [
 C4_KEYS = mask_rcnn_r50_c4_keys() + C4_TINY_KEYS
 FASTER_C4_KEYS = mask_rcnn_r50_c4_keys(mask_on=False) + C4_TINY_KEYS
 
+# A tiny ResNeXt Mask R-CNN: the R-50-FPN preset's body with the
+# X-101-32x8d yamls' group plan (32 groups of 8 channels in res2's 3x3
+# convs, inner widths 256 to 2048, the stride on the 3x3 convs).
+RESNEXT_KEYS = [
+    "RESNETS.NUM_GROUPS", "32",
+    "RESNETS.WIDTH_PER_GROUP", "8",
+    "RESNETS.STRIDE_1X1", "False",
+]
+
+# A tiny GroupNorm Mask R-CNN: configs/gn_baselines/scratch_e2e_mask_rcnn_
+# R-50-FPN_3x_gn.yaml's model (GN body with no stage frozen, GN FPN, the
+# Xconv1fc_gn box head, the v1up4convs_gn mask head) with two 64-channel
+# head convs and a 32-wide fc6.
+GN_KEYS = [
+    "RESNETS.USE_GN", "True",
+    "RESNETS.FREEZE_AT", "0",
+    "FPN.USE_GN", "True",
+    "FAST_RCNN.ROI_BOX_HEAD", "fast_rcnn_heads.roi_Xconv1fc_gn_head",
+    "FAST_RCNN.NUM_STACKED_CONVS", "2",
+    "FAST_RCNN.CONV_HEAD_DIM", "64",
+    "FAST_RCNN.MLP_HEAD_DIM", "32",
+    "MRCNN.ROI_MASK_HEAD", "mask_rcnn_heads.mask_rcnn_fcn_head_v1up4convs_gn",
+]
+
+
+def jax_plain_paths():
+    """Point the JAX package's cfg (after set_cfgs) at its plain reference
+    paths, RoIAlign by exact gather (TPU.ROI_IMPL 'gather') and NMS in
+    tiled XLA (TPU.NMS_IMPL 'xla'), instead of its Pallas kernels in
+    interpret mode: the same values (the JAX suite holds the paths equal),
+    traced in about a third of the time on the CPU. The port's own cfg
+    keeps its ladder."""
+    jax_config.cfg.TPU.ROI_IMPL = "gather"
+    jax_config.cfg.TPU.NMS_IMPL = "xla"
+
 
 def _same(a, b, path=""):
     if isinstance(a, dict):
@@ -126,7 +161,8 @@ def set_cfgs(mask_on=True, batch=2, extra=()):
 
 @pytest.mark.parametrize("extra", [(), ["TPU.COMPUTE_DTYPE", "bfloat16"],
                                    TRAIN_KEYS, KPS_KEYS, KPS_TRAIN_KEYS,
-                                   C4_KEYS, FASTER_C4_KEYS])
+                                   C4_KEYS, FASTER_C4_KEYS, RESNEXT_KEYS,
+                                   GN_KEYS])
 def test_set_cfgs_gives_both_packages_one_cfg(extra):
     set_cfgs(extra=extra)
     assert port_config.cfg.TRAIN.RPN_POST_NMS_TOP_N == \
