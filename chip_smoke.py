@@ -171,6 +171,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      no stage frozen, GN FPN, the Xconv1fc_gn box head, the v1up4convs_gn
      mask head): phase 11's inference and MODEL_TRAIN_STEPS
      train_net_step steps, in which every GN param and the stem move.
+  19. Test-time augmentation (core/test_aug.py) of Mask R-CNN R-50-FPN
+     over TTA_IMAGES synthetic images through run_inference (test_net
+     routes TTA to im_detect_all): TEST.BBOX_AUG H_FLIP and TTA_SCALES
+     (400-1200) at MAX_SIZE 2000, each flipped, UNION / UNION, and
+     TEST.MASK_AUG SOFT_AVG over the same scales and flips (18 detect and
+     18 mask passes an image), to COCO box and mask AP; Keypoint R-CNN
+     with TEST.KPS_AUG HM_AVG likewise, to keypoint AP. Prints seconds per
+     image, the canvases visited and K1-K3's launches per image; TTA on
+     with no scale and no flip must give the plain im_detect_all's boxes
+     and RLEs bit for bit. Phase 2 holds K1-K3 against their plain
+     versions on the inputs a full-width pass at the largest TTA canvas
+     (1216 x 2016) gives them.
+  20. The rest of the model cfg surface, each at full width in bf16: one
+     inference batch (after a warm-up batch) and one training step of C4
+     with RoIPoolF (and its RoI transform alone, timed, with its peak
+     memory), C4 with RESNETS.RES5_DILATION 2 (28 x 28 masks), FPN with
+     RoICrop (likewise timed), TPU.S2D_STEM and TPU.S2D_INPUT (each stem
+     held against the plain stem within bf16 rounding), FPN.EXTRA_CONV_
+     LEVELS with ZERO_INIT_LATERAL (RPN_MAX_LEVEL 7), and the v1up mask
+     head with MRCNN.USE_FC_OUTPUT (class-agnostic: VARIANTS says why);
+     each after phase 3's small GPU-against-CPU inference check of its
+     cfg, and RoIPoolF and RoICrop alone on the card against the CPU.
   Phase 2 also holds K1 at the C4 RPN's one-level lanes (2, 6000) and
   (2, 12000), K2 with the whole res4 map as its window (P = 14, N = 2000
   and 200, bf16), K4 at the C4 training shapes (N = 1024 and 256), and
@@ -181,10 +203,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   train_step (loss_kps among the losses), a tiny Mask R-CNN R-50-C4, a
   tiny ResNeXt-50 32x8d and a tiny GN Mask R-CNN detect_graph and
   train_step, on the GPU against the CPU, at its tolerances.
-  Phases 4-18 each zero the launch counters just before a path's run and
+  Phases 4-20 each zero the launch counters just before a path's run and
   read them just after; every kernel of the path must have launched (in
   the trainers K1, K2 and K4, in 11-12, 15-16 and 18's inference K1 and
-  K2, in 14 K4's deterministic variant; K3 is reported).
+  K2, in 14 K4's deterministic variant, in 19 K1 and K2, in 20 K1, and K2
+  and K4 where the variant pools with RoIAlign; K3 is reported).
 Prints a {"kernels": [...]} line (each kernel's launches on its own path:
 the inference main path for K1-K3, training for K4, phase 14 for K4's
 deterministic variant, the TPU.FUSED_RES2 path for K5/K6;
@@ -195,9 +218,12 @@ and "keypoint_test_net" phase 9's detect_graph and run_inference,
 and "c4_train" phases 11-13, "deterministic_train" and
 "deterministic_resume" phase 14's steps and its trainer, "x152_infer",
 "x152_test_net", "x152_train" phases 15-17, "gn_infer" and "gn_train"
-phase 18; K1, K2, K4 and K4's deterministic variant carry their C4
-shapes' measurements under "c4" (and K1's 12000-box lanes under
-"c4_train"), the variant its atomic twin's times as atomic_ms /
+phase 18, "tta_test_net" and "tta_keypoint_test_net" phase 19, and
+"variant_<name>_infer" / "variant_<name>_train" phase 20's; K1, K2, K4
+and K4's deterministic variant carry their C4 shapes' measurements under
+"c4" (and K1's 12000-box lanes under "c4_train"), K1-K3 theirs at the
+TTA canvas under "tta" (and "tta_tail", "tta_mask"), the variant its
+atomic twin's times as atomic_ms /
 atomic_device_ms and its kernels' as roi_reach_kernel_device_ms /
 roi_window_accum_det_kernel_device_ms with their events a call), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -249,6 +275,12 @@ X152_YAML = "configs/baselines/e2e_mask_rcnn_X-152-32x8d-FPN-IN5k_1.44x.yaml"
 GN_YAML = "configs/gn_baselines/scratch_e2e_mask_rcnn_R-50-FPN_3x_gn.yaml"
 X152_ENGINE_IMAGES = 16
 MODEL_TRAIN_STEPS = 4
+# Phase 19: test-time augmentation's scales (Detectron's published
+# multi-scale test settings for its FPN models) at MAX_SIZE 2000, over
+# TTA_IMAGES synthetic images; the largest canvas is 1216 x 2016.
+TTA_SCALES = (400, 500, 600, 700, 900, 1000, 1100, 1200)
+TTA_MAX_SIZE = 2000
+TTA_IMAGES = 4
 # Phase 3's tiny ResNeXt and GN models on the mask_rcnn_r50_fpn preset:
 # ResNeXt-50 with the X-101-32x8d yamls' group plan, and the GN scratch
 # yaml's model (GN body with no stage frozen, GN FPN, the Xconv1fc_gn box
@@ -754,6 +786,7 @@ def check_kernels(device):
 
     check_c4_window_kernels(device, pool_check, record, det_accum_check)
     check_fused_kernels(device, rng, record)
+    check_tta_canvas_kernels(device, pool_check, record)
     return entries
 
 
@@ -1115,8 +1148,10 @@ def check_small_input(device, extra=(), keypoints=False, c4=False,
     import torch
 
     from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core.config import cfg
     from detectron_tpu_torch.models import bridge
     from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
+    from detectron_tpu_torch.utils import blob as blob_utils
 
     set_cfg(tiny=True, dtype="float32", extra=extra, keypoints=keypoints,
             c4=c4)
@@ -1136,6 +1171,8 @@ def check_small_input(device, extra=(), keypoints=False, c4=False,
     # statistics grow activations through a ResNet body, and larger inputs
     # saturate every score at 1.0, which would hide a mis-ordering.
     images = rng.randn(BATCH, 256, 320, 3).astype(np.float32) * pixel_scale
+    if cfg.TPU.S2D_INPUT:
+        images = blob_utils.space_to_depth(images)
     im_info = np.array([[250.0, 310.0, 1.0]] * BATCH, np.float32)
     outs = {}
     k6 = fk.fused_res2.launches
@@ -1337,16 +1374,22 @@ def check_small_train(device, keypoints=False, c4=False, extra=()):
                              "path on the small input: {}".format(bad))
 
 
-def main_inputs(device, params=True):
+def main_inputs(device, params=True, blocked=True):
     """The inference main path's bf16 params (None without `params`) and
-    images (and im_info)."""
+    images (and im_info); with TPU.S2D_INPUT and `blocked`, the images'
+    space_to_depth blocks, as that stem takes them."""
     import torch
+
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import resnet
 
     params = make_params(device, torch.bfloat16) if params else None
     rng = np.random.RandomState(0)
     images = torch.from_numpy(
         rng.randn(BATCH, *CANVAS, 3).astype(np.float32) * 20.0).to(
             device, torch.bfloat16)
+    if cfg.TPU.S2D_INPUT and blocked:
+        images = resnet.space_to_depth(images)
     im_info = torch.tensor([IM_INFO] * BATCH, device=device)
     return params, images, im_info
 
@@ -1612,10 +1655,12 @@ def profile_call(label, fn, n_kernels=20, n_ops=15):
 # Phase 7: the dataset inference engine
 # ---------------------------------------------------------------------------
 
-def _check_engine_results(dets, roidb, num_classes):
+def _check_engine_results(dets, roidb, num_classes, slack=0.0):
     """Every image has a result; each all_boxes[j][i] is a finite (n, 5)
-    array inside its original image, with as many RLEs of the image's size
-    in all_segms[j][i]. Returns the number of detections."""
+    array inside its original image (give or take `slack` pixels: a
+    flipped pass's box flipped back may start up to a pixel before 0),
+    with as many RLEs of the image's size in all_segms[j][i]. Returns the
+    number of detections."""
     n = 0
     for i, entry in enumerate(roidb):
         h, w = entry["height"], entry["width"]
@@ -1628,8 +1673,8 @@ def _check_engine_results(dets, roidb, num_classes):
             if not np.isfinite(b).all():
                 raise AssertionError("image {} class {}: non-finite "
                                      "boxes".format(i, j))
-            if ((b[:, :4] < 0).any() or (b[:, [0, 2]] > w).any()
-                    or (b[:, [1, 3]] > h).any()):
+            if ((b[:, :4] < -slack).any() or (b[:, [0, 2]] > w + slack).any()
+                    or (b[:, [1, 3]] > h + slack).any()):
                 raise AssertionError("image {} class {}: boxes outside the "
                                      "{} x {} image".format(i, j, w, h))
             if len(segms) != len(b) or any(r["size"] != [h, w]
@@ -2720,6 +2765,574 @@ def run_model_train_net_path(device, workdir, model, base):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2, continued: K1-K3 at test-time augmentation's largest canvas
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recorded_kernel_calls(calls):
+    """K1-K3 where the paths call them (the names plain_kernels swaps),
+    each call's arguments (tensors cloned) appended to calls[wrapper name]
+    before it runs."""
+    import torch
+
+    from detectron_tpu_torch.ops import nms, roi_align, windowed_roi
+
+    swaps = [(nms, "nms_keep_mask"), (roi_align, "roi_window_pool"),
+             (windowed_roi, "roi_window_pool"),
+             (windowed_roi, "roi_window_pool_seg")]
+    saved = [getattr(m, n) for m, n in swaps]
+
+    def spy(name, fn):
+        def call(*args):
+            calls.setdefault(name, []).append(tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args))
+            return fn(*args)
+        return call
+
+    try:
+        for (m, n), fn in zip(swaps, saved):
+            setattr(m, n, spy(n, fn))
+        yield
+    finally:
+        for (m, n), fn in zip(swaps, saved):
+            setattr(m, n, fn)
+
+
+def check_tta_canvas_kernels(device, pool_check, record):
+    """Phase 2: K1, K2 and K3 against their plain versions on the inputs
+    full-width passes at TTA's largest canvas give them: detect_graph of
+    the main model (bf16; phase 19's weights, calibrate_scores on its
+    uniform-noise images) on phase 19's synthetic images at
+    max(TTA_SCALES) / TTA_MAX_SIZE, one image a pass, landscape ones (a
+    1216 x 2016 canvas) first, with every K1-K3 call recorded, until a
+    pass has launched K3 (the ladder's fix-up rungs, which only some
+    proposals need; a portrait image's canvas is 2016 x 1216). K1 and K2
+    are checked on the first pass's inputs, K3 on the first pass that
+    launched it. Entries under "tta" (the RPN's K1 call, the box window,
+    the first rung) and "tta_tail" / "tta_mask"."""
+    import torch
+
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core import test_aug
+    from detectron_tpu_torch.data.json_dataset import JsonDataset
+    from detectron_tpu_torch.models import bridge
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
+    from detectron_tpu_torch.utils import image_io
+
+    runs = []      # (canvas, {wrapper name: recorded calls}) per pass
+    with tempfile.TemporaryDirectory() as workdir:
+        make_valset(workdir, TTA_IMAGES)
+        set_cfg(tiny=False, dtype="bfloat16", extra=[
+            "DATA_DIR", workdir, "TEST.DATASETS", "('coco_2017_val',)"])
+        params = bridge.to_torch(calibrate_scores(
+            make_tree(), device, pixel_std=74.0), device, torch.bfloat16)
+        # Landscape images first: their canvas is 1216 x 2016 (portrait
+        # ones take 2016 x 1216).
+        roidb = sorted(JsonDataset("coco_2017_val").get_roidb(gt=True),
+                       key=lambda e: e["width"] < e["height"])
+        for entry in roidb:
+            blob, _, im_info = test_aug.prep_on_device(
+                image_io.imread(entry["image"]), max(TTA_SCALES),
+                TTA_MAX_SIZE, device)
+            calls = {}
+            with recorded_kernel_calls(calls):
+                out = det.detect_graph(params, blob.to(torch.bfloat16),
+                                       im_info)
+            torch.cuda.synchronize()
+            print("TTA canvas {}: image {} at {} x {}, {} valid detections, "
+                  "recorded calls {}".format(
+                      tuple(blob.shape[1:3]), entry["id"],
+                      *im_info[0, :2].tolist(), int(out["valid"].sum()),
+                      {k: len(v) for k, v in calls.items()}))
+            runs.append(("TTA canvas {} x {}".format(*blob.shape[1:3]),
+                         calls if not runs else {
+                             k: v for k, v in calls.items()
+                             if k == "roi_window_pool_seg"}))
+            if calls.get("roi_window_pool_seg"):
+                break
+    set_cfg(tiny=False, dtype="bfloat16")
+    del params, out
+    # K1 and K2 from the first (landscape) pass, K3 from the first pass
+    # that launched it.
+    where, calls = runs[0]
+    seg = next(((w, c["roi_window_pool_seg"]) for w, c in runs
+                if c.get("roi_window_pool_seg")), (None, ()))
+    for i, (boxes, valid, thr) in enumerate(calls.get("nms_keep_mask", ())):
+        got = nms_kernel.nms_keep_mask(boxes, valid, thr)
+        ref = nms_kernel.nms_keep_mask_plain(boxes, valid, thr)
+        torch.cuda.synchronize()
+        err = int((got != ref).sum())
+        L, N = valid.shape
+        shape = "{}: L={} N={} ({})".format(
+            where, L, N, "the RPN's levels stacked" if i == 0 else
+            "the per-class tail")
+        if err:
+            raise AssertionError("K1 nms_keep_mask disagrees with its plain "
+                                 "version at {}: {} keep bits".format(
+                                     shape, err))
+        record("nms_keep_mask", shape, err,
+               lambda: nms_kernel.nms_keep_mask(boxes, valid, thr),
+               lambda: nms_kernel.nms_keep_mask_plain(boxes, valid, thr),
+               nms_bound(boxes, valid, ref), False,
+               ("tta", "tta_tail")[i] if i < 2 else None)
+    for i, args in enumerate(calls.get("roi_window_pool", ())):
+        n, P = args[2].shape[:2]
+        pool_check("roi_window_pool", roi_align_kernel.roi_window_pool,
+                   roi_align_kernel.roi_window_pool_plain, args, (0, n),
+                   "{}: P={} N={} canvas={}".format(where, P, n,
+                                                    tuple(args[0].shape)),
+                   window_bound(args[0].shape, 2, *args[1:], False), False,
+                   ("tta", "tta_mask")[i] if i < 2 else None)
+    for i, args in enumerate(seg[1]):
+        rows = args[4]
+        lo, hi = rows
+        pool_check("roi_window_pool_seg",
+                   lambda *a: roi_align_kernel.roi_window_pool_seg(*a, rows),
+                   lambda *a: roi_align_kernel.roi_window_pool_plain(
+                       *a, rows=rows), args[:4], rows,
+                   "{}: P={} rows={} window=({}, {})".format(
+                       seg[0], args[2].shape[1], rows, args[2].shape[2],
+                       args[3].shape[2]),
+                   window_bound(args[0].shape, 2, *(t[lo:hi] for t in
+                                                    args[1:4]), False),
+                   False, "tta" if i == 0 else None)
+    if not calls.get("nms_keep_mask") or not calls.get("roi_window_pool"):
+        raise AssertionError("the pass at the TTA canvas launched no K1 or "
+                             "no K2: {}".format(sorted(calls)))
+    if not seg[1]:
+        print("TTA canvas: no pass of the {} images launched K3 (no "
+              "proposal needed a fix-up rung); K3 not checked there".format(
+                  len(roidb)))
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: test-time augmentation
+# ---------------------------------------------------------------------------
+
+def tta_keys(aug):
+    """TEST.<aug>'s keys: on, with H_FLIP and TTA_SCALES at TTA_MAX_SIZE,
+    each scale flipped too (SCALE_H_FLIP)."""
+    p = "TEST.{}.".format(aug)
+    return [p + "ENABLED", "True", p + "H_FLIP", "True", p + "SCALES",
+            str(TTA_SCALES), p + "MAX_SIZE", str(TTA_MAX_SIZE),
+            p + "SCALE_H_FLIP", "True"]
+
+
+@contextlib.contextmanager
+def counted_passes(passes):
+    """core/test.py's detect_raw, mask_on_boxes_graph and
+    kps_on_boxes_graph, each call's canvas (H, W) counted in
+    passes[graph name]."""
+    import collections
+
+    from detectron_tpu_torch.core import test as det
+
+    names = ("detect_raw", "mask_on_boxes_graph", "kps_on_boxes_graph")
+    saved = [getattr(det, n) for n in names]
+
+    def spy(name, fn):
+        def call(params, images, *rest):
+            passes.setdefault(name, collections.Counter())[
+                tuple(images.shape[1:3])] += 1
+            return fn(params, images, *rest)
+        return call
+
+    try:
+        for n, fn in zip(names, saved):
+            setattr(det, n, spy(n, fn))
+        yield
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(det, n, fn)
+
+
+def _tta_engine_run(device, args, label, n_images):
+    """run_inference over the cfg's val set with every pass counted: (the
+    results, wall seconds, K1-K3 launches, the passes)."""
+    import torch
+
+    from detectron_tpu_torch.core import test_engine
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": roi_align_kernel.roi_window_pool,
+                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
+    for fn in wrappers.values():
+        fn.launches = 0
+    passes = {}
+    t0 = time.perf_counter()
+    with counted_passes(passes):
+        results = test_engine.run_inference(
+            args, output_dir=args.out_dir, batch_size=ENGINE_BATCH,
+            device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    canvases = sorted({c for counts in passes.values() for c in counts})
+    print("{} TTA engine path (run_inference, {} images): {:.3f} s per "
+          "image ({:.3f} s in all); passes per image {}; canvases visited "
+          "{}; K1-K3 launches per image {}".format(
+              label, n_images, wall / n_images, wall,
+              {k: sum(v.values()) / n_images for k, v in passes.items()},
+              canvases, {k: v / n_images for k, v in launches.items()}))
+    missing = [k for k in ("nms_keep_mask", "roi_window_pool")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError("kernels not launched on the {} TTA path: {}"
+                             .format(label, ", ".join(missing)))
+    return results, launches, canvases
+
+
+def run_tta_path(device, workdir):
+    """Phase 19: test-time augmentation at full width, bf16. Mask R-CNN
+    R-50-FPN over TTA_IMAGES synthetic images through run_inference
+    (test_net routes TTA to im_detect_all): TEST.BBOX_AUG with H_FLIP and
+    TTA_SCALES at TTA_MAX_SIZE, each flipped too, UNION / UNION, and
+    TEST.MASK_AUG SOFT_AVG over the same scales and flips (18 detect and
+    18 mask passes an image), to COCO box and mask AP; first a check that
+    TTA on with no scale and no flip gives the plain im_detect_all's
+    boxes and RLEs bit for bit. Then Keypoint R-CNN with TEST.KPS_AUG
+    HM_AVG over the same scales and flips, to keypoint AP. Returns the
+    launch counts of both runs."""
+    import types
+
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core import test_engine
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.data.json_dataset import JsonDataset
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
+    from detectron_tpu_torch.utils import image_io
+    from detectron_tpu_torch.utils import net as net_utils
+    from detectron_tpu_torch.utils.logging import setup_logging
+
+    setup_logging(__name__)
+    t0 = time.perf_counter()
+    make_valset(workdir, TTA_IMAGES)
+    data = ["DATA_DIR", workdir, "TEST.DATASETS", "('coco_2017_val',)"]
+    set_cfg(tiny=False, dtype="bfloat16", extra=data)
+    # The synthetic images are uniform 0-255 noise: 74 about the means.
+    tree = calibrate_scores(make_tree(), device, pixel_std=74.0)
+    args = types.SimpleNamespace(
+        load_ckpt=net_utils.save_ckpt(workdir + "/train", 0, tree),
+        load_detectron=None, out_dir=workdir + "/eval")
+    del tree
+    roidb = JsonDataset("coco_2017_val").get_roidb(gt=True)
+    print("TTA set-up: {} images, checkpoint, in {:.3f} s".format(
+        TTA_IMAGES, time.perf_counter() - t0))
+
+    # TTA with no pass but the base one: the plain path's results, bit for
+    # bit.
+    params = test_engine.initialize_model_from_cfg(args, device=device)
+    im = image_io.imread(roidb[0]["image"])
+    plain = det.im_detect_all(params, im, device)
+    set_cfg(tiny=False, dtype="bfloat16", extra=data + [
+        "TEST.BBOX_AUG.ENABLED", "True", "TEST.MASK_AUG.ENABLED", "True"])
+    tta = det.im_detect_all(params, im, device)
+    n = sum(len(b) for b in plain[0][1:])
+    same = all(np.array_equal(a, b) for a, b in zip(plain[0][1:],
+                                                     tta[0][1:])) and \
+        plain[1] == tta[1]
+    print("TTA without scales or flips against the plain im_detect_all: {} "
+          "detections, boxes and RLEs bit-equal: {}".format(n, same))
+    if not same or n == 0:
+        raise AssertionError("TTA with no pass but the base one differs "
+                             "from the plain path ({} detections)".format(n))
+    del params
+
+    set_cfg(tiny=False, dtype="bfloat16", extra=data + tta_keys(
+        "BBOX_AUG") + tta_keys("MASK_AUG") + [
+            "TEST.BBOX_AUG.SCORE_HEUR", "UNION",
+            "TEST.BBOX_AUG.COORD_HEUR", "UNION",
+            "TEST.MASK_AUG.HEUR", "SOFT_AVG"])
+    results, launches, canvases = _tta_engine_run(device, args, "Mask R-CNN",
+                                                  TTA_IMAGES)
+    with open(args.out_dir + "/detections.pkl", "rb") as f:
+        dets = pickle.load(f)
+    n_dets = _check_engine_results(dets, roidb, cfg.MODEL.NUM_CLASSES,
+                                   slack=1.0)
+    ap = {task: results["coco_2017_val"][task]["AP"]
+          for task in ("box", "mask")}
+    print("Mask R-CNN TTA: {} detections, box AP {}, mask AP {} (random "
+          "weights)".format(n_dets, ap["box"], ap["mask"]))
+    largest = blob_canvas(max(TTA_SCALES), TTA_MAX_SIZE)
+    if largest not in canvases or not all(np.isfinite(list(ap.values()))) \
+            or n_dets == 0:
+        raise AssertionError("the TTA path missed the {} canvas, or gave no "
+                             "detections or a non-finite AP".format(largest))
+
+    kdir = workdir + "/kps"
+    make_valset(kdir, TTA_IMAGES, keypoints=True)
+    set_cfg(tiny=False, dtype="bfloat16", keypoints=True)
+    tree = calibrate_person_class(make_tree(), device)
+    set_cfg(tiny=False, dtype="bfloat16", keypoints=True, extra=[
+        "DATA_DIR", kdir, "TEST.DATASETS", "('{}',)".format(KPS_VAL)]
+        + tta_keys("KPS_AUG") + ["TEST.KPS_AUG.HEUR", "HM_AVG"])
+    kargs = types.SimpleNamespace(
+        load_ckpt=net_utils.save_ckpt(kdir + "/train", 0, tree),
+        load_detectron=None, out_dir=kdir + "/eval")
+    del tree
+    results, k_launches, _ = _tta_engine_run(device, kargs, "Keypoint R-CNN",
+                                             TTA_IMAGES)
+    with open(kargs.out_dir + "/detections.pkl", "rb") as f:
+        dets = pickle.load(f)
+    n_dets = _check_keypoint_results(dets, JsonDataset(KPS_VAL).get_roidb(
+        gt=True))
+    kp_ap = results[KPS_VAL]["keypoint"]["AP"]
+    print("Keypoint R-CNN TTA (KPS_AUG HM_AVG): {} detections, keypoint AP "
+          "{} (random weights)".format(n_dets, kp_ap))
+    if n_dets == 0 or not np.isfinite(kp_ap):
+        raise AssertionError("the keypoint TTA path gave no detections or a "
+                             "non-finite AP")
+    return launches, k_launches
+
+
+def blob_canvas(scale, max_size):
+    from detectron_tpu_torch.utils import blob as blob_utils
+
+    return tuple(blob_utils.static_canvas(scale, max_size))
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the rest of the model cfg surface
+# ---------------------------------------------------------------------------
+
+# (key, label, set_cfg's model arguments, cfg keys, the tree it shares,
+# kernels its inference must launch). The trees: the FPN preset's for
+# RoICrop and the s2d stems (their params are the plain model's), the C4
+# preset's for RoIPoolF and the dilated res5, and one each for the extra
+# levels and the FC mask output. The FC output runs class-agnostic: at
+# MRCNN.RESOLUTION 28 with 81 class-specific masks its FC would be
+# 200704 x 63504 (1.27e10 weights, ~51 GB in float32); class-agnostic it
+# is 200704 x 784 (1.6e8).
+VARIANTS = (
+    ("roipoolf", "C4 RoIPoolF", dict(c4=True),
+     ["FAST_RCNN.ROI_XFORM_METHOD", "RoIPoolF",
+      "MRCNN.ROI_XFORM_METHOD", "RoIPoolF"], "c4", ("nms_keep_mask",)),
+    ("res5_dilation", "C4 RES5_DILATION 2", dict(c4=True),
+     ["RESNETS.RES5_DILATION", "2", "MRCNN.RESOLUTION", "28"], "c4",
+     ("nms_keep_mask", "roi_window_pool")),
+    ("roicrop", "FPN RoICrop", {},
+     ["FAST_RCNN.ROI_XFORM_METHOD", "RoICrop",
+      "MRCNN.ROI_XFORM_METHOD", "RoICrop"], "fpn", ("nms_keep_mask",)),
+    ("s2d_stem", "TPU.S2D_STEM", {}, ["TPU.S2D_STEM", "True"], "fpn",
+     ("nms_keep_mask", "roi_window_pool")),
+    ("s2d_input", "TPU.S2D_INPUT", {}, ["TPU.S2D_INPUT", "True"], "fpn",
+     ("nms_keep_mask", "roi_window_pool")),
+    ("extra_levels", "FPN EXTRA_CONV_LEVELS + ZERO_INIT_LATERAL", {},
+     ["FPN.EXTRA_CONV_LEVELS", "True", "FPN.ZERO_INIT_LATERAL", "True",
+      "FPN.RPN_MAX_LEVEL", "7"], "extra", ("nms_keep_mask",
+                                           "roi_window_pool")),
+    ("fc_mask", "v1up mask head + MRCNN.USE_FC_OUTPUT", {},
+     ["MRCNN.ROI_MASK_HEAD", "mask_rcnn_heads.mask_rcnn_fcn_head_v1up",
+      "MRCNN.USE_FC_OUTPUT", "True", "MRCNN.CLS_SPECIFIC_MASK", "False"],
+     "fc", ("nms_keep_mask", "roi_window_pool")),
+)
+
+
+def check_roi_ops_on_the_card(device):
+    """Phase 20: RoIPoolF and RoICrop (plain torch) on the card against
+    the CPU on the same float32 inputs, values and gradients: RoIPoolF's
+    forward exactly (a max picks an input), its gradient within 1e-6 of
+    max|cpu| (index_put_'s accumulation order); RoICrop's within 1e-5 of
+    max|cpu| (float32 products in other orders)."""
+    import torch
+
+    from detectron_tpu_torch.ops import roi_crop, roi_pool
+
+    rng = np.random.RandomState(7)
+    feats = rng.randn(2, 26, 42, 64).astype(np.float32)
+    xy = rng.uniform(-30, 600, (2, 64, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(4, 300, (2, 64, 2))],
+                          -1).astype(np.float32)
+    g = rng.randn(2, 64, 7, 7, 64).astype(np.float32)
+    for name, fn in (("RoIPoolF", lambda f, r: roi_pool.roi_pool_batched(
+            f, r, 1 / 16, 7)), ("RoICrop", lambda f, r: roi_crop
+                                .roi_crop_batched(f, r, 1 / 16, 7, True))):
+        res = {}
+        for dev in ("cpu", device):
+            f = torch.from_numpy(feats).to(dev).requires_grad_()
+            out = fn(f, torch.from_numpy(rois).to(dev))
+            (out * torch.from_numpy(g).to(dev)).sum().backward()
+            res[dev] = (out.detach().cpu(), f.grad.cpu())
+        (o_cpu, g_cpu), (o_gpu, g_gpu) = res["cpu"], res[device]
+        o_err = float((o_gpu - o_cpu).abs().max() / o_cpu.abs().max())
+        g_err = float((g_gpu - g_cpu).abs().max() / g_cpu.abs().max())
+        tol = (0.0, 1e-6) if name == "RoIPoolF" else (1e-5, 1e-5)
+        print("{} on the card against the CPU (float32, (2, 26, 42, 64), "
+              "64 RoIs an image, P=7): output err / max {:.3e}, gradient "
+              "err / max {:.3e}".format(name, o_err, g_err))
+        if o_err > tol[0] or g_err > tol[1]:
+            raise AssertionError("{} on the card disagrees with the CPU"
+                                 .format(name))
+
+
+def check_s2d_stem(device, params, images):
+    """The s2d stem (with TPU.S2D_STEM or S2D_INPUT in the cfg) against
+    the plain 7x7/s2 stem conv on the same bf16 inputs: within bf16
+    rounding (an ulp of each value, 2^-7 |ref|, plus 2^-7 of max|ref| for
+    sums that cancel). images: the main inputs as the cfg feeds them."""
+    import torch
+
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import layers, resnet
+
+    conv1 = params["body"]["conv1"]
+    with torch.no_grad():
+        got = resnet.stem_conv(conv1, images).float()
+        plain = main_inputs(device, params=False, blocked=False)[1]
+        ref = layers.conv2d(conv1, plain, stride=2, padding=3).float()
+    err = (got - ref).abs()
+    tol = ref.abs() / 128 + float(ref.abs().max()) / 128
+    print("{} stem against the plain stem conv (bf16, {}): max_abs_err "
+          "{:.4e}, max|ref| {:.4e}, {:.4f}% of outputs differ".format(
+              "S2D_INPUT" if cfg.TPU.S2D_INPUT else "S2D_STEM",
+              tuple(ref.shape), float(err.max()), float(ref.abs().max()),
+              100.0 * float((err > 0).float().mean())))
+    if got.shape != ref.shape or bool((err > tol).any()):
+        raise AssertionError("the s2d stem disagrees with the plain stem")
+
+
+def run_variant(device, spec, base):
+    """One variant at full width: one inference batch (after a warm-up
+    batch) and one training step (bf16 compute, f32 params) on phase 4's
+    and phase 5's inputs; for RoIPoolF / RoICrop the transform alone on
+    the batch's features and proposals, timed, with its peak memory.
+    Returns the launches of each run."""
+    import torch
+
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import bridge, train_graph
+    from detectron_tpu_torch.models import model_builder as mb
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.parallel import train_step as ts
+    from detectron_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    key, label, model, keys, _, required = spec
+    set_cfg(tiny=False, dtype="bfloat16", extra=keys, **model)
+    tree = calibrate_scores(base, device) if model.get("c4") else base
+    params = bridge.to_torch(tree, device, torch.bfloat16)
+    _, images, im_info = main_inputs(device, params=False)
+    if cfg.TPU.S2D_STEM or cfg.TPU.S2D_INPUT:
+        check_s2d_stem(device, params, images)
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": roi_align_kernel.roi_window_pool,
+                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg,
+                "roi_window_accum": roi_align_kernel.roi_window_accum}
+    det.detect_graph(params, images, im_info)   # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = det.detect_graph(params, images, im_info)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    infer = {name: fn.launches for name, fn in wrappers.items()}
+    check_outputs(out, label)
+    per_image = out["valid"].sum(1).tolist()
+    method = cfg.FAST_RCNN.ROI_XFORM_METHOD
+    extra_info = ""
+    if method != "RoIAlign":
+        with torch.no_grad():
+            feats, scales = mb.forward_features(params, images)
+            rois, _, _ = mb.generate_proposals(
+                mb.forward_rpn(params, feats), feats, im_info, False)
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            pooled = mb.roi_feature_transform(
+                feats, scales, rois, cfg.FAST_RCNN.ROI_XFORM_RESOLUTION,
+                cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO, method)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+            ms = cuda_ms(lambda: mb.roi_feature_transform(
+                feats, scales, rois, cfg.FAST_RCNN.ROI_XFORM_RESOLUTION,
+                cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO, method), 3)
+        extra_info = (", {} of the box head alone ({} RoIs, P={}, {}): "
+                      "{:.3f} ms, peak memory {:.3f} GiB over the inputs "
+                      "(output {:.3f} GiB)".format(
+                          method, rois.shape[0] * rois.shape[1],
+                          pooled.shape[2], "features " + " ".join(
+                              str(tuple(f.shape)) for f in feats), ms, peak,
+                          pooled.numel() * pooled.element_size() / 2 ** 30))
+        del feats, pooled
+    print("variant {} inference (bf16, {} x {} x {}): {:.3f} ms for one "
+          "batch after a warm-up, valid detections per image {}, launches "
+          "{}{}".format(label, BATCH, *CANVAS, dt * 1e3, per_image, infer,
+                        extra_info))
+    if sum(per_image) == 0:
+        raise AssertionError("variant {}: no detections".format(label))
+    del params, out
+
+    set_cfg(tiny=False, dtype="bfloat16",
+            extra=keys + ["SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS)],
+            **model)
+    params = bridge.to_torch(tree, device, torch.float32)
+    p0 = [t.clone() for t in _flat(params)]
+    batch = synthetic_train_batch(BATCH, *CANVAS, device,
+                                  np.random.RandomState(0))
+    draws = train_graph.make_draws(torch.Generator().manual_seed(0), BATCH,
+                                   CANVAS, cfg.TPU.MAX_GT_BOXES, device)
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _, stats = ts.train_step(params, opt.init_opt_state(params),
+                                     batch, draws)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    train = {name: fn.launches for name, fn in wrappers.items()}
+    stats = {k: round(float(v), 4) for k, v in stats.items()}
+    moved = sum(not torch.equal(a, b) for a, b in zip(p0, _flat(params)))
+    print("variant {} training step (bf16 compute / f32 params, {} x {} x "
+          "{}, the first step): {:.3f} ms, peak memory {:.3f} GiB, {} of {} "
+          "param leaves moved, launches {}, stats {}".format(
+              label, BATCH, *CANVAS, dt * 1e3,
+              torch.cuda.max_memory_allocated() / 2 ** 30, moved, len(p0),
+              train, stats))
+    if not all(np.isfinite(list(stats.values()))) or "loss_mask" not in \
+            stats or moved == 0:
+        raise AssertionError("variant {}: a bad training step".format(label))
+    # Training runs K4 in the backward wherever K2 pools.
+    trained = required + (("roi_window_accum",) if "roi_window_pool" in
+                          required else ())
+    missing = [k for k in required if infer[k] == 0] + \
+        [k for k in trained if train[k] == 0]
+    if missing:
+        raise AssertionError("variant {}: kernels not launched: {}".format(
+            label, missing))
+    return infer, train
+
+
+def run_variant_paths(device):
+    """Phase 20: each of VARIANTS at full width (run_variant), after its
+    small GPU-against-CPU check (phase 3's check_small_input at the tiny
+    sizes, the FC mask head narrowed to 64 channels there); RoIPoolF and
+    RoICrop also alone on the card against the CPU. Returns the launches
+    of every run, by path name."""
+    check_roi_ops_on_the_card(device)
+    paths, trees = {}, {}
+    for spec in VARIANTS:
+        key, label, model, keys, tree_key, _ = spec
+        t0 = time.perf_counter()
+        small = keys + (["MRCNN.DIM_REDUCED", "64"] if key == "fc_mask"
+                        else [])
+        check_small_input(device, small, c4=bool(model.get("c4")))
+        if tree_key not in trees:
+            trees.clear()
+            set_cfg(tiny=False, dtype="bfloat16", extra=keys, **model)
+            trees[tree_key] = make_tree()
+        paths["variant_{}_infer".format(key)], \
+            paths["variant_{}_train".format(key)] = run_variant(
+                device, spec, trees[tree_key])
+        print("variant {}: {:.3f} s with its checks".format(
+            label, time.perf_counter() - t0))
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # Phase 14: deterministic training steps on the card (K4 without atomics)
 # ---------------------------------------------------------------------------
 
@@ -2982,6 +3595,14 @@ def main():
             paths[key + "_train"] = run_model_train_net_path(
                 device, workdir, model, base)
         del base
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        paths["tta_test_net"], paths["tta_keypoint_test_net"] = \
+            run_tta_path(device, workdir)
+    print("phase 19: {:.3f} s".format(time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    paths.update(run_variant_paths(device))
+    print("phase 20: {:.3f} s".format(time.perf_counter() - t0))
 
     meta = {
         "nms_keep_mask": ("detectron_tpu_torch/csrc/nms_keep_mask.cu",
@@ -3028,7 +3649,7 @@ def main():
                 "atomic_", "roi_reach_kernel_",
                 "roi_window_accum_det_kernel_", "other_"))},
             **{k: dict(v, library_ms=None) for k, v in e.items()
-               if k.startswith("c4")}})
+               if k.startswith(("c4", "tta"))}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,14 +12,15 @@ and keypoint heads on the final detections. Where the JAX graph branches
 with lax.cond (the untruncated per-class NMS re-run) the eager port
 branches in Python. im_detect_all is the per-image path of Soft-NMS and box
 voting: the raw scores and boxes of detect_raw, NMS on the host in numpy,
-then the mask and keypoint heads on the survivors. Test-time augmentation
-(ROADMAP Queue A, A9) is not ported yet.
+then the mask and keypoint heads on the survivors, with test-time
+augmentation (TEST.BBOX_AUG, MASK_AUG, KPS_AUG) through core/test_aug.py.
 """
 
 import numpy as np
 import torch
 
 from detectron_tpu_torch.core.config import cfg
+from detectron_tpu_torch.models import init as init_mod
 from detectron_tpu_torch.models import mask_rcnn_heads
 from detectron_tpu_torch.models import model_builder as mb
 from detectron_tpu_torch.ops import box_ops
@@ -242,33 +243,32 @@ def _on_boxes(graph, params, blob, im_info, boxes, scale, device):
 
 
 def im_detect_all(params, im, device):
-    """One image through detect_raw, host NMS (Soft-NMS and box voting as
-    cfg.TEST says) and the mask and keypoint heads on the survivors (the
-    reference's lib/core/test.py :: im_detect_all without test-time
-    augmentation). im: (H, W, 3) uint8 BGR. Returns (cls_boxes, cls_segms,
-    cls_keyps) in the reference's per-class list format, boxes and
-    keypoints in original image coordinates; cls_segms without MASK_ON
-    and cls_keyps without KEYPOINTS_ON are None. Every box gets its mask
-    and keypoints, also past DETECTIONS_PER_IM (the JAX package's copy
-    runs the heads on the first DETECTIONS_PER_IM only; its segm
-    evaluation then indexes past the end of an image's RLEs, and its
-    keypoint results leave such boxes out)."""
+    """One image through detect_raw (or TEST.BBOX_AUG's passes), host NMS
+    (Soft-NMS and box voting as cfg.TEST says) and the mask and keypoint
+    heads on the survivors (or TEST.MASK_AUG's and KPS_AUG's passes), as
+    the reference's lib/core/test.py :: im_detect_all and the JAX
+    package's core/test.py:310-372 dispatch them. im: (H, W, 3) uint8 BGR.
+    Returns (cls_boxes, cls_segms, cls_keyps) in the reference's per-class
+    list format, boxes and keypoints in original image coordinates;
+    cls_segms without MASK_ON and cls_keyps without KEYPOINTS_ON are None.
+    Every box gets its mask and keypoints, also past DETECTIONS_PER_IM
+    (the JAX package's copy runs the heads on the first DETECTIONS_PER_IM
+    only; its segm evaluation then indexes past the end of an image's
+    RLEs, and its keypoint results leave such boxes out)."""
     from detectron_tpu_torch.core import test_aug
     from detectron_tpu_torch.core import test_engine
 
-    if cfg.TEST.BBOX_AUG.ENABLED or cfg.TEST.MASK_AUG.ENABLED or \
-            cfg.TEST.KPS_AUG.ENABLED:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A9): "
-                                  "test-time augmentation "
-                                  "(im_detect_bbox_aug, im_detect_mask_aug, "
-                                  "im_detect_kps_aug)")
-    blob, scale, im_info = test_aug._prep(im, cfg.TEST.SCALE,
-                                          cfg.TEST.MAX_SIZE)
-    blob = torch.from_numpy(blob).to(device)
-    im_info = torch.from_numpy(im_info).to(device)
-    out = detect_raw(params, blob, im_info)
-    scores = out["scores"][0].cpu().numpy()
-    boxes = out["boxes"][0].cpu().numpy() / scale
+    if cfg.TPU.S2D_INPUT:
+        raise NotImplementedError(
+            init_mod.NOT_IN_REFERENCE + "TPU.S2D_INPUT on the per-image "
+            "path (its im_detect_all feeds the stem an unblocked blob, "
+            "core/test_aug.py:19-28)")
+    blob, scale, im_info = test_aug.prep_on_device(
+        im, cfg.TEST.SCALE, cfg.TEST.MAX_SIZE, device)
+    if cfg.TEST.BBOX_AUG.ENABLED:
+        scores, boxes = test_aug.im_detect_bbox_aug(params, im, device)
+    else:
+        scores, boxes = test_aug.raw_outputs(params, blob, scale, im_info)
 
     _, _, cls_boxes = box_results_with_nms_and_limit(scores, boxes)
 
@@ -284,20 +284,28 @@ def im_detect_all(params, im, device):
          for j in range(1, num_classes) if len(cls_boxes[j])] or
         [np.zeros((0,), np.int32)])
 
+    def base(graph):
+        return _on_boxes(graph, params, blob, im_info, det_boxes, scale,
+                         device)
+
     if cfg.MODEL.MASK_ON and det_boxes.shape[0] > 0:
-        probs_c = _on_boxes(mask_on_boxes_graph, params, blob, im_info,
-                            det_boxes, scale, device)
-        rles = test_engine.segm_results(
-            det_boxes, det_classes,
-            _sel_probs(probs_c, det_classes, len(det_classes)),
-            im.shape[0], im.shape[1])
+        if cfg.TEST.MASK_AUG.ENABLED:
+            probs = test_aug.im_detect_mask_aug(params, im, det_boxes,
+                                                det_classes, device)
+        else:
+            probs = _sel_probs(base(mask_on_boxes_graph), det_classes,
+                               len(det_classes))
+        rles = test_engine.segm_results(det_boxes, det_classes, probs,
+                                        im.shape[0], im.shape[1])
         cls_segms = [[] for _ in range(num_classes)]
         for r, j in zip(rles, det_classes):
             cls_segms[j].append(r)
 
     if cfg.MODEL.KEYPOINTS_ON and det_boxes.shape[0] > 0:
-        hm = _on_boxes(kps_on_boxes_graph, params, blob, im_info, det_boxes,
-                       scale, device)
+        if cfg.TEST.KPS_AUG.ENABLED:
+            hm = test_aug.im_detect_kps_aug(params, im, det_boxes, device)
+        else:
+            hm = base(kps_on_boxes_graph)
         xy = test_engine.keypoint_results(det_boxes, hm)
         cls_keyps = [[] for _ in range(num_classes)]
         for k_i, j in enumerate(det_classes):

@@ -229,10 +229,6 @@ def test_net(params, roidb_entries, dataset, batch_size=8, output_dir=None,
     if detect_fn is None and _flagged_host_path():
         return test_net_im_detect_all(params, roidb_entries, dataset,
                                       output_dir=output_dir, device=device)
-    if cfg.TPU.S2D_INPUT:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
-                                  "the TPU.S2D_INPUT stem")
-
     num_images = len(roidb_entries)
     num_classes = cfg.MODEL.NUM_CLASSES
     all_boxes, all_segms, all_keyps = empty_results(num_classes, num_images)
@@ -300,6 +296,8 @@ def test_net(params, roidb_entries, dataset, batch_size=8, output_dir=None,
             if use_props:
                 prop_boxes.append(np.zeros((R, 4), np.float32))
                 prop_valid.append(np.zeros(R, bool))
+        if cfg.TPU.S2D_INPUT:
+            images_np = blob_utils.space_to_depth(images_np)
         images = torch.from_numpy(images_np).to(in_dtype)
         timers["im_load"].toc()
         return chunk, images, infos, prop_boxes, prop_valid

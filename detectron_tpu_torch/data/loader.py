@@ -23,8 +23,9 @@ consumed): one shuffle of the landscape and one of the portrait indices
 per epoch, then one randint(0, 2**31 - 1) per batch that seeds the
 batch's own RandomState (its scale draw); batches are delivered in ticket
 order whatever thread finishes first, and start_batch fast-forwards the
-stream by replaying those draws. The blocked input of TPU.S2D_INPUT
-waits for ROADMAP Queue A, A7.
+stream by replaying those draws. With TPU.S2D_INPUT the images go out
+as their space_to_depth blocks (utils/blob.py), as the JAX loader sends
+them.
 """
 
 import queue
@@ -46,17 +47,10 @@ def load_image(entry):
     return im
 
 
-def _check_supported():
-    if cfg.TPU.S2D_INPUT:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
-                                  "TPU.S2D_INPUT")
-
-
 def make_minibatch(entries, rng):
     """entries: list of roidb entries (same orientation). Returns the batch
     dict of numpy arrays that models/train_graph.training_losses takes
     (after moving each to the device)."""
-    _check_supported()
     B = len(entries)
     scale_idx = rng.randint(0, len(cfg.TRAIN.SCALES))
     target_size = cfg.TRAIN.SCALES[scale_idx]
@@ -135,6 +129,8 @@ def make_minibatch(entries, rng):
             gt_keypoints[i, :n] = np.transpose(kps, (0, 2, 1)) * \
                 np.array([scale, scale, 1.0], np.float32)
 
+    if cfg.TPU.S2D_INPUT:
+        images = blob_utils.space_to_depth(images)
     batch = {
         "images": images,
         "im_info": im_info,

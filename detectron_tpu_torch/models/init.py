@@ -1,7 +1,6 @@
 """Numpy weight init: the Mask / Faster / Keypoint R-CNN params tree
-(ResNet-50/101/152 and ResNeXt FPN bodies, R-50-C4 with its res5 RoI
-head, AffineChannel or GroupNorm, the 2-MLP and Xconv1fc(_gn) box heads,
-the v1up4convs(_gn) and v0up mask heads) without JAX.
+(ResNet-50/101/152 and ResNeXt bodies, FPN or C4, AffineChannel or
+GroupNorm, every head of models/registry.py) without JAX.
 
 Same fills as detectron_tpu/models/init.py (Caffe2 fan semantics on HWIO
 conv kernels and (in, out) dense kernels):
@@ -9,6 +8,7 @@ conv kernels and (in, out) dense kernels):
 - XavierFill: uniform(-s, s), s = sqrt(3 / fan_in)
 - MSRAFill:   normal(0, sqrt(2 / fan_out))
 - GaussianFill(std): normal(0, std)
+- Zero: zeros (FPN.ZERO_INIT_LATERAL's laterals)
 - AffineChannel and GroupNorm: s = 1, b = 0; biases 0
 - a grouped conv kernel is HWIO (kh, kw, in_c / groups, out_c), its fans
   taken from that shape, as the JAX package's L.init_conv(groups=...)
@@ -16,35 +16,24 @@ conv kernels and (in, out) dense kernels):
 init_model(seed) builds the tree with the same keys and shapes as
 detectron_tpu.models.model_builder.init_model, in the JAX layout (HWIO conv
 kernels, flipped deconv kernels, Caffe2 (C, P, P) fc6 rows); the values come
-from a numpy RandomState, not JAX's random bits. models/bridge.py turns the
-tree into torch tensors. bilinear_upsample_kernel is the keypoint head's
-frozen upsampling kernel, a constant of the graph, not a param.
+from a numpy RandomState, not JAX's random bits. The box, mask and keypoint
+heads come from their cfg names through models/registry.py, as in the JAX
+package (model_builder.py:66-113). models/bridge.py turns the tree into
+torch tensors. bilinear_upsample_kernel is the keypoint head's frozen
+upsampling kernel, a constant of the graph, not a param.
 """
 
 import numpy as np
 
 from detectron_tpu_torch.core.config import cfg
+from detectron_tpu_torch.models import registry
 from detectron_tpu_torch.models import resnet
 from detectron_tpu_torch.models import rpn as rpn_mod
 
-_NOT_PORTED = "not ported yet (ROADMAP Queue A, A7): "
-# The one keypoint head the port runs ("" selects it too, as in the JAX
-# package's model_builder.py:107-109).
-POSE_HEAD = "keypoint_rcnn_heads.roi_pose_head_v1convX"
-# The box heads: the 2-MLP head of an FPN model, and the res5 head of a C4
-# model ("" selects it, as in the JAX package's model_builder.py:83-84).
-MLP_HEAD = "fast_rcnn_heads.roi_2mlp_head"
-C4_HEAD = "ResNet.ResNet_roi_conv5_head"
-# NUM_STACKED_CONVS 3x3 convs, then fc6: without and with GroupNorm.
-XCONV_HEADS = ("fast_rcnn_heads.roi_Xconv1fc_head",
-               "fast_rcnn_heads.roi_Xconv1fc_gn_head")
-# The mask heads: four 3x3 convs and a deconv on the RoI features, or a
-# deconv on res5 of the RoI features, res5 shared with the C4 box head
-# (v0upshare) or its own (v0up).
-MASK_HEAD_V1UP4CONVS = "mask_rcnn_heads.mask_rcnn_fcn_head_v1up4convs"
-MASK_HEAD_V1UP4CONVS_GN = MASK_HEAD_V1UP4CONVS + "_gn"
-MASK_HEADS_V0UP = ("mask_rcnn_heads.mask_rcnn_fcn_head_v0upshare",
-                   "mask_rcnn_heads.mask_rcnn_fcn_head_v0up")
+# The message of a cfg the JAX package cannot run either (ROADMAP, "not a
+# feature of the reference").
+NOT_IN_REFERENCE = ("not a feature of the reference: the JAX package "
+                    "cannot run this cfg either: ")
 
 
 def _fans(shape):
@@ -77,6 +66,8 @@ def _fill(rng, shape, weight_init, std=0.01):
         return xavier_fill(rng, shape)
     if weight_init == "GaussianFill":
         return gaussian_fill(rng, shape, std)
+    if weight_init == "Zero":
+        return np.zeros(shape, np.float32)
     raise ValueError(weight_init)
 
 
@@ -135,19 +126,31 @@ def init_body(rng, depth, num_stages):
 
 def init_fpn(rng):
     """Laterals and posthoc convs; with FPN.USE_GN they lose their bias and
-    each gains a GroupNorm, `<conv>_gn` (JAX fpn.py:42-63)."""
+    each gains a GroupNorm, `<conv>_gn` (JAX fpn.py:42-63). With
+    FPN.ZERO_INIT_LATERAL the laterals below res5 start at zero; with
+    FPN.EXTRA_CONV_LEVELS, fpn_6 (a 3x3 conv on res5) and one more conv a
+    level up to RPN_MAX_LEVEL (JAX fpn.py:60-66)."""
     dims = [256, 512, 1024, 2048]
     use_gn = cfg.FPN.USE_GN
     p = {}
     for i, d in enumerate(dims):
         lvl = i + 2
-        for name, k, c_in in (("fpn_inner_res{}", 1, d),
-                              ("fpn_res{}", 3, cfg.FPN.DIM)):
+        lateral = "Zero" if cfg.FPN.ZERO_INIT_LATERAL and lvl != 5 \
+            else "XavierFill"
+        for name, k, c_in, fill in (("fpn_inner_res{}", 1, d, lateral),
+                                    ("fpn_res{}", 3, cfg.FPN.DIM,
+                                     "XavierFill")):
             name = name.format(lvl)
             p[name] = init_conv(rng, k, k, c_in, cfg.FPN.DIM,
-                                weight_init="XavierFill", bias=not use_gn)
+                                weight_init=fill, bias=not use_gn)
             if use_gn:
                 p[name + "_gn"] = init_affine(cfg.FPN.DIM)
+    if cfg.FPN.EXTRA_CONV_LEVELS:
+        in_d = dims[-1]
+        for lvl in range(6, cfg.FPN.RPN_MAX_LEVEL + 1):
+            p["fpn_{}".format(lvl)] = init_conv(rng, 3, 3, in_d, cfg.FPN.DIM,
+                                                weight_init="XavierFill")
+            in_d = cfg.FPN.DIM
     return p
 
 
@@ -182,54 +185,82 @@ def roi_feat_dim():
     return cfg.FPN.DIM if cfg.FPN.FPN_ON else 1024
 
 
+def box_head_name():
+    """FAST_RCNN.ROI_BOX_HEAD; "" selects the res5 head on a C4 body (JAX
+    model_builder.py:88-89)."""
+    if not cfg.FPN.FPN_ON:
+        return cfg.FAST_RCNN.ROI_BOX_HEAD or registry.C4_HEAD
+    return cfg.FAST_RCNN.ROI_BOX_HEAD
+
+
+def mask_head_name():
+    """MRCNN.ROI_MASK_HEAD; "" selects v1up4convs (JAX
+    model_builder.py:98-100)."""
+    return cfg.MRCNN.ROI_MASK_HEAD or registry.MASK_HEADS[0]
+
+
+def keypoint_head_name():
+    """KRCNN.ROI_KEYPOINTS_HEAD; "" selects roi_pose_head_v1convX."""
+    return cfg.KRCNN.ROI_KEYPOINTS_HEAD or registry.POSE_HEAD
+
+
+def _roi_methods():
+    methods = [cfg.FAST_RCNN.ROI_XFORM_METHOD]
+    if cfg.MODEL.MASK_ON:
+        methods.append(cfg.MRCNN.ROI_XFORM_METHOD)
+    if cfg.MODEL.KEYPOINTS_ON:
+        methods.append(cfg.KRCNN.ROI_XFORM_METHOD)
+    return methods
+
+
 def check_model_supported():
-    """Raise NotImplementedError, naming what is missing, for a model the
-    port does not run yet."""
-    resnet.check_body_supported()
+    """Raise for a cfg the port does not run: NotImplementedError for a
+    combination the JAX package cannot run either (ROADMAP lists them),
+    ValueError for a head name no module resolves or an unknown RoI
+    transform."""
     _, num_stages = resnet.body_spec(cfg.MODEL.CONV_BODY)
+    for method in _roi_methods():
+        if method not in ("RoIAlign", "RoIPoolF", "RoICrop"):
+            raise ValueError("Unknown ROI_XFORM_METHOD " + method)
     if cfg.FPN.FPN_ON:
-        if not cfg.FPN.MULTILEVEL_RPN or num_stages != 4:
+        if not cfg.FPN.MULTILEVEL_RPN:
             raise NotImplementedError(
-                _NOT_PORTED + "an FPN on a conv4 body or with a "
-                "single-level RPN")
-        if cfg.FPN.EXTRA_CONV_LEVELS or cfg.FPN.ZERO_INIT_LATERAL:
-            raise NotImplementedError(_NOT_PORTED + "FPN extra conv levels "
-                                      "/ zero-init laterals (A7.4)")
-        box_heads = (MLP_HEAD,) + XCONV_HEADS
+                NOT_IN_REFERENCE + "an FPN with FPN.MULTILEVEL_RPN False "
+                "(its generate_proposals decodes every level with "
+                "RPN.STRIDE's anchors, model_builder.py:172-186)")
+        if "RoIPoolF" in _roi_methods():
+            raise NotImplementedError(
+                NOT_IN_REFERENCE + "RoIPoolF on an FPN (its "
+                "roi_feature_transform asserts one feature map, "
+                "model_builder.py:255)")
+        if not box_head_name():
+            raise ValueError("an FPN model needs FAST_RCNN.ROI_BOX_HEAD")
     else:
         if num_stages != 3:
             raise NotImplementedError(
-                _NOT_PORTED + "a conv5 body without an FPN (res5 dilation "
-                "and the other single-level bodies)")
-        box_heads = ("", C4_HEAD)
-    if cfg.FAST_RCNN.ROI_BOX_HEAD not in box_heads:
-        raise NotImplementedError(
-            _NOT_PORTED + "box head {!r} on an {} body (the dotted-name "
-            "registry, A7.3)".format(
-                cfg.FAST_RCNN.ROI_BOX_HEAD,
-                "FPN" if cfg.FPN.FPN_ON else "C4"))
-    if cfg.MODEL.MASK_ON:
-        head = cfg.MRCNN.ROI_MASK_HEAD
-        if head not in (MASK_HEAD_V1UP4CONVS, MASK_HEAD_V1UP4CONVS_GN) + \
-                MASK_HEADS_V0UP:
+                NOT_IN_REFERENCE + "a conv5 body without an FPN (its C4 "
+                "path takes res5's 2048 channels as res4's 1024, "
+                "model_builder.py:48-57)")
+        if box_head_name() != registry.C4_HEAD:
             raise NotImplementedError(
-                _NOT_PORTED + "mask head {!r} (v1up, the dotted-name "
-                "registry)".format(head))
-        if head == MASK_HEADS_V0UP[0] and cfg.FPN.FPN_ON:
-            raise ValueError(head + " shares the res5 of the C4 box head, "
-                             "which an FPN model does not have")
-        if cfg.MRCNN.USE_FC_OUTPUT:
-            raise NotImplementedError(_NOT_PORTED + "MRCNN.USE_FC_OUTPUT")
-    if cfg.MODEL.KEYPOINTS_ON and cfg.KRCNN.ROI_KEYPOINTS_HEAD not in (
-            "", POSE_HEAD):
-        raise NotImplementedError(_NOT_PORTED + cfg.KRCNN.ROI_KEYPOINTS_HEAD)
+                NOT_IN_REFERENCE + "box head {!r} on a C4 body (its "
+                "init_model calls the head's init without roi_res, "
+                "model_builder.py:86-90, and its C4 forward runs res5 "
+                "whatever the name, :364-383)".format(box_head_name()))
+    registry.get_func(box_head_name())
+    if cfg.MODEL.MASK_ON:
+        registry.get_func(mask_head_name())
+        if mask_head_name().endswith("v0upshare") and cfg.FPN.FPN_ON:
+            raise ValueError(mask_head_name() + " shares the res5 of the C4 "
+                             "box head, which an FPN model does not have")
+    if cfg.MODEL.KEYPOINTS_ON:
+        registry.get_func(keypoint_head_name())
 
 
 def init_model(seed):
-    """The params tree for the current cfg (ResNet / ResNeXt FPN bodies or
-    R-50-C4; Mask, Faster or Keypoint R-CNN), from a numpy
-    RandomState(seed). Raises NotImplementedError for any model the port
-    does not run yet."""
+    """The params tree for the current cfg from a numpy RandomState(seed);
+    each head from its cfg name through the registry. Raises as
+    check_model_supported does."""
     check_model_supported()
     depth, num_stages = resnet.body_spec(cfg.MODEL.CONV_BODY)
     rng = np.random.RandomState(seed)
@@ -239,44 +270,22 @@ def init_model(seed):
     d = roi_feat_dim()
     if cfg.RPN.RPN_ON:  # off in Fast R-CNN mode (precomputed proposals)
         params["rpn"] = init_rpn(rng, d)
-    if cfg.FPN.FPN_ON:
-        res = cfg.FAST_RCNN.ROI_XFORM_RESOLUTION
-        hidden = cfg.FAST_RCNN.MLP_HEAD_DIM
-        if cfg.FAST_RCNN.ROI_BOX_HEAD in XCONV_HEADS:
-            params["box_head"] = init_xconv1fc_head(rng, d, res, hidden)
-        else:
-            params["box_head"] = {
-                "fc6": init_fc(rng, d * res * res, hidden),
-                "fc7": init_fc(rng, hidden, hidden)}
-    else:
-        hidden = 2048
-        params["box_head"] = {"res5": init_res5_head(rng, d)}
+    box = registry.get_func(box_head_name())
+    params["box_head"] = box.init(rng, d, cfg.FAST_RCNN.ROI_XFORM_RESOLUTION)
+    hidden = box.out_dim()
     n_cls = cfg.MODEL.NUM_CLASSES
     n_reg = 2 if cfg.MODEL.CLS_AGNOSTIC_BBOX_REG else n_cls
     params["box_outs"] = {
         "cls_score": init_fc(rng, hidden, n_cls, "GaussianFill", 0.01),
         "bbox_pred": init_fc(rng, hidden, 4 * n_reg, "GaussianFill", 0.001)}
-
     if cfg.MODEL.MASK_ON:
-        init = cfg.MRCNN.CONV_INIT
-        dim = cfg.MRCNN.DIM_REDUCED
-        if cfg.MRCNN.ROI_MASK_HEAD in MASK_HEADS_V0UP:
-            params["mask_head"] = {
-                "deconv": init_conv(rng, 2, 2, 2048, dim, weight_init=init)}
-            if cfg.MRCNN.ROI_MASK_HEAD == MASK_HEADS_V0UP[1]:
-                params["mask_head"]["res5"] = init_res5_head(rng, d)
-        else:
-            params["mask_head"] = _init_conv_stack(
-                rng, 4, d, dim, init,
-                cfg.MRCNN.ROI_MASK_HEAD == MASK_HEAD_V1UP4CONVS_GN)
-            params["mask_head"]["deconv"] = init_conv(rng, 2, 2, dim, dim,
-                                                      weight_init=init)
-        n_mask = n_cls if cfg.MRCNN.CLS_SPECIFIC_MASK else 1
-        params["mask_outs"] = {"mask_fcn_logits": init_conv(
-            rng, 1, 1, dim, n_mask, weight_init=init, std=0.001)}
-
+        mh = registry.get_func(mask_head_name())
+        params["mask_head"] = mh.init(rng, d)
+        params["mask_outs"] = init_mask_outputs(rng, mh.out_dim())
     if cfg.MODEL.KEYPOINTS_ON:
-        params["kps_head"], params["kps_outs"] = init_keypoint_heads(rng)
+        kh = registry.get_func(keypoint_head_name())
+        params["kps_head"] = kh.init(rng, d)
+        params["kps_outs"] = init_keypoint_outputs(rng, kh.out_dim())
     return params
 
 
@@ -296,43 +305,99 @@ def _init_conv_stack(rng, n, dim_in, dim, weight_init, use_gn):
     return p
 
 
-def init_xconv1fc_head(rng, dim_in, res, hidden):
+def init_roi_2mlp_head(rng, dim_in, roi_res):
+    """roi_2mlp_head (JAX fast_rcnn_heads.py:15-22): fc6 over the (C, P, P)
+    pooled block, fc7, both MLP_HEAD_DIM wide."""
+    hidden = cfg.FAST_RCNN.MLP_HEAD_DIM
+    return {"fc6": init_fc(rng, dim_in * roi_res * roi_res, hidden),
+            "fc7": init_fc(rng, hidden, hidden)}
+
+
+def init_xconv1fc_head(rng, dim_in, roi_res, use_gn):
     """roi_Xconv1fc_head / roi_Xconv1fc_gn_head (JAX fast_rcnn_heads.py:
     63-80): FAST_RCNN.NUM_STACKED_CONVS MSRAFill 3x3 convs of
-    CONV_HEAD_DIM, then fc6 over their (C, P, P) output to `hidden`."""
+    CONV_HEAD_DIM, then fc6 over their (C, P, P) output to MLP_HEAD_DIM."""
     dim = cfg.FAST_RCNN.CONV_HEAD_DIM
     p = _init_conv_stack(rng, cfg.FAST_RCNN.NUM_STACKED_CONVS, dim_in, dim,
-                         "MSRAFill",
-                         cfg.FAST_RCNN.ROI_BOX_HEAD == XCONV_HEADS[1])
-    p["fc6"] = init_fc(rng, dim * res * res, hidden)
+                         "MSRAFill", use_gn)
+    p["fc6"] = init_fc(rng, dim * roi_res * roi_res,
+                       cfg.FAST_RCNN.MLP_HEAD_DIM)
     return p
 
 
-def init_keypoint_heads(rng):
-    """roi_pose_head_v1convX and the keypoint outputs
-    (detectron_tpu/models/keypoint_rcnn_heads.py:17-58): NUM_STACKED_CONVS
-    kernel x kernel convs of CONV_HEAD_DIM, then with KRCNN.USE_DECONV a
-    DECONV_KERNEL deconv to DECONV_DIM, and kps_score (a DECONV_KERNEL
-    deconv with USE_DECONV_OUTPUT, else a 1x1 conv) to NUM_KEYPOINTS.
-    CONV_INIT fills with std 0.01 (0.001 for kps_score), zero biases."""
-    init = cfg.KRCNN.CONV_INIT
+def mask_head_convs(head_name):
+    """The 3x3 convs of a v1up mask head: 4 (v1up4convs, its GN twin) or 2
+    (v1up); 0 for the res5 heads (JAX mask_rcnn_heads.py:17-22)."""
+    if "v1up4convs" in head_name:
+        return 4
+    return 2 if "v1up" in head_name else 0
+
+
+def init_mask_head(rng, dim_in, head_name):
+    """A shipped mask head (JAX mask_rcnn_heads.py:25-53): the v0up heads'
+    2x2 deconv from res5's 2048 channels, and v0up's own res5; the v1up
+    heads' convs (GroupNorm instead of bias for _gn) and deconv, all
+    DIM_REDUCED wide, CONV_INIT fills."""
+    init = cfg.MRCNN.CONV_INIT
+    dim = cfg.MRCNN.DIM_REDUCED
+    if "v0up" in head_name:
+        p = {"deconv": init_conv(rng, 2, 2, 2048, dim, weight_init=init)}
+        if not head_name.endswith("share"):
+            p["res5"] = init_res5_head(rng, dim_in)
+        return p
+    p = _init_conv_stack(rng, mask_head_convs(head_name), dim_in, dim, init,
+                         head_name.endswith("_gn"))
+    p["deconv"] = init_conv(rng, 2, 2, dim if p["convs"] else dim_in, dim,
+                            weight_init=init)
+    return p
+
+
+def init_mask_outputs(rng, dim_in):
+    """mask_fcn_logits (JAX mask_rcnn_heads.py:82-93): a 1x1 conv to one
+    logit map per class (CLS_SPECIFIC_MASK) or one in all, or with
+    MRCNN.USE_FC_OUTPUT an FC from the (C, M, M) flatten to n x M x M."""
+    n_mask = cfg.MODEL.NUM_CLASSES if cfg.MRCNN.CLS_SPECIFIC_MASK else 1
+    if cfg.MRCNN.USE_FC_OUTPUT:
+        res = cfg.MRCNN.RESOLUTION
+        return {"mask_fcn_logits": init_fc(
+            rng, dim_in * res * res, n_mask * res * res, "GaussianFill",
+            0.001)}
+    return {"mask_fcn_logits": init_conv(
+        rng, 1, 1, dim_in, n_mask, weight_init=cfg.MRCNN.CONV_INIT,
+        std=0.001)}
+
+
+def init_pose_head(rng, dim_in):
+    """roi_pose_head_v1convX (JAX keypoint_rcnn_heads.py:17-29):
+    NUM_STACKED_CONVS kernel x kernel convs of CONV_HEAD_DIM, CONV_INIT
+    fills with std 0.01, zero biases."""
     k = cfg.KRCNN.CONV_HEAD_KERNEL
     dim = cfg.KRCNN.CONV_HEAD_DIM
-    d = roi_feat_dim()
     convs = []
     for _ in range(cfg.KRCNN.NUM_STACKED_CONVS):
-        convs.append(init_conv(rng, k, k, d, dim, weight_init=init))
-        d = dim
+        convs.append(init_conv(rng, k, k, dim_in, dim,
+                               weight_init=cfg.KRCNN.CONV_INIT))
+        dim_in = dim
+    return {"convs": convs}
+
+
+def init_keypoint_outputs(rng, dim_in):
+    """The keypoint outputs (JAX keypoint_rcnn_heads.py:40-58): with
+    KRCNN.USE_DECONV a DECONV_KERNEL deconv to DECONV_DIM, then kps_score
+    (a DECONV_KERNEL deconv with USE_DECONV_OUTPUT, else a 1x1 conv) to
+    NUM_KEYPOINTS; CONV_INIT fills, std 0.01 (0.001 for kps_score)."""
+    init = cfg.KRCNN.CONV_INIT
     outs = {}
     kd = cfg.KRCNN.DECONV_KERNEL
     if cfg.KRCNN.USE_DECONV:
-        outs["kps_deconv"] = init_conv(rng, kd, kd, d, cfg.KRCNN.DECONV_DIM,
-                                       weight_init=init)
-        d = cfg.KRCNN.DECONV_DIM
+        outs["kps_deconv"] = init_conv(rng, kd, kd, dim_in,
+                                       cfg.KRCNN.DECONV_DIM, weight_init=init)
+        dim_in = cfg.KRCNN.DECONV_DIM
     ks = kd if cfg.KRCNN.USE_DECONV_OUTPUT else 1
-    outs["kps_score"] = init_conv(rng, ks, ks, d, cfg.KRCNN.NUM_KEYPOINTS,
-                                  weight_init=init, std=0.001)
-    return {"convs": convs}, outs
+    outs["kps_score"] = init_conv(rng, ks, ks, dim_in,
+                                  cfg.KRCNN.NUM_KEYPOINTS, weight_init=init,
+                                  std=0.001)
+    return outs
 
 
 def bilinear_upsample_kernel(factor, channels):

@@ -1,7 +1,8 @@
 """Keypoint R-CNN head and outputs (port of detectron_tpu/models/
 keypoint_rcnn_heads.py for roi_pose_head_v1convX: apply_pose_head :32-37,
 apply_keypoint_outputs :61-93): a tower of 3x3 convs, a learned stride-2
-deconv output, and a frozen bilinear upsampling."""
+deconv output, and a frozen bilinear upsampling. A head of the registry's
+convention fallback (models/registry.py) runs its own apply."""
 
 import torch
 import torch.nn.functional as F
@@ -9,14 +10,15 @@ import torch.nn.functional as F
 from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.models import init
 from detectron_tpu_torch.models import layers as L
+from detectron_tpu_torch.models import registry
 
 
 def apply_pose_head(p, roi_feat):
     """roi_feat (R, P, P, C) -> (R, P, P, CONV_HEAD_DIM): each conv with
     a ReLU."""
-    if cfg.KRCNN.ROI_KEYPOINTS_HEAD not in ("", init.POSE_HEAD):
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
-                                  + cfg.KRCNN.ROI_KEYPOINTS_HEAD)
+    head = init.keypoint_head_name()
+    if head != registry.POSE_HEAD:
+        return registry.get_func(head).apply(p, roi_feat)
     x = roi_feat
     pad = cfg.KRCNN.CONV_HEAD_KERNEL // 2
     for cp in p["convs"]:

@@ -1,16 +1,21 @@
 """Generalized R-CNN forward pieces (port of detectron_tpu/models/
 model_builder.py: forward_features :120-139, forward_rpn :142-144,
 generate_proposals :147-235, roi_feature_transform :238-320 on its
-single-level and FPN / pallas / ladder branches, _c4_crop_and_head
-:364-383, forward_box_outputs :386-420), for FPN bodies (ResNet-50/101/
-152 and ResNeXt, AffineChannel or GroupNorm) with a multilevel RPN and the
-2-MLP or Xconv1fc(_gn) box head, the R-50-C4 body with a single-level RPN
-and the res5 RoI head, and the keypoint branch (the JAX
+RoIPoolF, RoICrop, single-level and FPN / pallas / ladder branches,
+_c4_crop_and_head :364-383, forward_box_outputs :386-420), for FPN bodies
+(ResNet-50/101/152 and ResNeXt, AffineChannel or GroupNorm, conv5 or
+conv4) with a multilevel RPN, the C4 bodies with a single-level RPN, any
+box head of models/registry.py, and the keypoint branch (the JAX
 package builds it at :105-112 and runs it in core/test.py:254-266 and
 models/train_graph.py:153-170). Every piece serves inference and
-training: both RoIAlign paths (the FPN's window-rung ladder and the C4
-single-level ops/roi_align.py) are differentiable w.r.t. the features
-(kernel K4 in their backward), and proposals are detached.
+training: the RoI transforms (the FPN's window-rung ladder and the C4
+single-level ops/roi_align.py, with kernel K4 in their backward;
+ops/roi_pool.py, ops/roi_crop.py) are differentiable w.r.t. the
+features, and proposals are detached.
+
+One repair of the reference: the JAX package's C4 box head pools with
+RoIAlign whatever FAST_RCNN.ROI_XFORM_METHOD says (_c4_crop_and_head
+:376-379); the port takes the method, as Detectron does (ROADMAP Queue C).
 
 Params are the bridged tree (models/bridge.py); activations are NHWC in the
 compute dtype cfg.TPU.COMPUTE_DTYPE.
@@ -24,10 +29,14 @@ from detectron_tpu_torch.models import fpn as fpn_mod
 from detectron_tpu_torch.models import init as init_mod
 from detectron_tpu_torch.models import keypoint_rcnn_heads
 from detectron_tpu_torch.models import layers as L
+from detectron_tpu_torch.models import registry
 from detectron_tpu_torch.models import resnet
 from detectron_tpu_torch.models import rpn as rpn_mod
+from detectron_tpu_torch.ops import multilevel_roi as ml_ops
 from detectron_tpu_torch.ops import nms as nms_ops
 from detectron_tpu_torch.ops import roi_align as ra_ops
+from detectron_tpu_torch.ops import roi_crop as rc_ops
+from detectron_tpu_torch.ops import roi_pool as rp_ops
 from detectron_tpu_torch.ops import windowed_roi as win_ops
 
 
@@ -41,9 +50,10 @@ def compute_dtype():
 
 
 def forward_features(params, images):
-    """images (B, H, W, 3) BGR, mean-subtracted, zero-padded. Returns
-    (features, scales): the FPN's [P2, ..., P6] and their scales, or a C4
-    body's [res4] and [1/16]."""
+    """images (B, H, W, 3) BGR, mean-subtracted, zero-padded (their
+    space_to_depth blocks with TPU.S2D_INPUT). Returns (features, scales):
+    the FPN's [P2, ..., P6] and their scales, or a C4 body's [res4] and
+    [1/16]."""
     init_mod.check_model_supported()
     _, num_stages = resnet.body_spec(cfg.MODEL.CONV_BODY)
     body_p, fpn_p = params["body"], params.get("fpn")
@@ -116,24 +126,53 @@ def generate_proposals(rpn_outs, features, im_info, training):
 
 def roi_feature_transform(features, scales, rois, resolution,
                           sampling_ratio, method="RoIAlign"):
-    """RoIAlign, differentiable w.r.t. the features: on one feature map
-    (a C4 model's res4) single-level RoIAlign (ops/roi_align.py, K2 / K4),
-    on an FPN's levels the window-rung ladder. rois (B, R, 4). Returns
-    (B, R, P, P, C) in (p, q) order."""
+    """The RoI transform `method`, differentiable w.r.t. the features.
+    rois (B, R, 4). Returns (B, R, P, P, C) in (p, q) order.
+
+    - RoIAlign: on one feature map (a C4 model's res4) single-level
+      RoIAlign (ops/roi_align.py, K2 / K4), on an FPN's levels the
+      window-rung ladder.
+    - RoIPoolF (one feature map): ops/roi_pool.py.
+    - RoICrop: ops/roi_crop.py at 2P then a 2 x 2 max pool under
+      CROP_RESIZE_WITH_MAX_POOL; on an FPN every RoI is cropped from every
+      level and takes its own level's crop (JAX model_builder.py:260-287).
+    """
+    lo = fpn_mod.lowest_backbone_lvl()
+    k_min, k_max = cfg.FPN.ROI_MIN_LEVEL, cfg.FPN.ROI_MAX_LEVEL
+    if method == "RoIPoolF":
+        if len(features) != 1:
+            raise NotImplementedError(init_mod.NOT_IN_REFERENCE
+                                      + "RoIPoolF on an FPN")
+        return rp_ops.roi_pool_batched(features[0], rois, scales[0],
+                                       resolution)
+    if method == "RoICrop":
+        mp = cfg.CROP_RESIZE_WITH_MAX_POOL
+        if len(features) == 1:
+            return rc_ops.roi_crop_batched(features[0], rois, scales[0],
+                                           resolution, mp)
+        lvls = ml_ops.roi_levels(rois, k_min, k_max,
+                                 cfg.FPN.ROI_CANONICAL_SCALE,
+                                 cfg.FPN.ROI_CANONICAL_LEVEL)
+        out = None
+        for lvl in range(k_min, k_max + 1):
+            crop = rc_ops.roi_crop_batched(features[lvl - lo], rois,
+                                           scales[lvl - lo], resolution, mp)
+            sel = (lvls == lvl)[..., None, None, None]
+            out = torch.where(sel, crop, 0.0 if out is None else out)
+        return out
     if method != "RoIAlign":
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
-                                  "ROI_XFORM_METHOD " + method)
+        raise ValueError("Unknown ROI_XFORM_METHOD " + method)
     if len(features) == 1:
         return ra_ops.roi_align_batched(features[0], rois, scales[0],
                                         resolution, sampling_ratio)
     if cfg.TPU.ROI_IMPL != "pallas" or not cfg.TPU.ROI_LADDER or \
             cfg.TPU.ROI_LADDER_NARROW:
         raise NotImplementedError(
-            "not ported yet (ROADMAP Queue A, A7): FPN RoIAlign other than "
-            "the windowed ladder (TPU.ROI_IMPL='pallas', ROI_LADDER on, "
-            "ROI_LADDER_NARROW off)")
-    lo = fpn_mod.lowest_backbone_lvl()
-    k_min, k_max = cfg.FPN.ROI_MIN_LEVEL, cfg.FPN.ROI_MAX_LEVEL
+            "TPU.ROI_IMPL / ROI_LADDER / ROI_LADDER_NARROW choose TPU "
+            "layouts of the same FPN RoIAlign; the port runs the windowed "
+            "ladder alone (TPU.ROI_IMPL 'pallas', ROI_LADDER on, "
+            "ROI_LADDER_NARROW off), and leaves the others out on purpose "
+            "(ROADMAP Queue A)")
     return win_ops.multilevel_roi_align_ladder_trainable(
         list(features[k_min - lo:k_max - lo + 1]),
         tuple(scales[k_min - lo:k_max - lo + 1]), rois, resolution,
@@ -143,34 +182,31 @@ def roi_feature_transform(features, scales, rois, resolution,
 
 
 def forward_box_outputs(params, features, scales, rois):
-    """RoIAlign + box head + outputs: the 2-MLP head on an FPN's pooled
-    features, or (C4) res5 and a spatial mean on 14 x 14 pooled res4
-    features, all RoIs of the batch at once (the JAX package runs the C4
-    head in RoI chunks of TPU.ROI_CHUNK to bound its RoIAlign's dense
-    intermediate, which K2 does not make). rois (B, R, 4) -> (cls_logits
-    (B, R, C), bbox_pred (B, R, 4C'), head features (B*R, D))."""
+    """RoI transform + box head + outputs: the head FAST_RCNN.ROI_BOX_HEAD
+    names (models/registry.py; a C4 model's res5 and a spatial mean on
+    14 x 14 pooled res4 features), all RoIs of the batch at once (the JAX
+    package runs the C4 head in RoI chunks of TPU.ROI_CHUNK to bound its
+    RoIAlign's dense intermediate, which K2 does not make). rois (B, R, 4)
+    -> (cls_logits (B, R, C), bbox_pred (B, R, 4C'), head features
+    (B*R, D))."""
     init_mod.check_model_supported()
     B, R = rois.shape[:2]
     roi_feat = roi_feature_transform(
         features, scales, rois, cfg.FAST_RCNN.ROI_XFORM_RESOLUTION,
         cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO,
         cfg.FAST_RCNN.ROI_XFORM_METHOD)
-    flat = roi_feat.reshape((B * R,) + roi_feat.shape[2:])
-    if cfg.FPN.FPN_ON and cfg.FAST_RCNN.ROI_BOX_HEAD in init_mod.XCONV_HEADS:
-        feat = fast_rcnn_heads.apply_roi_Xconv1fc_head(params["box_head"],
-                                                       flat)
-    elif cfg.FPN.FPN_ON:
-        feat = fast_rcnn_heads.apply_roi_2mlp_head(params["box_head"], flat)
-    else:
-        feat = resnet.apply_roi_conv5_head(params["box_head"], flat)
+    head = registry.get_func(init_mod.box_head_name())
+    feat = head.apply(params["box_head"],
+                      roi_feat.reshape((B * R,) + roi_feat.shape[2:]))
     cls_logits, bbox_pred = fast_rcnn_heads.apply_fast_rcnn_outputs(
         params["box_outs"], feat)
     return cls_logits.reshape(B, R, -1), bbox_pred.reshape(B, R, -1), feat
 
 
 def forward_keypoint_outputs(params, features, scales, rois):
-    """RoIAlign at KRCNN.ROI_XFORM_RESOLUTION through the ladder (kernels
-    K2 and K3; K4 in the backward) + pose head + outputs. rois (B, R, 4)
+    """The RoI transform at KRCNN.ROI_XFORM_RESOLUTION (on an FPN RoIAlign
+    through the ladder: kernels K2 and K3; K4 in the backward) + pose
+    head + outputs. rois (B, R, 4)
     -> heatmap logits (B * R, S, S, NUM_KEYPOINTS) in the compute
     dtype."""
     B, R = rois.shape[:2]

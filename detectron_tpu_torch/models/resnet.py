@@ -1,11 +1,11 @@
 """ResNet / ResNeXt conv bodies and the C4 models' res5 RoI head,
 Detectron semantics (port of detectron_tpu/models/resnet.py: the norm
-:40-56, bottlenecks and stages :80-116, the channel plan :123-130,
-apply_body :210-300 with the TPU.FUSED_RES2 branch :232-291 and
-TPU.REMAT_BODY :292-297, apply_roi_conv5_head :307-325). A conv5 body
-(res2-res5) feeds an FPN; a conv4 body (res2-res4, stride 16) feeds a C4
-model, whose box head runs res5 on each RoI's pooled features. Depths 50,
-101 and 152 differ only in BLOCK_COUNTS.
+:40-56, bottlenecks and stages :80-116, the channel plan :123-130, the
+s2d stems :154-207, apply_body :210-300 with the TPU.FUSED_RES2 branch
+:232-291 and TPU.REMAT_BODY :292-297, apply_roi_conv5_head :307-325). A
+conv5 body (res2-res5) feeds an FPN; a conv4 body (res2-res4, stride 16)
+feeds a C4 model, whose box head runs res5 on each RoI's pooled features.
+Depths 50, 101 and 152 differ only in BLOCK_COUNTS.
 
 The norm after each conv is frozen BN as AffineChannel, whose params never
 get a gradient, or with RESNETS.USE_GN GroupNorm under the same keys,
@@ -19,12 +19,16 @@ TPU.REMAT_BODY recomputes each stage's activations in the backward
 the stem post-ops and res2 run through kernels K5 and K6
 (ops/cuda/fused_stem_kernel.py) under the JAX package's gates (ResNet
 bodies with AffineChannel only), with the fused path's own rounding; on
-the CPU their plain versions. Res5 dilation (of a body or of the res5
-head) and the s2d stems (S2D_STEM, S2D_INPUT) are not ported yet:
-check_body_supported raises on them.
+the CPU their plain versions. RESNETS.RES5_DILATION d != 1 runs res5
+(of a body, the res5 box head or the v0up mask head) at stride 1 with
+d-dilated 3x3 convs. TPU.S2D_STEM runs the 7x7/s2 stem conv as a 4x4/s1
+conv on 2x2 space-to-depth blocks of the padded image, the same sums in
+another order; with TPU.S2D_INPUT the caller feeds those blocks
+(utils/blob.space_to_depth) and the stem takes them as they are.
 """
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from detectron_tpu_torch.core.config import cfg
@@ -61,17 +65,6 @@ def inner_dims():
             [256 * 2 ** i for i in range(4)], ng)
 
 
-def check_body_supported():
-    off = {"RESNETS.RES5_DILATION != 1": cfg.RESNETS.RES5_DILATION != 1,
-           "TPU.S2D_STEM": cfg.TPU.S2D_STEM,
-           "TPU.S2D_INPUT": cfg.TPU.S2D_INPUT}
-    on = [k for k, v in off.items() if v]
-    if on:
-        raise NotImplementedError(
-            "not ported yet (ROADMAP Queue A, A7): "
-            + ", ".join(on))
-
-
 def _norm(p, x):
     """The norm of a body or res5 head: GroupNorm with RESNETS.USE_GN
     (params that train), else AffineChannel with frozen (detached)
@@ -81,13 +74,13 @@ def _norm(p, x):
     return L.affine_channel(L.stop_gradient(p), x)
 
 
-def apply_bottleneck(p, x, stride):
+def apply_bottleneck(p, x, stride, dilation=1):
     s1 = stride if cfg.RESNETS.STRIDE_1X1 else 1
     s3 = 1 if cfg.RESNETS.STRIDE_1X1 else stride
     h = L.conv2d(p["branch2a"], x, stride=s1, padding=0)
     h = L.relu(_norm(p["branch2a_bn"], h))
-    h = L.conv2d(p["branch2b"], h, stride=s3, padding=1,
-                 groups=cfg.RESNETS.NUM_GROUPS)
+    h = L.conv2d(p["branch2b"], h, stride=s3, padding=dilation,
+                 dilation=dilation, groups=cfg.RESNETS.NUM_GROUPS)
     h = L.relu(_norm(p["branch2b_bn"], h))
     h = L.conv2d(p["branch2c"], h, stride=1, padding=0)
     h = _norm(p["branch2c_bn"], h)
@@ -99,11 +92,18 @@ def apply_bottleneck(p, x, stride):
     return L.relu(h + sc)
 
 
-def apply_stage(blocks, x, stride):
+def apply_stage(blocks, x, stride, dilation=1):
     """A stage's bottleneck blocks; the first one strides."""
     for i, bp in enumerate(blocks):
-        x = apply_bottleneck(bp, x, stride if i == 0 else 1)
+        x = apply_bottleneck(bp, x, stride if i == 0 else 1, dilation)
     return x
+
+
+def res5_stride_dilation():
+    """(stride, dilation) of a res5 stage, the body's or a RoI head's: (1,
+    RESNETS.RES5_DILATION) when that is not 1, else (2, 1)."""
+    d = cfg.RESNETS.RES5_DILATION
+    return (1, d) if d != 1 else (2, 1)
 
 
 def _needs_grad(stage_params, x):
@@ -113,11 +113,10 @@ def _needs_grad(stage_params, x):
 
 def apply_roi_conv5_head(p, roi_feat):
     """ResNet_roi_conv5_head: roi_feat (R, P, P, 1024) -> res5 at stride 2
-    -> the mean over its spatial cells, (R, 2048). The mean sums in at
-    least float32, as jnp.mean does for bfloat16, and returns the input
-    dtype."""
-    check_body_supported()
-    h = apply_stage(p["res5"], roi_feat, 2)
+    (stride 1 and dilated convs with RES5_DILATION) -> the mean over its
+    spatial cells, (R, 2048). The mean sums in at least float32, as
+    jnp.mean does for bfloat16, and returns the input dtype."""
+    h = apply_stage(p["res5"], roi_feat, *res5_stride_dilation())
     acc = torch.promote_types(h.dtype, torch.float32)
     return h.to(acc).mean((1, 2)).to(h.dtype)
 
@@ -140,19 +139,65 @@ def _fused_mode(p, h, freeze_at, num_stages):
     return "auto"
 
 
+def _s2d_kernel(w):
+    """The 7x7 stem kernel (O, C, 7, 7) as the 4x4 kernel (O, 4C, 4, 4) of
+    the blocked input: zero-padded to 8x8 with one leading row and
+    column, input channels in (dy, dx, c) order (JAX resnet.py:175-177)."""
+    O, C = w.shape[:2]
+    wp = F.pad(w, (1, 0, 1, 0)).reshape(O, C, 4, 2, 4, 2)
+    return wp.permute(0, 3, 5, 1, 2, 4).reshape(O, 4 * C, 4, 4)
+
+
+def _s2d_blocked_stem_conv(conv1, x2):
+    """The stem conv on blocked input x2 (B, (H+8)/2, (W+8)/2, 12) from
+    utils/blob.space_to_depth: a VALID 4x4/s1 conv, cropped to (H/2, W/2)
+    (JAX resnet.py:187-207)."""
+    _, P, Q, _ = x2.shape
+    y = L.conv2d({"w": _s2d_kernel(conv1["w"])}, x2, stride=1, padding=0)
+    y = y[:, :P - 4, :Q - 4, :]
+    if "b" in conv1:
+        y = y + conv1["b"].to(y.dtype)
+    return y
+
+
+def space_to_depth(x):
+    """(B, H, W, C) -> (B, (H+8)/2, (W+8)/2, 4C): pad 4 a side, then 2x2
+    blocks with channels in (dy, dx, c) order; utils/blob.space_to_depth
+    on a tensor."""
+    B, H, W, C = x.shape
+    if H % 2 or W % 2:
+        raise ValueError("space_to_depth needs an even canvas, got "
+                         "{} x {}".format(H, W))
+    xp = F.pad(x, (0, 0, 4, 4, 4, 4))
+    P, Q = (H + 8) // 2, (W + 8) // 2
+    return xp.reshape(B, P, 2, Q, 2, C).permute(0, 1, 3, 2, 4, 5).reshape(
+        B, P, Q, 4 * C)
+
+
+def stem_conv(conv1, x):
+    """The 7x7/s2/p3 stem conv: on the blocked input with TPU.S2D_INPUT, as
+    the blocked conv of the image with TPU.S2D_STEM (JAX resnet.py:
+    154-184), else directly."""
+    if cfg.TPU.S2D_INPUT:
+        return _s2d_blocked_stem_conv(conv1, x)
+    if cfg.TPU.S2D_STEM:
+        return _s2d_blocked_stem_conv(conv1, space_to_depth(x))
+    return L.conv2d(conv1, x, stride=2, padding=3)
+
+
 def apply_body(p, x, num_stages):
-    """x: (B, H, W, 3). Returns the per-stage outputs [res2, ..., resN].
+    """x: (B, H, W, 3), or its space_to_depth blocks with TPU.S2D_INPUT.
+    Returns the per-stage outputs [res2, ..., resN].
     Stages <= RESNETS.FREEZE_AT (2-indexed; the stem is stage 1) take
     detached params. With TPU.REMAT_BODY each stage that takes part in
     the gradient runs under torch.utils.checkpoint: its activations are
     recomputed in the backward, with the same values and gradients."""
-    check_body_supported()
     freeze_at = cfg.RESNETS.FREEZE_AT
     if freeze_at not in (0, 2, 3, 4, 5):
         raise ValueError("RESNETS.FREEZE_AT must be 0, 2, 3, 4 or 5, got "
                          "{}".format(freeze_at))
     conv1 = L.stop_gradient(p["conv1"]) if freeze_at >= 2 else p["conv1"]
-    h = L.conv2d(conv1, x, stride=2, padding=3)
+    h = stem_conv(conv1, x)
     fused = _fused_mode(p, h, freeze_at, num_stages)
     if fused == "packed":
         bn = L.stop_gradient(p["res_conv1_bn"])
@@ -174,11 +219,13 @@ def apply_body(p, x, num_stages):
                               fk.fold_res2_weights(sp, h.dtype))
             outs.append(h)
             continue
-        stride = 1 if s == 0 else 2
+        stride, dil = res5_stride_dilation() if s == 3 else \
+            (1 if s == 0 else 2, 1)
         if cfg.TPU.REMAT_BODY and torch.is_grad_enabled() and \
                 _needs_grad(sp, h):
-            h = checkpoint(apply_stage, sp, h, stride, use_reentrant=False)
+            h = checkpoint(apply_stage, sp, h, stride, dil,
+                           use_reentrant=False)
         else:
-            h = apply_stage(sp, h, stride)
+            h = apply_stage(sp, h, stride, dil)
         outs.append(h)
     return outs

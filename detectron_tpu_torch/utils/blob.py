@@ -5,8 +5,9 @@ prep_im_for_blob: BGR float, mean subtraction, isotropic resize with the
 MAX_SIZE cap, through utils/image_io.resize (cv2.resize's INTER_LINEAR
 arithmetic, without OpenCV). Images pad to a static canvas derived from
 (SCALE, MAX_SIZE) and bucketed by orientation (landscape/portrait), as in
-the JAX package, so each batch of a bucket has one shape. The blocked
-input of the TPU.S2D_INPUT stem waits for ROADMAP Queue A, A7.
+the JAX package, so each batch of a bucket has one shape.
+space_to_depth (JAX blob.py:86-97) blocks a batch for the TPU.S2D_INPUT
+stem.
 """
 
 import numpy as np
@@ -66,3 +67,19 @@ def get_image_blob(im, target_size=None, max_size=None):
         [[prepped.shape[0], prepped.shape[1], scale]], np.float32)
     return blob, scale, im_info
 
+
+
+def space_to_depth(images):
+    """(B, H, W, C) -> (B, (H+8)//2, (W+8)//2, 4C), the blocked input of
+    the cfg.TPU.S2D_INPUT stem: pad 4 on each spatial side (the 7x7/s2
+    stem's halo, so the device conv is VALID), then 2x2 blocks with
+    channels in (dy, dx, c) order, as models/resnet._s2d_blocked_stem_conv
+    takes them."""
+    B, H, W, C = images.shape
+    if H % 2 or W % 2:
+        raise ValueError("space_to_depth needs an even canvas, got "
+                         "{} x {}".format(H, W))
+    xp = np.pad(images, ((0, 0), (4, 4), (4, 4), (0, 0)))
+    P, Q = (H + 8) // 2, (W + 8) // 2
+    x2 = xp.reshape(B, P, 2, Q, 2, C).transpose(0, 1, 3, 2, 4, 5)
+    return np.ascontiguousarray(x2.reshape(B, P, Q, 4 * C))

@@ -1,7 +1,8 @@
 """Host-side (numpy) box geometry for the data layer, the engine and the
-evaluator (the port's copy of detectron_tpu/utils/boxes.py :24-352, less
-the decode/encode and TTA helpers, which the port's engine does not run
-on the host; reference: lib/utils/boxes.py).
+evaluator and test-time augmentation (the port's copy of
+detectron_tpu/utils/boxes.py :24-352, less the decode/encode helpers,
+which the port's engine does not run on the host; reference:
+lib/utils/boxes.py).
 
 Boxes are [x1, y1, x2, y2] with the Detectron convention that a box
 includes its far edge pixel: width = x2 - x1 + 1. nms, soft_nms and
@@ -238,3 +239,20 @@ def box_voting(top_dets, all_dets, thresh, scoring_method="ID", beta=1.0):
             raise NotImplementedError(
                 "Unknown scoring method {}".format(scoring_method))
     return top_dets_out
+
+
+def flip_boxes(boxes, im_width):
+    """Flip boxes (N, 4k) horizontally in an image im_width wide."""
+    boxes_flipped = boxes.copy()
+    boxes_flipped[:, 0::4] = im_width - boxes[:, 2::4] - 1
+    boxes_flipped[:, 2::4] = im_width - boxes[:, 0::4] - 1
+    return boxes_flipped
+
+
+def aspect_ratio(boxes, aspect_ratio_):
+    """Scale the x coordinates of boxes (N, 4k) by aspect_ratio_ (the
+    width-relative aspect-ratio transform of test-time augmentation)."""
+    boxes_ar = boxes.copy()
+    boxes_ar[:, 0::4] = aspect_ratio_ * boxes[:, 0::4]
+    boxes_ar[:, 2::4] = aspect_ratio_ * boxes[:, 2::4]
+    return boxes_ar

@@ -106,7 +106,10 @@ def fpn_weight_mapping(depth):
     """FPN lateral/posthoc blobs. Caffe2 names carry the top block index of
     each stage (e.g. fpn_inner_res4_5_sum for R-50, fpn_inner_res4_22_sum
     for R-101); non-top laterals carry a '_lateral' suffix. With FPN.USE_GN
-    each conv has no bias and a `<conv>_gn_s` / `_gn_b` pair."""
+    each conv has no bias and a `<conv>_gn_s` / `_gn_b` pair. With
+    FPN.EXTRA_CONV_LEVELS the convs above P5 are Detectron's fpn_6,
+    fpn_7, ... (FPN.py add_fpn; plain convs with a bias), which the JAX
+    package's table does not name."""
     counts = BLOCK_COUNTS[depth]
     m = {}
     for lvl in range(2, 6):
@@ -122,6 +125,11 @@ def fpn_weight_mapping(depth):
                 m[blob + "_gn_b"] = (("fpn", key + "_gn", "b"), _id)
             else:
                 m[blob + "_b"] = (("fpn", key, "b"), _id)
+    if cfg.FPN.EXTRA_CONV_LEVELS:
+        for lvl in range(6, cfg.FPN.RPN_MAX_LEVEL + 1):
+            for k, f in (("w", _conv), ("b", _id)):
+                m["fpn_{}_{}".format(lvl, k)] = (
+                    ("fpn", "fpn_{}".format(lvl), k), f)
     return m
 
 

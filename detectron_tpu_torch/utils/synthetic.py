@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from detectron_tpu_torch.core.config import cfg
+from detectron_tpu_torch.utils import blob as blob_utils
 
 
 def calibrate_detector_params(params, rng=None):
@@ -36,9 +37,6 @@ def synthetic_train_batch(B, H, W, device, rng=None, im_scale=1.6):
     random binary gt masks (with MASK_ON) and visible gt keypoints
     anywhere on the canvas (with KEYPOINTS_ON), from the same RandomState
     draws, in the same order, as the JAX version; tensors on `device`."""
-    if cfg.TPU.S2D_INPUT:
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A7): "
-                                  "TPU.S2D_INPUT")
     if rng is None:
         rng = np.random.RandomState(0)
     G = cfg.TPU.MAX_GT_BOXES
@@ -55,6 +53,8 @@ def synthetic_train_batch(B, H, W, device, rng=None, im_scale=1.6):
         gt_valid[i, :n] = True
         gt_classes[i, :n] = rng.randint(1, cfg.MODEL.NUM_CLASSES, n)
     images = rng.randn(B, H, W, 3).astype(np.float32) * 20.0
+    if cfg.TPU.S2D_INPUT:
+        images = blob_utils.space_to_depth(images)
     batch = {
         "images": images,
         "im_info": np.array([[H - 32.0, W - 11.0, im_scale]] * B,

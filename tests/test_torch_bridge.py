@@ -134,17 +134,6 @@ def test_calibration_matches_jax(jax_tree):
         np.testing.assert_array_equal(a, np.asarray(b), err_msg=str(path))
 
 
-@pytest.mark.parametrize("setting", [
-    ("FPN.EXTRA_CONV_LEVELS", "True"),
-    ("MRCNN.ROI_MASK_HEAD", "mask_rcnn_heads.mask_rcnn_fcn_head_v1up"),
-    ("TPU.S2D_STEM", "True"),
-])
-def test_init_raises_for_models_not_ported(setting):
-    set_cfgs(extra=list(setting))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_init.init_model(0)
-
-
 def test_port_imports_no_jax():
     code = ("import sys, detectron_tpu_torch.core.test, chip_smoke, "
             "detectron_tpu_torch.parallel.train_step, "
