@@ -193,6 +193,43 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      head with MRCNN.USE_FC_OUTPUT (class-agnostic: VARIANTS says why);
      each after phase 3's small GPU-against-CPU inference check of its
      cfg, and RoIPoolF and RoICrop alone on the card against the CPU.
+  21. tools/infer_simple.main over demo/'s three JPEGs (480 x 640, 640 x
+     480, 500 x 500 -> 800 on the short side), with configs/baselines/
+     e2e_mask_rcnn_R-50-FPN_1x.yaml and phase 4's calibrated weights as a
+     checkpoint (--load_ckpt), then with the Keypoint R-CNN yaml,
+     --dataset keypoints_coco and phase 9's calibration (on the demo
+     images' blobs: the main inputs' calibration leaves them no person),
+     bf16, --thresh 0.7: each image's cls_boxes and cls_segms / cls_keyps
+     equal detect_graph + device_outputs_to_image_results on the same
+     blob, bit for bit; a non-empty file per image (the tool's matplotlib
+     PDF where the host has matplotlib, else its OpenCV drawing as a PNG,
+     said on a line of its own); seconds and K1-K3 launches per
+     image.
+  22. VOC: a synthetic VOC2007 (make_synthetic_valset.make_vocset: 16
+     trainval and 8 test images at ~500 x 375, 20 classes, the converted
+     jsons and the devkit tree), then tools/train_net.main --dataset
+     voc2007 with the Faster R-CNN R-50-FPN yaml from its calibrated
+     weights as a .pkl, --bs 2 (8 steps an epoch, no flips) --epochs 2
+     --lr_decay_epochs 1: model_epoch1 and model_epoch2, the lr of epoch 2
+     BASE_LR x GAMMA, and --resume from model_epoch1 running epoch 2 only;
+     then tools/test_net.main --dataset voc2007 from model_epoch2 (devkit
+     XML through task_evaluation), the devkit-XML and json protocols
+     equal on the detections as the comp4 files round them, and the
+     ground truth fed back scoring mAP 1 (within 1e-12: the 11-point sum)
+     by both; step ms, img/s and K1-K4 launches.
+  23. Cityscapes: make_cityscapes_set's 8 images of 1024 x 2048 (8
+     classes of polygon instances, a crowd region and an instance under
+     100 px an image), tools/test_net.main with the Mask R-CNN yaml and
+     MODEL.NUM_CLASSES 9 (COCO-protocol box and mask AP through
+     task_evaluation), then evaluate_masks_official on the engine's
+     detections and on the ground truth fed back (AP 1); img/s and the
+     evaluation's seconds.
+  24. The native host ops (detectron_tpu_torch/native) built with g++ on
+     the card's host, each against its numpy twin at engine sizes, bit for
+     bit: nms over 80 classes of 100-1000 detections, rle_encode /
+     rle_decode of 100 masks of 800 x 1333, poly_to_counts of 200 seeded
+     polygons, rle_intersection through the mask IoU of 100 x 50 RLEs;
+     each op's ms, native and numpy (host code: no kernel).
   Phase 2 also holds K1 at the C4 RPN's one-level lanes (2, 6000) and
   (2, 12000), K2 with the whole res4 map as its window (P = 14, N = 2000
   and 200, bf16), K4 at the C4 training shapes (N = 1024 and 256), and
@@ -203,11 +240,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   train_step (loss_kps among the losses), a tiny Mask R-CNN R-50-C4, a
   tiny ResNeXt-50 32x8d and a tiny GN Mask R-CNN detect_graph and
   train_step, on the GPU against the CPU, at its tolerances.
-  Phases 4-20 each zero the launch counters just before a path's run and
+  Phases 4-23 each zero the launch counters just before a path's run and
   read them just after; every kernel of the path must have launched (in
   the trainers K1, K2 and K4, in 11-12, 15-16 and 18's inference K1 and
   K2, in 14 K4's deterministic variant, in 19 K1 and K2, in 20 K1, and K2
-  and K4 where the variant pools with RoIAlign; K3 is reported).
+  and K4 where the variant pools with RoIAlign, in 21-23 K1 and K2, and
+  in 22's epoch trainer K1, K2 and K4; K3 is reported).
 Prints a {"kernels": [...]} line (each kernel's launches on its own path:
 the inference main path for K1-K3, training for K4, phase 14 for K4's
 deterministic variant, the TPU.FUSED_RES2 path for K5/K6;
@@ -218,8 +256,11 @@ and "keypoint_test_net" phase 9's detect_graph and run_inference,
 and "c4_train" phases 11-13, "deterministic_train" and
 "deterministic_resume" phase 14's steps and its trainer, "x152_infer",
 "x152_test_net", "x152_train" phases 15-17, "gn_infer" and "gn_train"
-phase 18, "tta_test_net" and "tta_keypoint_test_net" phase 19, and
-"variant_<name>_infer" / "variant_<name>_train" phase 20's; K1, K2, K4
+phase 18, "tta_test_net" and "tta_keypoint_test_net" phase 19,
+"variant_<name>_infer" / "variant_<name>_train" phase 20's,
+"infer_simple" and "keypoint_infer_simple" phase 21, "voc_train_net",
+"voc_train_net_resume" and "voc_test_net" phase 22, and
+"cityscapes_test_net" phase 23; K1, K2, K4
 and K4's deterministic variant carry their C4 shapes' measurements under
 "c4" (and K1's 12000-box lanes under "c4_train"), K1-K3 theirs at the
 TTA canvas under "tta" (and "tta_tail", "tta_mask"), the variant its
@@ -241,6 +282,7 @@ False), so the float32 checks of phases 2 and 3 run in full float32.
 
 import argparse
 import contextlib
+import glob
 import json
 import os
 import pickle
@@ -2049,10 +2091,11 @@ def _check_keypoint_results(dets, roidb):
     return n
 
 
-def calibrate_person_class(tree, device, frac=0.25):
+def calibrate_person_class(tree, device, frac=0.25, batches=None):
     """Turn the person column of cls_score (Keypoint R-CNN's one
-    foreground class) so that about `frac` of the main inputs' proposals
-    score it above the background. calibrate_detector_params' background
+    foreground class) so that about `frac` of the proposals of `batches`
+    (a list of (images, im_info); default: the main inputs) score it above
+    the background. calibrate_detector_params' background
     bias alone, made for 80 classes, leaves one class with no detection:
     under random weights every RoI's fc7 features share a large common
     direction u, so the person-minus-background logit has one sign on
@@ -2066,13 +2109,17 @@ def calibrate_person_class(tree, device, frac=0.25):
     from detectron_tpu_torch.models import model_builder as mb
 
     params = bridge.to_torch(tree, device, torch.bfloat16)
-    _, images, im_info = main_inputs(device, params=False)
-    with torch.no_grad():
-        feats, scales = mb.forward_features(params, images)
-        rois, _, valid = mb.generate_proposals(
-            mb.forward_rpn(params, feats), feats, im_info, False)
-        f = mb.forward_box_outputs(params, feats, scales, rois)[2]
-    f = f.float()[valid.reshape(-1)].cpu().numpy().astype(np.float64)
+    if batches is None:
+        batches = [main_inputs(device, params=False)[1:]]
+    fs = []
+    for images, im_info in batches:
+        with torch.no_grad():
+            feats, scales = mb.forward_features(params, images)
+            rois, _, valid = mb.generate_proposals(
+                mb.forward_rpn(params, feats), feats, im_info, False)
+            f = mb.forward_box_outputs(params, feats, scales, rois)[2]
+        fs.append(f.float()[valid.reshape(-1)].cpu().numpy())
+    f = np.concatenate(fs).astype(np.float64)
     w = tree["box_outs"]["cls_score"]["w"]
     u = f.mean(0) / np.linalg.norm(f.mean(0))
     proj = f @ u
@@ -3504,6 +3551,561 @@ def run_det_resume_check(device, workdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 21-24: infer_simple, the epoch trainer and VOC, Cityscapes, and the
+# native host ops
+# ---------------------------------------------------------------------------
+
+MASK_YAML = "configs/baselines/e2e_mask_rcnn_R-50-FPN_1x.yaml"
+KPS_YAML = "configs/baselines/e2e_keypoint_rcnn_R-50-FPN_1x.yaml"
+FASTER_YAML = "configs/baselines/e2e_faster_rcnn_R-50-FPN_1x.yaml"
+DEMO_DIR = "demo"
+# Phase 21's --thresh: the tool's default.
+VIS_THRESH = 0.7
+# Phase 22: the synthetic VOC2007's splits (trainval 16 images: 8 steps an
+# epoch at --bs 2, no flips; test 8 images).
+VOC_TRAINVAL, VOC_TEST = 16, 8
+# Phase 23: the synthetic Cityscapes val set, at Cityscapes' size.
+CITYSCAPES_IMAGES = 8
+CITYSCAPES_SIZE = (1024, 2048)
+CITYSCAPES_VAL = "cityscapes_fine_instanceonly_seg_val"
+# Phase 24: the image size of the native ops' masks (an 800 x 1333 image,
+# as the engines paste masks into).
+NATIVE_HW = (800, 1333)
+
+
+def kernel_wrappers(accum=False):
+    """K1-K3's wrappers (and K4's with accum), their counts set to 0."""
+    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+
+    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
+                "roi_window_pool": roi_align_kernel.roi_window_pool,
+                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
+    if accum:
+        wrappers["roi_window_accum"] = roi_align_kernel.roi_window_accum
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def require_launches(launches, names, path):
+    missing = [k for k in names if launches[k] == 0]
+    if missing:
+        raise AssertionError("kernels not launched on the {} path: {}"
+                             .format(path, ", ".join(missing)))
+
+
+def run_infer_simple_path(device, workdir):
+    """Phase 21. Returns K1-K3's launch counts over infer_simple.main for
+    Mask R-CNN and for Keypoint R-CNN."""
+    import importlib.util
+
+    import cv2
+    import torch
+
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core import test_engine
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import model_builder as mb
+    from detectron_tpu_torch.tools import infer_simple
+    from detectron_tpu_torch.utils import blob as blob_utils
+    from detectron_tpu_torch.utils import net as net_utils
+
+    # matplotlib writes the tool's default PDFs; where the host has none,
+    # the tool draws with OpenCV and cv2.imwrite, which writes no PDF.
+    if importlib.util.find_spec("matplotlib") is None:
+        print("phase 21: matplotlib is not installed on this host: the tool "
+              "draws with vis_one_image_opencv, written by cv2.imwrite (png)")
+        vis = ["--ext", "png"]
+    else:
+        vis = ["--ext", "pdf"]
+    images = sorted(glob.glob(os.path.join(DEMO_DIR, "*.jpg")))
+    paths = {}
+    for key, keypoints, yaml, dataset, sets in (
+            ("infer_simple", False, MASK_YAML, "coco", []),
+            # The yaml's 7 x 7 keypoint RoIs give 28 x 28 heatmaps against
+            # its HEATMAP_SIZE 56 (ROADMAP Queue C): phase 9's preset's 14.
+            ("keypoint_infer_simple", True, KPS_YAML, "keypoints_coco",
+             ["KRCNN.ROI_XFORM_RESOLUTION", "14"])):
+        set_cfg(tiny=False, dtype="bfloat16", keypoints=keypoints)
+        tree = make_tree()
+        if keypoints:
+            # Phase 9's calibration, on the demo images' blobs: on them the
+            # main inputs' calibration leaves no person detection.
+            blobs = [blob_utils.get_image_blob(cv2.imread(im))
+                     for im in images]
+            tree = calibrate_person_class(tree, device, batches=[
+                (torch.from_numpy(b.copy()).to(device, torch.bfloat16),
+                 torch.from_numpy(info).to(device)) for b, _, info in blobs])
+        ckpt = net_utils.save_ckpt(os.path.join(workdir, key), 0, tree)
+        del tree
+        out_dir = os.path.join(workdir, key + "_vis")
+        argv = ["--cfg", yaml, "--dataset", dataset, "--load_ckpt", ckpt,
+                "--image_dir", DEMO_DIR, "--output_dir", out_dir,
+                "--device", device, "--thresh", str(VIS_THRESH)] + vis + [
+                    "--set", "TPU.COMPUTE_DTYPE", "bfloat16"] + sets
+        wrappers = kernel_wrappers()
+        t0 = time.perf_counter()
+        res = infer_simple.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        if [r["image"] for r in res] != images:
+            raise AssertionError("infer_simple detected {}, not {}".format(
+                [r["image"] for r in res], images))
+
+        # Each image's results against detect_graph and
+        # device_outputs_to_image_results on the same blob, bit for bit;
+        # a non-empty file per image, something above --thresh.
+        params = test_engine.initialize_model_from_cfg(
+            infer_simple.parse_args(argv), device=device)
+        C = cfg.MODEL.NUM_CLASSES
+        per_image = []
+        for r in res:
+            out = det.detect_graph(
+                params, torch.from_numpy(r["blob"]).to(device,
+                                                       mb.compute_dtype()),
+                torch.from_numpy(r["im_info"]).to(device))
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            hw = cv2.imread(r["image"]).shape[:2]
+            ref = test_engine.device_outputs_to_image_results(
+                out, 0, r["im_info"], C, hw)
+            for j in range(1, C):
+                if not np.array_equal(r["cls_boxes"][j], ref[0][j]):
+                    raise AssertionError("{} class {}: infer_simple's boxes "
+                                         "differ".format(r["image"], j))
+                if keypoints:
+                    same = len(r["cls_keyps"][j]) == len(ref[2][j]) and all(
+                        np.array_equal(a, b)
+                        for a, b in zip(r["cls_keyps"][j], ref[2][j]))
+                else:
+                    same = r["cls_segms"][j] == ref[1][j]
+                if not same:
+                    raise AssertionError("{} class {}: infer_simple's {} "
+                                         "differ".format(r["image"], j,
+                                                         "keypoints" if
+                                                         keypoints else
+                                                         "RLEs"))
+            n = sum(len(b) for b in r["cls_boxes"][1:])
+            if n == 0 or r["output"] is None or \
+                    os.path.getsize(r["output"]) == 0:
+                raise AssertionError("{}: {} detections, file {}: nothing "
+                                     "drawn".format(r["image"], n,
+                                                    r["output"]))
+            per_image.append((os.path.basename(r["image"]), n,
+                              max(float(b[:, 4].max()) for b in
+                                  r["cls_boxes"][1:] if len(b)),
+                              os.path.getsize(r["output"]),
+                              round(r["seconds"], 3)))
+        secs = [r["seconds"] for r in res]
+        print("{} path (infer_simple.main, {}, bf16, TEST.SCALE {} / "
+              "MAX_SIZE {}, {} images of demo/): {:.3f} s in all (model "
+              "load included), seconds per image {} (median {:.3f}, first "
+              "one's cuDNN plans included); per image (name, detections, "
+              "top score, bytes written, s) {}; equal to detect_graph + "
+              "device_outputs_to_image_results on the same blobs; K1-K3 "
+              "launches per image {}".format(
+                  key, "Keypoint R-CNN R-50-FPN" if keypoints else
+                  "Mask R-CNN R-50-FPN", cfg.TEST.SCALE, cfg.TEST.MAX_SIZE,
+                  len(res), wall, [round(s, 3) for s in secs],
+                  statistics.median(secs), per_image,
+                  {k: v / len(res) for k, v in launches.items()}))
+        require_launches(launches, ("nms_keep_mask", "roi_window_pool"), key)
+        paths[key] = launches
+        del params
+    return paths
+
+
+def _voc_detections_as_written(all_boxes):
+    """all_boxes rounded as the devkit's comp4 files write them (1-based
+    coordinates to 0.1 px, scores to 1e-6), back in 0-based coordinates:
+    the devkit-XML and json routes then score the same numbers."""
+    out = []
+    for cls in all_boxes:
+        out.append([np.array(
+            [[float("{:.1f}".format(v + 1)) - 1 for v in row[:4]]
+             + [float("{:.6f}".format(row[4]))] for row in b],
+            np.float64).reshape(-1, 5) for b in cls])
+    return out
+
+
+def _gt_as_detections(dataset):
+    """The dataset's non-crowd ground truth as [cls][img] (N, 5) boxes of
+    score 1 (Detectron's +1 convention) and, where it has polygons, the
+    [cls][img] RLEs."""
+    from detectron_tpu_torch.data import rle
+
+    ids = sorted(dataset.COCO.getImgIds())
+    boxes = [[np.zeros((0, 5), np.float32) for _ in ids]
+             for _ in dataset.classes]
+    segms = [[[] for _ in ids] for _ in dataset.classes]
+    for i, img_id in enumerate(ids):
+        info = dataset.COCO.imgs[img_id]
+        for a in dataset.COCO.img_to_anns.get(img_id, []):
+            if a.get("iscrowd", 0):
+                continue
+            j = dataset.json_category_id_to_contiguous_id[a["category_id"]]
+            x, y, w, h = a["bbox"]
+            boxes[j][i] = np.vstack([boxes[j][i], np.array(
+                [[x, y, x + w - 1, y + h - 1, 1.0]], np.float32)])
+            if "segmentation" in a:
+                segms[j][i].append(rle.merge(rle.frPyObjects(
+                    a["segmentation"], info["height"], info["width"])))
+    return boxes, segms
+
+
+def run_voc_path(device, workdir):
+    """Phase 22. Returns K1-K4's launch counts over the epoch trainer (and
+    its --resume) and K1-K3's over test_net."""
+    import logging
+    import shutil
+
+    import torch
+
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.data import dataset_catalog
+    from detectron_tpu_torch.data import voc_dataset_evaluator as voc
+    from detectron_tpu_torch.data.json_dataset import JsonDataset
+    from detectron_tpu_torch.tools import test_net, train_net
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_vocset
+    from detectron_tpu_torch.utils import detectron_weight_helper as dwh
+
+    # The per-class AP lines (20 classes, four evaluations) stay out of
+    # stdout; the phase prints the mAPs.
+    logging.getLogger("detectron_tpu_torch.data.voc_dataset_evaluator"
+                      ).setLevel(logging.WARNING)
+    t0 = time.perf_counter()
+    n_ann = make_vocset(workdir, VOC_TRAINVAL, VOC_TEST)
+    set_cfg(tiny=False, dtype="bfloat16", yaml=FASTER_YAML,
+            extra=["MODEL.NUM_CLASSES", "21"])
+    pkl = os.path.join(workdir, "voc_init.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump({"blobs": dwh.to_detectron_blobs(make_tree())}, f,
+                    pickle.HIGHEST_PROTOCOL)
+    print("VOC set-up: VOC2007 of {} trainval and {} test images ({} "
+          "annotations, 20 classes, devkit tree), calibrated Faster R-CNN "
+          "weights as a Detectron .pkl, in {:.3f} s".format(
+              VOC_TRAINVAL, VOC_TEST, n_ann, time.perf_counter() - t0))
+
+    lr = 0.0025   # the yaml's 0.02 for 16 images a step, scaled to 2
+    common = ["--dataset", "voc2007", "--cfg", FASTER_YAML, "--bs",
+              str(BATCH), "--nw", "4", "--epochs", "2", "--lr_decay_epochs",
+              "1", "--lr", str(lr), "--disp_interval", "4", "--device",
+              device]
+    sets = ["DATA_DIR", workdir, "TPU.COMPUTE_DTYPE", "bfloat16",
+            "TRAIN.USE_FLIPPED", "False",
+            "SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS)]
+    paths = {}
+    runs = {}
+    for key, flags, out in (
+            ("voc_train_net", ["--load_detectron", pkl], "train"),
+            ("voc_train_net_resume", None, "resume")):
+        if flags is None:
+            flags = ["--load_ckpt", runs["voc_train_net"]["ckpts"][0],
+                     "--resume"]
+        wrappers = kernel_wrappers(accum=True)
+        t0 = time.perf_counter()
+        run = train_net.main(common + flags + [
+            "--set", "OUTPUT_DIR", os.path.join(workdir, out)] + sets)
+        torch.cuda.synchronize()
+        run["wall"] = time.perf_counter() - t0
+        paths[key] = {name: fn.launches for name, fn in wrappers.items()}
+        runs[key] = run
+    run, resumed = runs["voc_train_net"], runs["voc_train_net_resume"]
+    spe = run["steps_per_epoch"]
+    names = [os.path.basename(c) for c in run["ckpts"]]
+    if spe != VOC_TRAINVAL // BATCH or names != ["model_epoch1",
+                                                 "model_epoch2"]:
+        raise AssertionError("epoch trainer: {} steps an epoch, checkpoints "
+                             "{}".format(spe, names))
+    lrs = [s["lr"] for s in run["stats"]]
+    want = [lr] * spe + [lr * cfg.SOLVER.GAMMA] * spe
+    if len(lrs) != 2 * spe or not np.allclose(lrs, want, rtol=1e-6,
+                                              atol=0):
+        raise AssertionError("epoch trainer lr per step {}, expected "
+                             "{}".format(lrs, want))
+    bad = [s for s in run["stats"] + resumed["stats"]
+           if not all(np.isfinite(list(s.values())))]
+    if bad:
+        raise AssertionError("non-finite training stats: {}".format(bad))
+    if resumed["start_epoch"] != 1 or len(resumed["stats"]) != spe or \
+            os.path.basename(resumed["ckpts"][-1]) != "model_epoch2":
+        raise AssertionError("--resume from model_epoch1 ran from epoch {} "
+                             "for {} steps".format(resumed["start_epoch"],
+                                                   len(resumed["stats"])))
+    step_ms = [t * 1e3 for t in run["step_s"][1:]]
+    print("voc epoch trainer (train_net.main --dataset voc2007, Faster "
+          "R-CNN R-50-FPN yaml, bf16 compute / f32 params, --bs {} "
+          "--epochs 2 --lr_decay_epochs 1 --lr {}, TRAIN.SCALES {} / "
+          "MAX_SIZE {}, no flips): {} steps an epoch, {:.3f} s in all; "
+          "median step {:.3f} ms after the first ({:.3f} img/s), first "
+          "{:.3f} ms; lr epoch 1 {}, epoch 2 {} (BASE_LR x GAMMA); "
+          "checkpoints {}; --resume from model_epoch1: epoch 2 only ({} "
+          "steps, median {:.3f} ms); launches {}, resume {}".format(
+              BATCH, lr, cfg.TRAIN.SCALES, cfg.TRAIN.MAX_SIZE, spe,
+              run["wall"], statistics.median(step_ms),
+              BATCH / statistics.median(step_ms) * 1e3,
+              run["step_s"][0] * 1e3, lrs[0], lrs[-1], names,
+              len(resumed["stats"]),
+              statistics.median(resumed["step_s"]) * 1e3,
+              paths["voc_train_net"], paths["voc_train_net_resume"]))
+    for key in ("voc_train_net", "voc_train_net_resume"):
+        require_launches(paths[key], ("nms_keep_mask", "roi_window_pool",
+                                      "roi_window_accum"), key)
+
+    # test_net from model_epoch2: the devkit-XML protocol through
+    # task_evaluation.
+    wrappers = kernel_wrappers()
+    out_dir = os.path.join(workdir, "voc_eval")
+    t0 = time.perf_counter()
+    results = test_net.main([
+        "--dataset", "voc2007", "--cfg", FASTER_YAML, "--load_ckpt",
+        run["ckpts"][1], "--output_dir", out_dir, "--batch_size",
+        str(ENGINE_BATCH), "--device", device, "--set", "DATA_DIR", workdir,
+        "TPU.COMPUTE_DTYPE", "bfloat16"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["voc_test_net"] = {name: fn.launches
+                             for name, fn in wrappers.items()}
+    with open(os.path.join(out_dir, "detections.pkl"), "rb") as f:
+        dets = pickle.load(f)
+    dataset = JsonDataset("voc_2007_test")
+    n_dets = sum(len(b) for cls in dets["all_boxes"][1:] for b in cls)
+    box = results["voc_2007_test"]["box"]
+    if list(box) != ["AP", "AP50"] or not np.isfinite(box["AP"]):
+        raise AssertionError("task_evaluation's VOC results: {}".format(box))
+
+    # The two protocols on the same (rounded) detections: the engine's, the
+    # ground truth fed back (mAP 1), and the ground truth jittered by N(0,
+    # 6 px) with random scores and a false positive an image (an mAP
+    # inside (0, 1) whatever the engine's random weights detect).
+    gt, _ = _gt_as_detections(dataset)
+    rng = np.random.RandomState(0)
+    jittered = [[np.vstack([
+        np.hstack([b[:, :4] + rng.randn(len(b), 4) * 6, rng.rand(len(b), 1)]),
+        np.hstack([rng.uniform(0, 300, (1, 2)), rng.uniform(320, 400, (1, 2)),
+                   rng.rand(1, 1)])]) for b in cls] for cls in gt]
+    sets = {"engine": _voc_detections_as_written(dets["all_boxes"]),
+            "ground truth": gt,
+            "jittered": _voc_detections_as_written(jittered)}
+    t0 = time.perf_counter()
+    xml = {k: voc.evaluate_boxes(dataset, v, out_dir + "/xml")
+           for k, v in sets.items()}
+    eval_s = time.perf_counter() - t0
+    devkit = dataset_catalog.DATASETS["voc_2007_test"][
+        dataset_catalog.DEVKIT_DIR].resolve()
+    shutil.move(devkit, devkit + ".away")
+    try:
+        js = {k: voc.evaluate_boxes(dataset, v, out_dir + "/json")
+              for k, v in sets.items()}
+    finally:
+        shutil.move(devkit + ".away", devkit)
+    for k in sets:
+        if xml[k].get("protocol") != "devkit_xml" or "protocol" in js[k]:
+            raise AssertionError("VOC protocols: {} / {}".format(
+                xml[k].get("protocol"), js[k].get("protocol")))
+        if xml[k]["map"] != js[k]["map"] or xml[k]["aps"] != js[k]["aps"]:
+            raise AssertionError("{}: devkit-XML mAP {} != json mAP {}"
+                                 .format(k, xml[k]["map"], js[k]["map"]))
+    if abs(xml["ground truth"]["map"] - 1.0) > 1e-12:
+        raise AssertionError("the ground truth as detections scores mAP {}"
+                             ", not 1".format(xml["ground truth"]["map"]))
+    if not 0 < xml["jittered"]["map"] < 1:
+        raise AssertionError("the jittered ground truth scores mAP {}"
+                             .format(xml["jittered"]["map"]))
+    print("voc test_net path (test_net.main --dataset voc2007 from "
+          "model_epoch2, batch {}): {} images, {} detections in {:.3f} s "
+          "({:.3f} img/s, model load and evaluation included); "
+          "task_evaluation box AP {} (devkit XML, 11-point; random-init "
+          "training); devkit-XML mAP == json mAP on the detections as the "
+          "comp4 files round them: engine {}, ground truth fed back {}, "
+          "jittered ground truth {}; the three devkit-XML evaluations "
+          "{:.3f} s; launches {}".format(
+              ENGINE_BATCH, VOC_TEST, n_dets, wall, VOC_TEST / wall,
+              box["AP"], xml["engine"]["map"], xml["ground truth"]["map"],
+              xml["jittered"]["map"], eval_s, paths["voc_test_net"]))
+    require_launches(paths["voc_test_net"], ("nms_keep_mask",
+                                             "roi_window_pool"),
+                     "voc_test_net")
+    return paths
+
+
+def run_cityscapes_path(device, workdir):
+    """Phase 23. Returns K1-K3's launch counts over test_net."""
+    import torch
+
+    from detectron_tpu_torch.data import cityscapes_json_dataset_evaluator \
+        as cs
+    from detectron_tpu_torch.data.json_dataset import JsonDataset
+    from detectron_tpu_torch.tools import test_net
+    from detectron_tpu_torch.tools.make_synthetic_valset import \
+        make_cityscapes_set
+    from detectron_tpu_torch.utils import net as net_utils
+
+    t0 = time.perf_counter()
+    n_ann = make_cityscapes_set(workdir, CITYSCAPES_IMAGES,
+                                size=CITYSCAPES_SIZE)
+    set_cfg(tiny=False, dtype="bfloat16", yaml=MASK_YAML,
+            extra=["MODEL.NUM_CLASSES", "9"])
+    ckpt = net_utils.save_ckpt(os.path.join(workdir, "cs"), 0, make_tree())
+    print("Cityscapes set-up: {} images of {} x {}, {} annotations (8 "
+          "classes, crowd regions, instances under {} px), calibrated 9-class "
+          "Mask R-CNN checkpoint, in {:.3f} s".format(
+              CITYSCAPES_IMAGES, *CITYSCAPES_SIZE, n_ann, cs.MIN_REGION_SIZE,
+              time.perf_counter() - t0))
+    wrappers = kernel_wrappers()
+    out_dir = os.path.join(workdir, "cs_eval")
+    t0 = time.perf_counter()
+    results = test_net.main([
+        "--dataset", CITYSCAPES_VAL, "--cfg", MASK_YAML, "--load_ckpt",
+        ckpt, "--output_dir", out_dir, "--batch_size", str(ENGINE_BATCH),
+        "--device", device, "--set", "DATA_DIR", workdir,
+        "MODEL.NUM_CLASSES", "9", "TPU.COMPUTE_DTYPE", "bfloat16"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    res = results[CITYSCAPES_VAL]
+    if list(res) != ["box", "mask"] or not all(
+            np.isfinite(res[t]["AP"]) for t in res):
+        raise AssertionError("Cityscapes results: {}".format(res))
+    with open(os.path.join(out_dir, "detections.pkl"), "rb") as f:
+        dets = pickle.load(f)
+    dataset = JsonDataset(CITYSCAPES_VAL)
+    roidb = dataset.get_roidb(gt=True)
+    n_dets = _check_engine_results(dets, roidb, 9)
+    t0 = time.perf_counter()
+    official = cs.evaluate_masks_official(dataset, dets["all_boxes"],
+                                          dets["all_segms"])
+    official_s = time.perf_counter() - t0
+    gt_boxes, gt_segms = _gt_as_detections(dataset)
+    perfect = cs.evaluate_masks_official(dataset, gt_boxes, gt_segms)
+    if perfect["ap_official"] != 1.0 or perfect["ap50_official"] != 1.0:
+        raise AssertionError("the ground truth fed back scores {} in the "
+                             "official protocol, not 1".format(perfect))
+    print("cityscapes test_net path (test_net.main on {}, Mask R-CNN "
+          "R-50-FPN yaml, MODEL.NUM_CLASSES 9, bf16, batch {}): {} images "
+          "of {} x {}, {} detections in {:.3f} s ({:.3f} img/s, model load "
+          "and evaluation included); COCO protocol box AP {}, mask AP {} "
+          "(random weights); official instance-level protocol on the "
+          "engine's detections AP {} / AP50 {} in {:.3f} s; the ground "
+          "truth fed back scores {} / {}; launches {}".format(
+              CITYSCAPES_VAL, ENGINE_BATCH, CITYSCAPES_IMAGES,
+              *CITYSCAPES_SIZE, n_dets, wall, CITYSCAPES_IMAGES / wall,
+              res["box"]["AP"], res["mask"]["AP"], official["ap_official"],
+              official["ap50_official"], official_s,
+              perfect["ap_official"], perfect["ap50_official"], launches))
+    if n_dets == 0:
+        raise AssertionError("the Cityscapes engine produced no detections")
+    require_launches(launches, ("nms_keep_mask", "roi_window_pool"),
+                     "cityscapes_test_net")
+    return launches
+
+
+def _best_ms(fn, reps=3):
+    """The least wall ms of reps calls of fn (host code), and its result."""
+    best, out = None, None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        best = ms if best is None else min(best, ms)
+    return best, out
+
+
+def run_native_ops_check():
+    """Phase 24: the native host ops built with g++ on this host, each
+    against its numpy twin at engine sizes, bit for bit, with both times
+    (the least of 3 runs)."""
+    from detectron_tpu_torch import native
+    from detectron_tpu_torch.data import rle
+    from detectron_tpu_torch.utils import boxes as box_utils
+
+    # A fresh build of the source, timed (the package's own library was
+    # built at the first native call of an earlier phase).
+    with tempfile.TemporaryDirectory() as build_dir:
+        t0 = time.perf_counter()
+        built = native.build(build_dir=build_dir)
+        print("native host ops: g++ built {} in {:.3f} s; the package "
+              "loads {}".format(os.path.basename(str(built)),
+                                time.perf_counter() - t0,
+                                os.path.basename(native.lib()._name)))
+    rng = np.random.RandomState(0)
+    h, w = NATIVE_HW
+
+    def check(name, native_fn, plain_fn, size, plain_reps=3):
+        ms, got = _best_ms(native_fn)
+        plain_ms, ref = _best_ms(plain_fn, plain_reps)
+        same = all(np.array_equal(a, b) for a, b in zip(got, ref)) and \
+            len(got) == len(ref)
+        if not same:
+            raise AssertionError("native {} differs from its numpy twin"
+                                 .format(name))
+        print("native {} ({}): {:.3f} ms, numpy twin {:.3f} ms ({:.1f}x), "
+              "bit for bit".format(name, size, ms, plain_ms, plain_ms / ms))
+
+    # NMS: 80 classes of up to 1000 detections (the host path's shapes).
+    dets = []
+    for c in range(80):
+        n = int(rng.randint(100, 1001))
+        xy = rng.uniform(0, [w - 60, h - 60], (n, 2))
+        wh = rng.uniform(8, 300, (n, 2))
+        dets.append(np.hstack([xy, xy + wh, rng.rand(n, 1)]).astype(
+            np.float32))
+    check("nms", lambda: [native.nms(d, 0.5) for d in dets],
+          lambda: [box_utils.nms_plain(d, 0.5) for d in dets],
+          "80 classes, {} detections, IoU 0.5".format(
+              sum(len(d) for d in dets)))
+    # RLE encode / decode of 100 masks at 800 x 1333.
+    masks = []
+    for _ in range(100):
+        m = np.zeros((h, w), np.uint8)
+        y0, x0 = rng.randint(0, h - 300), rng.randint(0, w - 300)
+        m[y0:y0 + rng.randint(20, 300), x0:x0 + rng.randint(20, 300)] = 1
+        masks.append(m)
+    counts = [rle.encode_counts_plain(m) for m in masks]
+    check("rle_encode", lambda: [native.rle_encode(m) for m in masks],
+          lambda: [rle.encode_counts_plain(m) for m in masks],
+          "100 masks of {} x {}".format(h, w))
+    check("rle_decode", lambda: [native.rle_decode(c, h, w) for c in counts],
+          lambda: [rle.decode_counts_plain(c, h, w) for c in counts],
+          "100 masks of {} x {}".format(h, w))
+    # Polygons: 200 seeded star-shaped polygons of 5-12 vertices.
+    polys = []
+    for _ in range(200):
+        k = rng.randint(5, 13)
+        ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+        r = rng.uniform(10, 200, k)
+        cx, cy = rng.uniform(0, w), rng.uniform(0, h)
+        polys.append(np.stack([cx + r * np.cos(ang), cy + r * np.sin(ang)],
+                              1).reshape(-1).tolist())
+    check("poly_to_counts",
+          lambda: [native.poly_to_counts(p, h, w) for p in polys],
+          lambda: [rle.poly_to_counts_plain(p, h, w) for p in polys],
+          "200 polygons on {} x {}".format(h, w))
+    # Mask IoU of 100 detections against 50 ground truths.
+    rles = [rle.encode(m) for m in masks]
+    gts = rles[:50]
+    crowd = [i % 7 == 0 for i in range(50)]
+    check("rle_intersection / iou", lambda: [rle.iou(rles, gts, crowd)],
+          lambda: [rle.iou_plain(rles, gts, crowd)],
+          "100 x 50 RLEs of {} x {}, crowd every 7th".format(h, w),
+          plain_reps=1)
+
+
+def run_new_phases(device, paths):
+    """Phases 21-24, each timed; their launch counts go into paths."""
+    for phase, run in ((21, run_infer_simple_path), (22, run_voc_path),
+                       (23, run_cityscapes_path)):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as workdir:
+            got = run(device, workdir)
+        paths.update(got if phase != 23 else {"cityscapes_test_net": got})
+        print("phase {}: {:.3f} s".format(phase, time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    run_native_ops_check()
+    print("phase 24: {:.3f} s".format(time.perf_counter() - t0))
+
+
 def main():
     import torch
 
@@ -3603,6 +4205,7 @@ def main():
     t0 = time.perf_counter()
     paths.update(run_variant_paths(device))
     print("phase 20: {:.3f} s".format(time.perf_counter() - t0))
+    run_new_phases(device, paths)
 
     meta = {
         "nms_keep_mask": ("detectron_tpu_torch/csrc/nms_keep_mask.cu",

@@ -11,12 +11,19 @@ a dependency). Formats:
 Polygon rasterization follows the COCO scheme (vertices upsampled 5x,
 boundary traced along integer steps, downsampled to pixel boundaries,
 filled by parity of boundary-crossing positions), which gives the COCO
-API's masks bit for bit. The JAX package's C++ fast path
-(detectron_tpu/native/host_ops.cpp) is not ported: every function here is
-the numpy algorithm, and its strings are the same bytes.
+API's masks bit for bit.
+
+encode_counts, decode_counts, poly_to_counts and iou run the port's native
+host ops (detectron_tpu_torch/native, C++ built with g++ at the first
+call), as the JAX package's do; their numpy bodies stay as
+encode_counts_plain, decode_counts_plain, poly_to_counts_plain and
+iou_plain, the plain versions the tests and chip_smoke hold the native
+ones against, bit for bit. No caller of the engine runs them.
 """
 
 import numpy as np
+
+from detectron_tpu_torch import native
 
 
 # ---------------------------------------------------------------------------
@@ -24,7 +31,13 @@ import numpy as np
 # ---------------------------------------------------------------------------
 
 def encode_counts(mask):
-    """mask: (H, W) binary -> run-length counts (column-major, leading 0s)."""
+    """mask: (H, W), any nonzero value 1 -> run-length counts
+    (column-major, leading 0s), through the native rle_encode."""
+    return native.rle_encode(np.asarray(mask))
+
+
+def encode_counts_plain(mask):
+    """The numpy version of encode_counts."""
     flat = np.asfortranarray(mask).reshape(-1, order="F").astype(bool)
     n = flat.size
     if n == 0:
@@ -38,7 +51,13 @@ def encode_counts(mask):
 
 
 def decode_counts(counts, h, w):
-    """Run-length counts -> (H, W) uint8 mask."""
+    """Run-length counts -> (H, W) uint8 mask, through the native
+    rle_decode."""
+    return native.rle_decode(counts, h, w)
+
+
+def decode_counts_plain(counts, h, w):
+    """The numpy version of decode_counts."""
     counts = np.asarray(counts, dtype=np.int64)
     n = int(counts.sum())
     assert n == h * w, "RLE does not match shape"
@@ -162,7 +181,13 @@ def decode(rle):
 
 def poly_to_counts(xy, h, w):
     """One polygon [x0, y0, x1, y1, ...] -> RLE counts over an (h, w) grid,
-    using the COCO 5x-upsampled boundary-trace + parity-fill algorithm."""
+    using the COCO 5x-upsampled boundary-trace + parity-fill algorithm,
+    through the native poly_to_counts."""
+    return native.poly_to_counts(xy, h, w)
+
+
+def poly_to_counts_plain(xy, h, w):
+    """The numpy version of poly_to_counts."""
     scale = 5.0
     xy = np.asarray(xy, dtype=np.float64)
     k = len(xy) // 2
@@ -286,13 +311,40 @@ def to_bbox(rle):
                      ys.max() - ys.min() + 1], np.float64)
 
 
+def _counts(rle):
+    c = rle["counts"]
+    return string_to_counts(c) if isinstance(c, (str, bytes)) else c
+
+
 def iou(dt_rles, gt_rles, iscrowd):
     """Pairwise mask IoU matrix (D, G). For crowd gt, the denominator is the
-    detection area (pycocotools semantics)."""
+    detection area (pycocotools semantics). Intersections by the native
+    rle_intersection, on the counts (no decode)."""
     D, G = len(dt_rles), len(gt_rles)
     out = np.zeros((D, G), np.float64)
-    dms = [decode(r).astype(bool) for r in dt_rles]
-    gms = [decode(r).astype(bool) for r in gt_rles]
+    d_counts = [np.asarray(_counts(r), np.uint32) for r in dt_rles]
+    g_counts = [np.asarray(_counts(r), np.uint32) for r in gt_rles]
+    d_areas = [int(c[1::2].sum()) for c in d_counts]
+    g_areas = [int(c[1::2].sum()) for c in g_counts]
+    for i in range(D):
+        for j in range(G):
+            inter = native.rle_intersection(d_counts[i], g_counts[j])
+            if iscrowd[j]:
+                denom = d_areas[i]
+            else:
+                denom = d_areas[i] + g_areas[j] - inter
+            out[i, j] = inter / denom if denom > 0 else 0.0
+    return out
+
+
+def iou_plain(dt_rles, gt_rles, iscrowd):
+    """The numpy version of iou (decodes every mask)."""
+    D, G = len(dt_rles), len(gt_rles)
+    out = np.zeros((D, G), np.float64)
+    dms = [decode_counts_plain(_counts(r), *r["size"]).astype(bool)
+           for r in dt_rles]
+    gms = [decode_counts_plain(_counts(r), *r["size"]).astype(bool)
+           for r in gt_rles]
     d_areas = [int(m.sum()) for m in dms]
     g_areas = [int(m.sum()) for m in gms]
     for i, dm in enumerate(dms):

@@ -1,10 +1,18 @@
 """Task-level evaluation dispatch (the port's copy of
 detectron_tpu/data/task_evaluation.py; reference:
 lib/datasets/task_evaluation.py): evaluate_all -> evaluate_boxes /
-evaluate_masks / evaluate_keypoints on COCO-style json datasets, the
-result-dict schema, check_expected_results (the reference's golden-number
-hook) and copy-paste-friendly logging. The VOC and Cityscapes evaluators
-wait for ROADMAP Queue A, A11.
+evaluate_masks / evaluate_keypoints, the result-dict schema,
+check_expected_results (the reference's golden-number hook) and
+copy-paste-friendly logging.
+
+The JAX package's routing: COCO datasets (and any with
+TEST.FORCE_JSON_DATASET_EVAL) and Cityscapes go to the COCO-protocol json
+evaluator for boxes and masks; VOC boxes go to voc_dataset_evaluator
+(the devkit-XML protocol when the devkit is on disk, the converted json
+otherwise), reported as box AP and AP50. Detectron sends Cityscapes masks
+to its Cityscapes evaluator; the port keeps the JAX routing, and
+cityscapes_json_dataset_evaluator.evaluate_masks_official gives the
+official instance-level protocol by a direct call.
 """
 
 import logging
@@ -12,6 +20,7 @@ from collections import OrderedDict
 
 from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.data import json_dataset_evaluator
+from detectron_tpu_torch.data import voc_dataset_evaluator
 
 logger = logging.getLogger(__name__)
 
@@ -35,29 +44,30 @@ def _use_json_dataset_evaluator(dataset):
     return "coco" in dataset.name or cfg.TEST.FORCE_JSON_DATASET_EVAL
 
 
-def _check_json_dataset(dataset):
-    if _use_json_dataset_evaluator(dataset):
-        return
-    if "voc" in dataset.name or "cityscapes" in dataset.name:
-        raise NotImplementedError(
-            "not ported yet (ROADMAP Queue A, A11): the VOC and Cityscapes "
-            "evaluators ({})".format(dataset.name))
-    raise NotImplementedError("No evaluator for dataset: " + dataset.name)
-
-
 def evaluate_boxes(dataset, all_boxes, output_dir):
-    _check_json_dataset(dataset)
-    coco_eval = json_dataset_evaluator.evaluate_boxes(
-        dataset, all_boxes, output_dir)
-    return OrderedDict([(dataset.name, _coco_eval_to_box_results(coco_eval))])
+    name = dataset.name
+    if _use_json_dataset_evaluator(dataset) or "cityscapes" in name:
+        coco_eval = json_dataset_evaluator.evaluate_boxes(
+            dataset, all_boxes, output_dir)
+        box_results = _coco_eval_to_box_results(coco_eval)
+    elif "voc" in name:
+        voc_eval = voc_dataset_evaluator.evaluate_boxes(
+            dataset, all_boxes, output_dir)
+        box_results = _voc_eval_to_box_results(voc_eval)
+    else:
+        raise NotImplementedError("No evaluator for dataset: " + name)
+    return OrderedDict([(name, box_results)])
 
 
 def evaluate_masks(dataset, all_boxes, all_segms, output_dir):
-    _check_json_dataset(dataset)
-    coco_eval = json_dataset_evaluator.evaluate_masks(
-        dataset, all_boxes, all_segms, output_dir)
-    return OrderedDict([(dataset.name,
-                         _coco_eval_to_mask_results(coco_eval))])
+    name = dataset.name
+    if _use_json_dataset_evaluator(dataset) or "cityscapes" in name:
+        coco_eval = json_dataset_evaluator.evaluate_masks(
+            dataset, all_boxes, all_segms, output_dir)
+        results = _coco_eval_to_mask_results(coco_eval)
+    else:
+        raise NotImplementedError("No mask evaluator for dataset: " + name)
+    return OrderedDict([(name, results)])
 
 
 def evaluate_keypoints(dataset, all_boxes, all_keyps, output_dir):
@@ -111,6 +121,11 @@ def _coco_eval_to_keypoint_results(coco_eval):
             zip(["AP", "AP50", "AP75", "APm", "APl"],
                 [float(v) for v in s[:5]]))
     return res
+
+
+def _voc_eval_to_box_results(voc_eval):
+    return OrderedDict([("box", OrderedDict([("AP", voc_eval["map"]),
+                                             ("AP50", voc_eval["map"])]))])
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,8 @@ DATASET_MAP = {
 
 
 def main(argv=None):
+    """Run the evaluation; returns run_inference's results (None with
+    --range)."""
     from detectron_tpu_torch.core import test_engine
 
     args = parse_args(argv)
@@ -81,6 +83,7 @@ def main(argv=None):
         check_expected_results=bool(cfg.EXPECTED_RESULTS),
         ind_range=args.range, device=args.device)
     logger.info("Results: %s", results)
+    return results
 
 
 if __name__ == "__main__":

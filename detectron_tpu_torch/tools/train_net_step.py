@@ -38,7 +38,9 @@ before the process starts (torch raises without it). The pieces:
   ckpt_interval steps, at the end, and on an interrupt or an exception.
 
 Multi-device and multi-host training wait for ROADMAP Queue A, A8:
---multihost and its companion flags raise.
+--multihost and its companion flags, and a --device naming several
+devices, raise. The epoch trainer (tools/train_net.py) shares this tool's
+cfg, state and step loop (merge_cfg, load_state, run_steps).
 """
 
 import argparse
@@ -139,27 +141,20 @@ def init_params(args):
     return params
 
 
-def main(argv=None):
-    """Train; returns a dict with the output directory, the last checkpoint
-    written (or None), the start step, the stats read back per step, the
-    seconds of each step (loader wait included), and per minibatch the
-    seconds spent waiting for the loader and the canvas (H, W)."""
-    from detectron_tpu_torch.core.test_engine import _check_device
-    from detectron_tpu_torch.data.loader import TrainLoader
-    from detectron_tpu_torch.data.roidb import combined_roidb_for_training
-    from detectron_tpu_torch.models import bridge
-    from detectron_tpu_torch.models import train_graph
-    from detectron_tpu_torch.parallel import optimizer as opt
-    from detectron_tpu_torch.parallel import train_step as ts
-    from detectron_tpu_torch.utils import net as net_utils
-    from detectron_tpu_torch.utils.training_stats import TrainingStats
-
-    args = parse_args(argv)
+def refuse_more_than_one_device(args):
+    """Training on more than one device or host waits for ROADMAP Queue A,
+    A8: the multi-host flags and a --device naming several devices raise."""
     if (args.multihost or args.multihost_coordinator or args.num_hosts
-            or args.host_rank is not None):
+            or args.host_rank is not None or "," in args.device):
         raise NotImplementedError("not ported yet (ROADMAP Queue A, A8): "
-                                  "multi-host training")
-    device = _check_device(args.device)
+                                  "training on more than one device or "
+                                  "host")
+
+
+def merge_cfg(args):
+    """--cfg, then --set, then the JAX tools' --dataset rules
+    (TRAIN.DATASETS from DATASET_MAP; MODEL.NUM_CLASSES 2 for a keypoint
+    set, 81 for COCO, 21 for VOC)."""
     if args.cfg_file:
         merge_cfg_from_file(args.cfg_file)
     if args.set_cfgs:
@@ -172,6 +167,149 @@ def main(argv=None):
             cfg.MODEL.NUM_CLASSES = 81
         elif "voc" in args.dataset:
             cfg.MODEL.NUM_CLASSES = 21
+
+
+def load_state(args, device):
+    """The float32 master params on the device (the layers cast them to
+    the compute dtype) and their optimizer state: init_params, then
+    --load_ckpt's params and, with --resume, its momentum. Returns
+    (params, opt_state, the checkpoint's step where --resume restored its
+    momentum, else None)."""
+    from detectron_tpu_torch.models import bridge
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.utils import net as net_utils
+
+    params = init_params(args)
+    momentum = step_loaded = None
+    if args.load_ckpt:
+        step, payload = net_utils.load_ckpt(args.load_ckpt)
+        params = payload["params"]
+        if args.resume and "opt_state" in payload:
+            momentum = payload["opt_state"]["momentum"]
+            step_loaded = step
+    params = bridge.to_torch(params, device, torch.float32)
+    opt_state = opt.init_opt_state(params)
+    if momentum is not None:
+        opt_state["momentum"] = bridge.to_torch(momentum, device,
+                                                torch.float32)
+    return params, opt_state, step_loaded
+
+
+def run_steps(args, roidb, device, params, opt_state, start_step,
+              after_step, iter_size=1, save_at_end=False):
+    """The step loop of both trainers: steps [start_step,
+    cfg.SOLVER.MAX_ITER) of parallel/train_step on minibatches of
+    cfg.TRAIN.IMS_PER_BATCH images from data/loader.TrainLoader
+    (fast-forwarded past the batches the earlier steps consumed), each
+    step's sampling draws from step_generator(step), step k-1's stats read
+    back while step k is queued and logged by TrainingStats.
+
+    after_step(step, save) runs after each step; save(step, name=None)
+    writes a checkpoint of params and optimizer state in the JAX package's
+    format under <cfg.OUTPUT_DIR>/<cfg stem>/ckpt (nothing with
+    --no_save). save_at_end saves one at step MAX_ITER after the loop, even
+    when it ran no step. A last checkpoint is saved on an interrupt or an
+    exception, as the reference does. Returns the run: the output directory, the
+    checkpoints written ("ckpts", the last also as "ckpt"), the start
+    step, the stats read back per step, the seconds of each step (loader
+    wait included), and per minibatch the seconds spent waiting for the
+    loader and the canvas (H, W)."""
+    from detectron_tpu_torch.data.loader import TrainLoader
+    from detectron_tpu_torch.models import bridge
+    from detectron_tpu_torch.models import train_graph
+    from detectron_tpu_torch.parallel import train_step as ts
+    from detectron_tpu_torch.utils import net as net_utils
+    from detectron_tpu_torch.utils.training_stats import TrainingStats
+
+    batch_size = cfg.TRAIN.IMS_PER_BATCH
+    output_dir = os.path.join(
+        cfg.OUTPUT_DIR,
+        os.path.splitext(os.path.basename(args.cfg_file or "default"))[0])
+    os.makedirs(output_dir, exist_ok=True)
+    opt_state["step"] = start_step
+    loader = TrainLoader(roidb, batch_size, seed=cfg.RNG_SEED,
+                         num_threads=args.num_workers,
+                         start_batch=start_step * iter_size)
+    tblogger = None
+    if args.use_tfboard:
+        from tensorboardX import SummaryWriter
+        tblogger = SummaryWriter(output_dir)
+    training_stats = TrainingStats(args, args.disp_interval, tblogger)
+    run = {"output_dir": output_dir, "ckpts": [], "ckpt": None,
+           "start_step": start_step, "stats": [], "step_s": [],
+           "loader_wait_s": [], "canvases": []}
+
+    def save(step, name=None):
+        if args.no_save:
+            return
+        run["ckpt"] = net_utils.save_ckpt(
+            output_dir, step, bridge.to_jax_layout(params),
+            {"momentum": bridge.to_jax_layout(opt_state["momentum"]),
+             "step": np.asarray(opt_state["step"], np.int32)}, name=name)
+        run["ckpts"].append(run["ckpt"])
+
+    def log(pending):
+        p_stats, p_step = pending
+        # Python floats: syncs on the step that made them.
+        host = {k: float(v) for k, v in p_stats.items()}
+        training_stats.UpdateIterStats(host, p_step)
+        training_stats.LogIterStats(p_step)
+        run["stats"].append(host)
+
+    def next_batch():
+        t0 = time.perf_counter()
+        batch = next(loader)
+        run["loader_wait_s"].append(time.perf_counter() - t0)
+        run["canvases"].append(batch["images"].shape[1:3])
+        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+    pending = None
+    try:
+        for step in range(start_step, cfg.SOLVER.MAX_ITER):
+            t0 = time.perf_counter()
+            training_stats.IterTic()
+            gen = step_generator(step)
+            batches = [next_batch() for _ in range(iter_size)]
+            draws = [train_graph.make_draws(
+                gen, batch_size, tuple(b["images"].shape[1:3]),
+                b["gt_boxes"].shape[1], device) for b in batches]
+            if iter_size > 1:
+                params, opt_state, stats = ts.train_step_accum(
+                    params, opt_state, batches, draws)
+            else:
+                params, opt_state, stats = ts.train_step(
+                    params, opt_state, batches[0], draws[0])
+            training_stats.IterToc()
+            # Deferred stats readback: step k-1's losses are read while
+            # step k's queued kernels run.
+            if pending is not None:
+                log(pending)
+            pending = (stats, step)
+            after_step(step, save)
+            run["step_s"].append(time.perf_counter() - t0)
+        if pending is not None:
+            log(pending)
+        if save_at_end:
+            save(cfg.SOLVER.MAX_ITER)
+    except (KeyboardInterrupt, Exception):
+        save(opt_state["step"])
+        raise
+    finally:
+        loader.close()
+        if tblogger:
+            tblogger.close()
+    return run
+
+
+def main(argv=None):
+    """Train; returns run_steps' run."""
+    from detectron_tpu_torch.core.test_engine import _check_device
+    from detectron_tpu_torch.data.roidb import combined_roidb_for_training
+
+    args = parse_args(argv)
+    refuse_more_than_one_device(args)
+    device = _check_device(args.device)
+    merge_cfg(args)
 
     assert args.iter_size >= 1, "--iter_size must be >= 1"
     batch_size = args.batch_size or cfg.TRAIN.IMS_PER_BATCH
@@ -189,111 +327,24 @@ def main(argv=None):
     roidb, _, _ = combined_roidb_for_training(cfg.TRAIN.DATASETS,
                                               cfg.TRAIN.PROPOSAL_FILES)
     logger.info("%d roidb entries", len(roidb))
-
-    output_dir = os.path.join(
-        cfg.OUTPUT_DIR,
-        os.path.splitext(os.path.basename(args.cfg_file or "default"))[0])
-    os.makedirs(output_dir, exist_ok=True)
-
-    params = init_params(args)
-    momentum = None
-    start_step = args.start_step
-    if args.load_ckpt:
-        step_loaded, payload = net_utils.load_ckpt(args.load_ckpt)
-        params = payload["params"]
-        if args.resume and "opt_state" in payload:
-            momentum = payload["opt_state"]["momentum"]
-            start_step = step_loaded
-    # float32 master params (the layers cast them to the compute dtype).
-    params = bridge.to_torch(params, device, torch.float32)
-    opt_state = opt.init_opt_state(params)
-    if momentum is not None:
-        opt_state["momentum"] = bridge.to_torch(momentum, device,
-                                                torch.float32)
-    opt_state["step"] = start_step
-
-    loader = TrainLoader(roidb, batch_size, seed=cfg.RNG_SEED,
-                         num_threads=args.num_workers,
-                         # Exact resume: skip the batches steps [0,
-                         # start_step) consumed.
-                         start_batch=start_step * args.iter_size)
-
-    tblogger = None
-    if args.use_tfboard:
-        from tensorboardX import SummaryWriter
-        tblogger = SummaryWriter(output_dir)
-
-    training_stats = TrainingStats(args, args.disp_interval, tblogger)
+    params, opt_state, step_loaded = load_state(args, device)
+    start_step = args.start_step if step_loaded is None else step_loaded
     ckpt_interval = max(
         1, int(len(roidb) / batch_size / args.ckpt_num_per_epoch))
 
-    def save(step):
-        return net_utils.save_ckpt(
-            output_dir, step, bridge.to_jax_layout(params),
-            {"momentum": bridge.to_jax_layout(opt_state["momentum"]),
-             "step": np.asarray(opt_state["step"], np.int32)})
+    def after_step(step, save):
+        if step > 0 and step % ckpt_interval == 0:
+            save(step)
 
-    def log(pending):
-        p_stats, p_step = pending
-        # Python floats: syncs on the step that made them.
-        host = {k: float(v) for k, v in p_stats.items()}
-        training_stats.UpdateIterStats(host, p_step)
-        training_stats.LogIterStats(p_step)
-        run["stats"].append(host)
-
-    def next_batch():
-        t0 = time.perf_counter()
-        batch = next(loader)
-        run["loader_wait_s"].append(time.perf_counter() - t0)
-        run["canvases"].append(batch["images"].shape[1:3])
-        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-
-    run = {"output_dir": output_dir, "ckpt": None, "start_step": start_step,
-           "stats": [], "step_s": [], "loader_wait_s": [], "canvases": []}
-    pending = None
     was_deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(was_deterministic or
                                        args.deterministic)
     try:
-        for step in range(start_step, cfg.SOLVER.MAX_ITER):
-            t0 = time.perf_counter()
-            training_stats.IterTic()
-            gen = step_generator(step)
-            batches = [next_batch() for _ in range(args.iter_size)]
-            draws = [train_graph.make_draws(
-                gen, batch_size, tuple(b["images"].shape[1:3]),
-                b["gt_boxes"].shape[1], device) for b in batches]
-            if args.iter_size > 1:
-                params, opt_state, stats = ts.train_step_accum(
-                    params, opt_state, batches, draws)
-            else:
-                params, opt_state, stats = ts.train_step(
-                    params, opt_state, batches[0], draws[0])
-            training_stats.IterToc()
-            # Deferred stats readback: step k-1's losses are read while
-            # step k's queued kernels run.
-            if pending is not None:
-                log(pending)
-            pending = (stats, step)
-            if (not args.no_save and step > 0
-                    and step % ckpt_interval == 0):
-                run["ckpt"] = save(step)
-            run["step_s"].append(time.perf_counter() - t0)
-        if pending is not None:
-            log(pending)
-        if not args.no_save:
-            run["ckpt"] = save(cfg.SOLVER.MAX_ITER)
-    except (KeyboardInterrupt, Exception):
-        # As the reference: save a last checkpoint on an interrupt or crash.
-        if not args.no_save:
-            save(opt_state["step"])
-        raise
+        return run_steps(args, roidb, device, params, opt_state, start_step,
+                         after_step, iter_size=args.iter_size,
+                         save_at_end=True)
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
-        loader.close()
-        if tblogger:
-            tblogger.close()
-    return run
 
 
 if __name__ == "__main__":

@@ -5,12 +5,16 @@ which the port's engine does not run on the host; reference:
 lib/utils/boxes.py).
 
 Boxes are [x1, y1, x2, y2] with the Detectron convention that a box
-includes its far edge pixel: width = x2 - x1 + 1. nms, soft_nms and
-box_voting are the numpy code paths of the JAX package (its optional C++
-nms in detectron_tpu/native is not ported).
+includes its far edge pixel: width = x2 - x1 + 1. nms runs the port's
+native host op (detectron_tpu_torch/native, C++ built with g++ at the
+first call), as the JAX package's does; its numpy body stays as nms_plain,
+the plain version the tests and chip_smoke hold it against, bit for bit.
+bbox_overlaps, soft_nms and box_voting are numpy, as in the JAX package.
 """
 
 import numpy as np
+
+from detectron_tpu_torch import native
 
 
 def unique_boxes(boxes, scale=1.0):
@@ -117,8 +121,14 @@ def bbox_overlaps(boxes, query_boxes):
 
 
 def nms(dets, thresh):
-    """Greedy NMS on the host. dets: (N, 5) [x1,y1,x2,y2,score]. Returns the
-    kept indices in descending-score order (cython_nms.nms semantics)."""
+    """Greedy NMS on the host. dets: (N, 5) [x1,y1,x2,y2,score], float32 or
+    float64. Returns the kept indices in descending-score order
+    (cython_nms.nms semantics), through the native nms."""
+    return native.nms(dets, thresh)
+
+
+def nms_plain(dets, thresh):
+    """The numpy version of nms."""
     if dets.shape[0] == 0:
         return []
     x1 = dets[:, 0]
