@@ -230,6 +230,42 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      rle_decode of 100 masks of 800 x 1333, poly_to_counts of 200 seeded
      polygons, rle_intersection through the mask IoU of 100 x 50 RLEs;
      each op's ms, native and numpy (host code: no kernel).
+  Phases 25-28, parallelism. The card's host has one H100 and NCCL takes
+  one rank per card, so the ranks (one process each,
+  detectron_tpu_torch/parallel/launch.py) share cuda:0 over gloo, which
+  reduces CUDA tensors through the host; their times are not a
+  multi-card speed.
+  25. Data-parallel training at full width (phase 5's model, batch,
+     draws and weights, global batch 2, 2 ranks of 1 image): one step in
+     float32 with TF32 off and the convolutions without cuDNN in the
+     ranks and in a one-process train_step on both images, so that an
+     image's forward does not depend on its batch: losses within
+     PAR_LOSS_RTOL, params within PAR_PARAM_REL of each leaf's largest
+     value, every rank's stats equal; then 1 + 3 steps in bf16 (cuDNN on)
+     per rank and in one process, median step ms of each, and the
+     bucketed all-reduce of the gradient tree timed through gloo; an
+     NCCL world of 1 on the card (init, the all-reduce timed, 1 + 3
+     steps); the cross-card NCCL step against the one-process step where
+     torch.cuda.device_count() >= 2, else a line saying it did not run.
+  26. tools/train_net_step in 2 processes with --multihost_coordinator
+     localhost:<port> --num_hosts 2 --host_rank r --dist_backend gloo on
+     phase 8's synthetic training set (the Mask R-CNN yaml, bf16, global
+     batch 2 at TRAIN.SCALES 800): both join the world of 2, their loader
+     seeds differ, they log identical finite json_stats, only rank 0
+     writes checkpoints, and a --resume from its model_step2 continues
+     at step 2.
+  27. tools/test_net in 2 such processes on phase 7's 48 noise images,
+     batch 8 (4 rows a rank), against the one-process engine on batches
+     of 4 (each rank's rows): boxes and scores within 1e-3, identical
+     RLEs and equal COCO AP lines; img/s from rank 0's log.
+  28. parallel/dryrun.dryrun_multichip(4) on cuda:0: 2 data x 2 model
+     ranks with the box head's fc6 / fc7 split, float32 without cuDNN,
+     its step against the one-process step on its 2 images, at phase
+     25's tolerances.
+  Each rank's K1-K4 launches go into launches_by_path ("dp_train_rank<r>",
+  "nccl_world1_train", "multihost_train_rank<r>",
+  "multihost_resume_rank<r>", "sharded_test_net_rank<r>",
+  "dryrun_rank<r>"); K1, K2 and (training) K4 must launch on every rank.
   Phase 2 also holds K1 at the C4 RPN's one-level lanes (2, 6000) and
   (2, 12000), K2 with the whole res4 map as its window (P = 14, N = 2000
   and 200, bf16), K4 at the C4 training shapes (N = 1024 and 256), and
@@ -4106,6 +4142,506 @@ def run_new_phases(device, paths):
     print("phase 24: {:.3f} s".format(time.perf_counter() - t0))
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-28: parallelism (one process per device; on one card the ranks
+# share cuda:0 over gloo, which reduces CUDA tensors through the host)
+# ---------------------------------------------------------------------------
+
+# Phase 25's one-step comparison: losses within PAR_LOSS_RTOL of the
+# one-process step's, params within PAR_PARAM_REL of each leaf's largest
+# value (float32, TF32 off, convolutions without cuDNN in both, so that an
+# image's forward does not depend on the batch it is in; what is left is
+# the order of float sums: the box head's matmul over 1 or 2 images of
+# RoIs, the gradients' sum over the ranks, K4's atomics).
+PAR_LOSS_RTOL = 1e-4
+PAR_PARAM_REL = 1e-4
+# Phase 25 and 26's world: 2 ranks, one image each.
+PAR_RANKS = 2
+PAR_STEPS = 3
+PAR_TIMEOUT_S = 600
+# The card the ranks of phases 25-28 share, and the sizes phase 26 trains
+# at (phase 8's).
+PAR_DEVICE = "cuda:0"
+PAR_TRAIN_KEYS = ["TRAIN.SCALES", "(800,)", "TRAIN.MAX_SIZE", "1333"]
+PAR_TEST_KEYS = []
+
+
+def _par_spec(dtype, cudnn, steps):
+    """run_rank's spec for phase 25's full-width step: the training main
+    path's cfg (phase 5's, compute dtype `dtype`), its calibrated weights,
+    its synthetic 2-image batch and one set of global draws."""
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.parallel import dryrun
+    from detectron_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    set_cfg(tiny=False, dtype=dtype,
+            extra=["SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS)])
+    batch = {k: v.numpy() for k, v in synthetic_train_batch(
+        BATCH, *CANVAS, "cpu", np.random.RandomState(0)).items()}
+    assert cfg.TRAIN.IMS_PER_BATCH == BATCH
+    return {"cfg": dryrun.cfg_snapshot(), "tree": make_tree(),
+            "batch": batch, "draws": dryrun.global_draws(0, batch),
+            "mesh": (PAR_RANKS, 1), "steps": steps, "cudnn": cudnn}
+
+
+def _one_process_step(spec, steps=1):
+    """The spec's step in this process on both images: (stats of each
+    step, params after the first in the JAX layout, host ms of the steps
+    after the first)."""
+    import torch
+
+    from detectron_tpu_torch.models import bridge
+    from detectron_tpu_torch.parallel import dryrun
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.parallel import train_step as ts
+
+    dryrun.set_cfg(spec["cfg"])
+    torch.backends.cudnn.enabled = spec["cudnn"]
+    try:
+        params = bridge.to_torch(spec["tree"], PAR_DEVICE, torch.float32)
+        opt_state = opt.init_opt_state(params)
+        batch = {k: torch.as_tensor(v).to(PAR_DEVICE) for k, v in
+                 spec["batch"].items()}
+        draws = {k: torch.as_tensor(v).to(PAR_DEVICE) for k, v in
+                 spec["draws"].items()}
+        stats, first, ms = [], None, []
+        for i in range(steps):
+            _sync()
+            t0 = time.perf_counter()
+            params, opt_state, st = ts.train_step(params, opt_state, batch,
+                                                  draws)
+            stats.append({k: float(v) for k, v in st.items()})
+            _sync()
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            else:
+                first = bridge.to_jax_layout(params)
+        return stats, first, ms
+    finally:
+        torch.backends.cudnn.enabled = True
+
+
+def _sync():
+    import torch
+
+    if PAR_DEVICE.startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _compare_steps(label, got_stats, got_params, ref_stats, ref_params):
+    """Losses and params of a mesh step against the one-process step's."""
+    from detectron_tpu_torch.parallel import optimizer as opt
+
+    worst_loss = max(abs(got_stats[k] - v) / max(abs(v), 1e-12)
+                     for k, v in ref_stats.items() if k != "lr")
+    ref = dict(opt.flatten(ref_params))
+    got = dict(opt.flatten(got_params))
+    if set(ref) != set(got):
+        raise AssertionError(label + ": the gathered params have other "
+                             "leaves than the model's")
+    worst, at = 0.0, None
+    for path, r in ref.items():
+        rel = float(np.abs(got[path] - r).max()) / max(
+            float(np.abs(r).max()), 1e-12)
+        if rel > worst:
+            worst, at = rel, path
+    print("{}: losses within {:.3g} relative of the one-process step's "
+          "(bound {}), params within {:.3g} of each leaf's largest value "
+          "(worst {}; bound {})".format(label, worst_loss, PAR_LOSS_RTOL,
+                                        worst, at, PAR_PARAM_REL))
+    if worst_loss > PAR_LOSS_RTOL or worst > PAR_PARAM_REL:
+        raise AssertionError("{} differs from the one-process step: losses "
+                             "{:.3g}, params {:.3g} at {}".format(
+                                 label, worst_loss, worst, at))
+
+
+def par_rank(device, spec, time_allreduce=False):
+    """A rank of phase 25: dryrun.run_rank's steps, then, where asked, 3
+    timed runs (after a warm-up) of comm.all_reduce_tree over the world
+    on a list of tensors of the trainable leaves' sizes."""
+    import torch
+
+    from detectron_tpu_torch.models import bridge
+    from detectron_tpu_torch.parallel import comm, dryrun
+    from detectron_tpu_torch.parallel import optimizer as opt
+
+    out = dryrun.run_rank(device, spec)
+    if not time_allreduce:
+        return out
+    leaves = [p for path, p in opt.flatten(bridge.to_torch(
+        spec["tree"], device, torch.float32))
+        if opt.param_kind(path) not in opt.FROZEN_KINDS]
+    world = torch.distributed.group.WORLD
+    comm.all_reduce_tree(leaves, world)   # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls = comm.all_reduce_tree(leaves, world)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce"] = {"ms": times, "calls": calls,
+                        "numel": sum(t.numel() for t in leaves)}
+    return out
+
+
+def _spawn_ranks(devices, spec, backend, time_allreduce=False):
+    from detectron_tpu_torch.parallel import launch
+
+    with tempfile.TemporaryDirectory() as logs:
+        try:
+            return launch.spawn(
+                "chip_smoke:par_rank", devices, (spec, time_allreduce),
+                backend=backend, timeout_s=PAR_TIMEOUT_S, log_dir=logs)
+        finally:
+            for name in sorted(os.listdir(logs)):
+                with open(os.path.join(logs, name)) as f:
+                    tail = [x for x in f.read().splitlines()
+                            if "socket.cpp" not in x][-5:]
+                if tail:
+                    print("  {} (last lines): {}".format(name, " | ".join(
+                        tail)))
+
+
+def _allreduce_line(label, got):
+    a = got["allreduce"]
+    print("{}: bucketed all-reduce of the trainable gradient tree ({} "
+          "values, float32, {} calls): {} ms (3 runs after a warm-up)".format(
+              label, a["numel"], a["calls"],
+              [round(t, 3) for t in a["ms"]]))
+
+
+def run_data_parallel_path():
+    """Phase 25. Returns the launch counts of each rank's steps."""
+    import torch
+
+    paths = {}
+    # The one-step comparison, float32 without cuDNN.
+    spec = _par_spec("float32", cudnn=False, steps=1)
+    ref_stats, ref_params, _ = _one_process_step(spec)
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks([PAR_DEVICE] * PAR_RANKS, spec, "gloo")
+    print("data-parallel check: {} gloo ranks on {} (1 image each) in "
+          "{:.3f} s".format(PAR_RANKS, PAR_DEVICE, time.perf_counter() - t0))
+    if any(r["stats"] != ranks[0]["stats"] for r in ranks):
+        raise AssertionError("the ranks logged different stats")
+    _compare_steps("data-parallel step (Mask R-CNN R-50-FPN, float32, {} x "
+                   "{} x {}, {} ranks)".format(BATCH, *CANVAS, PAR_RANKS),
+                   ranks[0]["stats"][0], ranks[0]["params"], ref_stats[0],
+                   ref_params)
+    del ref_params, ranks
+    # The main path's setting (bf16, cuDNN) timed: one process on both
+    # images, then 2 ranks sharing the card.
+    spec = _par_spec("bfloat16", cudnn=True, steps=1 + PAR_STEPS)
+    one_stats, _, one_ms = _one_process_step(spec, 1 + PAR_STEPS)
+    ranks = _spawn_ranks([PAR_DEVICE] * PAR_RANKS, spec, "gloo",
+                         time_allreduce=True)
+    for r in ranks:
+        paths["dp_train_rank{}".format(r["rank"])] = r["launches"]
+        require_launches(r["launches"], ("nms_keep_mask", "roi_window_pool",
+                                         "roi_window_accum"),
+                         "dp_train rank {}".format(r["rank"]))
+    bad = [s for r in ranks for s in r["stats"]
+           if not all(np.isfinite(list(s.values())))]
+    if bad:
+        raise AssertionError("non-finite data-parallel stats: {}".format(bad))
+    med = [statistics.median(r["step_ms"]) for r in ranks]
+    print("data-parallel train path (bf16, {} ranks sharing one card's SMs "
+          "over gloo: not a multi-card speed): median step {} ms per rank "
+          "over {} steps after 1 warm-up; one process on both images: "
+          "median {:.3f} ms; first-step loss {} (ranks) / {} (one process); "
+          "launches {}".format(
+              PAR_RANKS, [round(m, 3) for m in med], PAR_STEPS,
+              statistics.median(one_ms), round(ranks[0]["stats"][0]["loss"],
+                                               4),
+              round(one_stats[0]["loss"], 4),
+              [r["launches"] for r in ranks]))
+    _allreduce_line("gloo through the host, {} ranks on cuda:0".format(
+        PAR_RANKS), ranks[0])
+    # NCCL on the card: a world of 1 (init, the bucketed all-reduce, steps).
+    spec["mesh"] = (1, 1)
+    spec["batch"] = {k: v[:1] for k, v in spec["batch"].items()}
+    spec["draws"] = {k: v[:1] for k, v in spec["draws"].items()}
+    nccl = _spawn_ranks([PAR_DEVICE], spec, None, time_allreduce=True)[0]
+    paths["nccl_world1_train"] = nccl["launches"]
+    require_launches(nccl["launches"], ("nms_keep_mask", "roi_window_pool",
+                                        "roi_window_accum"),
+                     "nccl_world1_train")
+    print("NCCL world of 1 on cuda:0 (1 image, bf16): median step {:.3f} ms "
+          "over {} steps, loss {}".format(
+              statistics.median(nccl["step_ms"]), PAR_STEPS,
+              round(nccl["stats"][0]["loss"], 4)))
+    _allreduce_line("NCCL, world of 1", nccl)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2 and PAR_DEVICE.startswith("cuda"):
+        spec = _par_spec("float32", cudnn=False, steps=1)
+        ranks = _spawn_ranks(["cuda:0", "cuda:1"], spec, None)
+        _compare_steps("cross-card NCCL step (2 cards)", ranks[0]["stats"][0],
+                       ranks[0]["params"], ref_stats[0],
+                       _one_process_step(spec)[1])
+    else:
+        print("cross-card NCCL: not run: torch.cuda.device_count() is {} "
+              "(NCCL takes one rank per card)".format(n_cards))
+    return paths
+
+
+def cli_rank(argv):
+    """A rank of phases 26-27: `python -c "import chip_smoke, sys;
+    chip_smoke.cli_rank(sys.argv[1:])" MODULE OUT_PREFIX ARGS...` runs the
+    CLI's main(ARGS) in that process, K1-K4's launch counters set to 0
+    before, and writes the counts to OUT_PREFIX_rank<--host_rank>.json."""
+    import importlib
+
+    module, prefix, args = argv[0], argv[1], argv[2:]
+    wrappers = kernel_wrappers(accum=True)
+    importlib.import_module(module).main(args)
+    rank = args[args.index("--host_rank") + 1]
+    with open("{}_rank{}.json".format(prefix, rank), "w") as f:
+        json.dump({k: fn.launches for k, fn in wrappers.items()}, f)
+
+
+def _cli_ranks(workdir, tag, module, argv, backend="gloo"):
+    """Two ranks of a CLI on cuda:0 in one world (launch.spawn_cli:
+    --multihost_coordinator localhost:<free port> --num_hosts 2
+    --host_rank r), each run through cli_rank. Returns each rank's (log,
+    launch counts)."""
+    from detectron_tpu_torch.parallel import launch
+
+    prefix = os.path.join(workdir, tag)
+    logs = ["{}_rank{}.log".format(prefix, r) for r in range(PAR_RANKS)]
+    launch.spawn_cli(
+        module, argv, [PAR_DEVICE] * PAR_RANKS, backend=backend, logs=logs,
+        timeout_s=PAR_TIMEOUT_S,
+        command=[sys.executable, "-c", "import chip_smoke, sys; "
+                 "chip_smoke.cli_rank(sys.argv[1:])", module, prefix])
+    got = []
+    for r, log in enumerate(logs):
+        with open(log) as f, open("{}_rank{}.json".format(prefix, r)) as g:
+            got.append((f.read(), json.load(g)))
+    return got
+
+
+def _json_stats(text):
+    import re
+
+    return [json.loads(x) for x in re.findall(r"json_stats: (\{.*\})", text)]
+
+
+def run_multihost_path(workdir):
+    """Phase 26. Returns each rank's launch counts."""
+    import re
+
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
+    from detectron_tpu_torch.utils import net as net_utils
+
+    n_ann = make_valset(workdir, TRAIN_NET_IMAGES, "train2017")
+    set_cfg(tiny=False, dtype="bfloat16")
+    weights = net_utils.save_ckpt(os.path.join(workdir, "weights"), 0,
+                                  make_tree())
+    paths = {}
+
+    def flags(steps, extra):
+        return lambda r: [
+            "--dataset", "coco2017", "--cfg", MASK_YAML, "--bs",
+            str(BATCH), "--nw", "2", "--disp_interval", "1"] + extra + [
+            "--set", "DATA_DIR", workdir, "OUTPUT_DIR",
+            os.path.join(workdir, "out_rank{}".format(r)), "NUM_GPUS", "1",
+            "SOLVER.MAX_ITER", str(steps), "SOLVER.CLIP_GRADIENTS",
+            str(CLIP_GRADIENTS), "TPU.COMPUTE_DTYPE", "bfloat16"] + \
+            PAR_TRAIN_KEYS
+
+    ckpt_dir = os.path.join(workdir, "out_rank0", "e2e_mask_rcnn_R-50-FPN_1x",
+                            "ckpt")
+    runs = {}
+    t0 = time.perf_counter()
+    runs["multihost_train"] = _cli_ranks(
+        workdir, "train", "detectron_tpu_torch.tools.train_net_step",
+        flags(2, ["--load_ckpt", weights]))
+    first_ckpts = sorted(os.listdir(ckpt_dir))
+    runs["multihost_resume"] = _cli_ranks(
+        workdir, "resume", "detectron_tpu_torch.tools.train_net_step",
+        flags(3, ["--load_ckpt", os.path.join(ckpt_dir, "model_step2"),
+                  "--resume"]))
+    wall = time.perf_counter() - t0
+    for name, ranks in runs.items():
+        texts = [t for t, _ in ranks]
+        for r, (text, launches) in enumerate(ranks):
+            if not re.search(r"multi-host: process {}/{}, 1 local / {} global"
+                             .format(r, PAR_RANKS, PAR_RANKS), text):
+                raise AssertionError("{} rank {} did not join the world of "
+                                     "{}".format(name, r, PAR_RANKS))
+            paths["{}_rank{}".format(name, r)] = launches
+            require_launches(launches, ("nms_keep_mask", "roi_window_pool",
+                                        "roi_window_accum"),
+                             "{} rank {}".format(name, r))
+        seeds = [re.search(r"loader stream seed (\d+) \(host {}/".format(r),
+                           t).group(1) for r, t in enumerate(texts)]
+        stats = [_json_stats(t) for t in texts]
+        mine = ("time", "eta")
+        same = [[{k: v for k, v in s.items() if k not in mine} for s in st]
+                for st in stats]
+        want_iters = [0, 1] if name == "multihost_train" else [2]
+        if len(set(seeds)) != PAR_RANKS or any(s != same[0] for s in same) \
+                or [s["iter"] for s in stats[0]] != want_iters or not all(
+                    np.isfinite(v) for s in stats[0] for k, v in s.items()
+                    if k != "eta"):
+            raise AssertionError("{}: seeds {}, stats {}".format(
+                name, seeds, stats))
+        print("{} (train_net_step, {} processes on cuda:0 over gloo, global "
+              "batch {}, bf16): loader seeds {}, identical json_stats on "
+              "every rank, iters {}, losses {}".format(
+                  name, PAR_RANKS, BATCH, seeds, want_iters,
+                  [round(s["loss"], 4) for s in stats[0]]))
+    rank1 = [p for p in glob.glob(os.path.join(workdir, "out_rank1", "**"),
+                                  recursive=True) if "model_step" in p]
+    last_ckpts = sorted(os.listdir(ckpt_dir))
+    if "model_step2" not in first_ckpts or "model_step3" not in last_ckpts \
+            or rank1:
+        raise AssertionError("checkpoints: rank 0 {} then {}, rank 1 {}"
+                             .format(first_ckpts, last_ckpts, rank1))
+    print("multi-host CLI: {} annotations on {} images; rank 0 wrote {} then "
+          "{}, rank 1 nothing; --resume continued at step 2; {:.3f} s for "
+          "both runs".format(n_ann, TRAIN_NET_IMAGES, first_ckpts,
+                             last_ckpts, wall))
+    return paths
+
+
+def _detections_equal(a, b, num_classes):
+    """Largest |box or score difference| and whether every class and
+    image has the same count and identical RLE strings."""
+    worst, same = 0.0, True
+    for j in range(1, num_classes):
+        for i in range(len(a["all_boxes"][j])):
+            x, y = a["all_boxes"][j][i], b["all_boxes"][j][i]
+            if x.shape != y.shape:
+                return float("inf"), False
+            if len(x):
+                worst = max(worst, float(np.abs(x - y).max()))
+            same &= [r["counts"] for r in a["all_segms"][j][i]] == \
+                [r["counts"] for r in b["all_segms"][j][i]]
+    return worst, same
+
+
+def run_sharded_eval_path(workdir):
+    """Phase 27. Returns each rank's launch counts."""
+    import re
+    import types
+
+    from detectron_tpu_torch.core import test_engine
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
+    from detectron_tpu_torch.utils import net as net_utils
+
+    make_valset(workdir, ENGINE_IMAGES)
+    keys = ["DATA_DIR", workdir, "TEST.DATASETS",
+            "('coco_2017_val',)"] + PAR_TEST_KEYS
+    set_cfg(tiny=False, dtype="bfloat16", extra=keys, yaml=MASK_YAML)
+    ckpt = net_utils.save_ckpt(os.path.join(workdir, "train"), 0,
+                               make_tree())
+    # The reference: one process, batches of each rank's rows.
+    ref_dir = os.path.join(workdir, "one")
+    t0 = time.perf_counter()
+    ref_res = test_engine.run_inference(
+        types.SimpleNamespace(load_ckpt=ckpt, load_detectron=None),
+        dataset_name="coco_2017_val", output_dir=ref_dir,
+        batch_size=ENGINE_BATCH // PAR_RANKS, device=PAR_DEVICE)
+    one_s = time.perf_counter() - t0
+    out_dir = os.path.join(workdir, "sharded")
+    t0 = time.perf_counter()
+    ranks = _cli_ranks(workdir, "test_net",
+                       "detectron_tpu_torch.tools.test_net",
+                       lambda r: ["--cfg", MASK_YAML, "--load_ckpt", ckpt,
+                                  "--output_dir", out_dir, "--batch_size",
+                                  str(ENGINE_BATCH), "--set"] + keys + [
+                                      "TPU.COMPUTE_DTYPE", "bfloat16"])
+    wall = time.perf_counter() - t0
+    paths = {}
+    for r, (text, launches) in enumerate(ranks):
+        if not re.search(r"rank {} of {}, its rows of each batch".format(
+                r, PAR_RANKS), text):
+            raise AssertionError("rank {} did not run its rows".format(r))
+        paths["sharded_test_net_rank{}".format(r)] = launches
+        require_launches(launches, ("nms_keep_mask", "roi_window_pool"),
+                         "sharded_test_net rank {}".format(r))
+    rate = re.search(r"\(([0-9.]+) img/s end-to-end", ranks[0][0]).group(1)
+    with open(os.path.join(out_dir, "detections.pkl"), "rb") as f:
+        got = pickle.load(f)
+    with open(os.path.join(ref_dir, "detections.pkl"), "rb") as f:
+        ref = pickle.load(f)
+    worst, same_rles = _detections_equal(got, ref, cfg.MODEL.NUM_CLASSES)
+    ap = re.findall(r"copypaste: ([-0-9.,]+)$", ranks[0][0], re.M)
+    ref_ap = [",".join("{:.4f}".format(v) for v in m.values())
+              for m in ref_res["coco_2017_val"].values()]
+    print("sharded test_net (test_net.main on {} ranks sharing cuda:0 over "
+          "gloo: not a multi-card speed; Mask R-CNN R-50-FPN yaml, bf16, "
+          "batch {} = {} rows a rank): {} images in {:.3f} s with model load "
+          "and evaluation, engine {} img/s (rank 0's log); one process, "
+          "batches of {}: {:.3f} s; boxes and scores within {} of the one "
+          "process's (bound 1e-3), RLEs {}; copypaste AP lines {} against "
+          "{}".format(PAR_RANKS, ENGINE_BATCH, ENGINE_BATCH // PAR_RANKS,
+                      ENGINE_IMAGES, wall, rate, ENGINE_BATCH // PAR_RANKS,
+                      one_s, worst, "identical" if same_rles else "differ",
+                      ap, ref_ap))
+    if worst > 1e-3 or not same_rles or ap != ref_ap:
+        raise AssertionError("the sharded engine differs from the one-"
+                             "process engine on the same 4-image batches")
+    return paths
+
+
+def run_dryrun_path():
+    """Phase 28. Returns each rank's launch counts."""
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import init
+    from detectron_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    ranks = dryrun.dryrun_multichip(4, device=PAR_DEVICE, backend="gloo",
+                                    timeout_s=PAR_TIMEOUT_S, cudnn=False)
+    wall = time.perf_counter() - t0
+    n_data, n_model = dryrun.mesh_shape(4)
+    dryrun.tiny_cfg(batch=n_data)
+    batch = dryrun.dryrun_batch(n_data)
+    spec = {"cfg": dryrun.cfg_snapshot(), "tree": init.init_model(0),
+            "batch": batch, "draws": dryrun.global_draws(1, batch),
+            "cudnn": False}
+    ref_stats, ref_params, _ = _one_process_step(spec)
+    _compare_steps("dryrun_multichip(4) ({} data x {} model, the box head "
+                   "split, float32, global batch {}, 4 ranks on {} over "
+                   "gloo, {:.3f} s)".format(n_data, n_model,
+                                            cfg.TRAIN.IMS_PER_BATCH,
+                                            PAR_DEVICE, wall),
+                   ranks[0]["stats"][0], ranks[0]["params"], ref_stats[0],
+                   ref_params)
+    paths = {}
+    for r in ranks:
+        paths["dryrun_rank{}".format(r["rank"])] = r["launches"]
+        require_launches(r["launches"], ("nms_keep_mask", "roi_window_pool",
+                                         "roi_window_accum"),
+                         "dryrun rank {}".format(r["rank"]))
+    return paths
+
+
+def run_parallel_phases(paths):
+    """Phases 25-28, each timed; their launch counts go into paths."""
+    import torch
+
+    for phase, run, workdir in ((25, run_data_parallel_path, False),
+                                (26, run_multihost_path, True),
+                                (27, run_sharded_eval_path, True),
+                                (28, run_dryrun_path, False)):
+        if PAR_DEVICE.startswith("cuda"):
+            # The ranks are processes of their own: give them the memory
+            # this process's allocator holds from the earlier phases.
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        if workdir:
+            with tempfile.TemporaryDirectory() as wd:
+                paths.update(run(wd))
+        else:
+            paths.update(run())
+        print("phase {}: {:.3f} s".format(phase, time.perf_counter() - t0))
+
+
 def main():
     import torch
 
@@ -4206,6 +4742,7 @@ def main():
     paths.update(run_variant_paths(device))
     print("phase 20: {:.3f} s".format(time.perf_counter() - t0))
     run_new_phases(device, paths)
+    run_parallel_phases(paths)
 
     meta = {
         "nms_keep_mask": ("detectron_tpu_torch/csrc/nms_keep_mask.cu",

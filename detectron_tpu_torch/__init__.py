@@ -7,7 +7,8 @@ same params tree (JAX layout, carried over by models/bridge.py) and the same
 public layouts (NHWC activations, (B, R, 4) boxes in scaled-image
 coordinates, the same output dict as detect_graph). It runs Mask R-CNN
 R-50-FPN inference (core/test.py::detect_graph) and the training step
-(parallel/train_step.py::train_step).
+(parallel/train_step.py::train_step), on one device or on a world of
+processes, one per device (parallel/mesh.py).
 
 Each Pallas kernel on the ported path is a hand-written CUDA kernel for
 sm_90a under csrc/, built with nvcc at first use and bound through ctypes

@@ -17,9 +17,17 @@ initialize_model_from_cfg, empty_results, extend_results).
   ends before the paste of batch k-1 starts (ROADMAP Queue A, A2).
 
 Entry points take the device explicitly and run on "cuda" unless the
-caller asks for "cpu"; without a GPU, "cuda" raises. The mesh-sharded
-evaluation of the JAX engine waits for ROADMAP Queue A, A14; with one
-device this is the counterpart of its single-device branch.
+caller asks for "cpu"; without a GPU, "cuda" raises.
+
+On a world of W > 1 processes (torch.distributed, one per device;
+parallel/mesh.py), when the batch divides by W, each rank runs its rows
+[r * batch / W, (r + 1) * batch / W) of every batch, the counterpart of
+the JAX engine's P("data") sharding (test_engine.py:221-238); otherwise
+every rank runs every batch, as the JAX engine does. The loader thread
+and the post-processing pool are each rank's own. The ranks' results are
+gathered on rank 0 (gather_object) into image order; rank 0 alone writes
+detections.pkl and evaluates, and the other ranks keep only their own
+rows.
 """
 
 import logging
@@ -40,25 +48,17 @@ from detectron_tpu_torch.data import rle as mask_util
 from detectron_tpu_torch.models import bridge
 from detectron_tpu_torch.models import init
 from detectron_tpu_torch.models import model_builder as mb
+from detectron_tpu_torch.parallel import comm
+from detectron_tpu_torch.parallel import mesh as mesh_mod
 from detectron_tpu_torch.utils import blob as blob_utils
 from detectron_tpu_torch.utils import boxes as box_utils
 from detectron_tpu_torch.utils import detectron_weight_helper as dwh
 from detectron_tpu_torch.utils import image_io
 from detectron_tpu_torch.utils import net as net_utils
+from detectron_tpu_torch.utils.device import check_device
 from detectron_tpu_torch.utils.timer import Timer
 
 logger = logging.getLogger(__name__)
-
-
-def _check_device(device):
-    """torch.device(device); raises if it is a CUDA device and there is
-    none (nothing falls back to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device {} was asked for, but "
-                           "torch.cuda.is_available() is false; pass "
-                           "device='cpu' to run on the CPU".format(device))
-    return device
 
 
 def initialize_model_from_cfg(args=None, seed=0, device="cuda"):
@@ -67,7 +67,7 @@ def initialize_model_from_cfg(args=None, seed=0, device="cuda"):
     models/init.py from `seed`; then args.load_ckpt's params (a checkpoint
     in the JAX package's format); then args.load_detectron's blobs (a
     Detectron .pkl) over them; then the bridge to torch."""
-    device = _check_device(device)
+    device = check_device(device)
     params = init.init_model(seed)
     load_ckpt = getattr(args, "load_ckpt", None) if args else None
     load_detectron = getattr(args, "load_detectron", None) if args else None
@@ -193,7 +193,7 @@ def test_net_im_detect_all(params, roidb_entries, dataset, output_dir=None,
     """Per-image eval through core/test.py :: im_detect_all, the path that
     honors TEST.SOFT_NMS / BBOX_VOTE (reference: lib/core/test_engine.py ::
     test_net routes every image through im_detect_all)."""
-    device = _check_device(device)
+    device = check_device(device)
     num_images = len(roidb_entries)
     num_classes = cfg.MODEL.NUM_CLASSES
     all_boxes, all_segms, all_keyps = empty_results(num_classes, num_images)
@@ -212,7 +212,7 @@ def test_net_im_detect_all(params, roidb_entries, dataset, output_dir=None,
         if idx % 50 == 0:
             logger.info("im_detect_all: %d/%d (%.3fs/im)", idx + 1,
                         num_images, timer.average_time)
-    if output_dir:
+    if output_dir and mesh_mod.is_chief():
         _write_detections(output_dir, "detections.pkl", all_boxes=all_boxes,
                           all_segms=all_segms, all_keyps=all_keyps)
     return all_boxes, all_segms, all_keyps
@@ -224,8 +224,12 @@ def test_net(params, roidb_entries, dataset, batch_size=8, output_dir=None,
     keyps in the reference's [cls][img] structure. detect_fn (default:
     core/test.py's detect_graph, or detect_graph_with_proposals with
     TEST.PRECOMPUTED_PROPOSALS) is called on each batch's device tensors
-    (params, images, im_info[, proposals, proposal validity])."""
-    device = _check_device(device)
+    (params, images, im_info[, proposals, proposal validity]).
+
+    On a world of W ranks whose batch divides by W, each rank runs its
+    rows of each batch and rank 0 gathers every rank's results and writes
+    detections.pkl; the other ranks' results hold their own rows only."""
+    device = check_device(device)
     if detect_fn is None and _flagged_host_path():
         return test_net_im_detect_all(params, roidb_entries, dataset,
                                       output_dir=output_dir, device=device)
@@ -252,6 +256,17 @@ def test_net(params, roidb_entries, dataset, batch_size=8, output_dir=None,
     batches = [(key, indices[s:s + batch_size])
                for key, indices in buckets.items()
                for s in range(0, len(indices), batch_size)]
+    rank, world = mesh_mod.rank_and_world()
+    sharded = world > 1 and batch_size % world == 0
+    if sharded:
+        # This rank's rows of each (zero-padded) batch; a rank whose rows
+        # are all padding skips the batch (the graph has no collective).
+        batch_size //= world
+        batches = [(key, chunk[rank * batch_size:(rank + 1) * batch_size])
+                   for key, chunk in batches]
+        batches = [(key, chunk) for key, chunk in batches if chunk]
+    mine = []
+    n_run = sum(len(chunk) for _, chunk in batches)
 
     R = cfg.TEST.PROPOSAL_LIMIT if use_props else 0
     # The graph's first conv casts to the compute dtype anyway, so casting
@@ -339,13 +354,7 @@ def test_net(params, roidb_entries, dataset, batch_size=8, output_dir=None,
                 out, bi, infos, num_classes,
                 (entry["height"], entry["width"]))
 
-        for idx, (cls_boxes, cls_segms, cls_keyps) in post_pool.map(
-                one, list(enumerate(chunk))):
-            extend_results(idx, all_boxes, cls_boxes)
-            if cls_segms is not None:
-                extend_results(idx, all_segms, cls_segms)
-            if cls_keyps is not None:
-                extend_results(idx, all_keyps, cls_keyps)
+        mine.extend(post_pool.map(one, list(enumerate(chunk))))
         timers["misc"].toc()
 
     t_wall = Timer()
@@ -380,7 +389,7 @@ def test_net(params, roidb_entries, dataset, batch_size=8, output_dir=None,
             if n_done % (batch_size * 8) < batch_size:
                 logger.info(
                     "test_net: %d/%d | load %.3fs, device wait %.3fs, "
-                    "post %.3fs per batch", n_done, num_images,
+                    "post %.3fs per batch", n_done, n_run,
                     timers["im_load"].average_time,
                     timers["device_wait"].average_time,
                     timers["misc"].average_time)
@@ -396,25 +405,37 @@ def test_net(params, roidb_entries, dataset, batch_size=8, output_dir=None,
                 pass
         loader.join()
         post_pool.shutdown()
+    if sharded:
+        got = comm.gather_object(mine)
+        if got is not None:
+            mine = [x for rows in got for x in rows]
+    for idx, (cls_boxes, cls_segms, cls_keyps) in mine:
+        extend_results(idx, all_boxes, cls_boxes)
+        if cls_segms is not None:
+            extend_results(idx, all_segms, cls_segms)
+        if cls_keyps is not None:
+            extend_results(idx, all_keyps, cls_keyps)
     t_wall.toc()
     if num_images:
-        logger.info("test_net: %d images in %.3fs (%.3f img/s end-to-end)",
-                    num_images, t_wall.total_time,
-                    num_images / max(t_wall.total_time, 1e-9))
-        if t_first_done is not None and num_images > n_first:
+        logger.info("test_net: %d images in %.3fs (%.3f img/s end-to-end"
+                    "%s)", num_images, t_wall.total_time,
+                    num_images / max(t_wall.total_time, 1e-9),
+                    ", rank {} of {}, its rows of each batch".format(
+                        rank, world) if sharded else "")
+        if t_first_done is not None and n_run > n_first:
             steady = time.time() - t_first_done
             logger.info(
                 "test_net: steady state %.3f img/s (%d images in %.3fs, "
-                "first batch excluded)",
-                (num_images - n_first) / max(steady, 1e-9),
-                num_images - n_first, steady)
+                "first batch excluded%s)",
+                (n_run - n_first) / max(steady, 1e-9), n_run - n_first,
+                steady, ", this rank's" if sharded else "")
         logger.info("test_net: per batch (%d batches): load %.4fs, device "
                     "wait %.4fs, post %.4fs", len(batches),
                     timers["im_load"].average_time,
                     timers["device_wait"].average_time,
                     timers["misc"].average_time)
 
-    if output_dir:
+    if output_dir and mesh_mod.is_chief():
         _write_detections(output_dir, "detections.pkl", all_boxes=all_boxes,
                           all_segms=all_segms, all_keyps=all_keyps)
     return all_boxes, all_segms, all_keyps
@@ -429,11 +450,15 @@ def run_inference(args, dataset_name=None, output_dir=None, batch_size=8,
     detection_range_{start}_{end}.pkl without dataset evaluation (the
     reference's child-subprocess contract, lib/core/test_engine.py ::
     test_net with ind_range).
+
+    On a world of several ranks test_net shards the batches; rank 0
+    writes the files, evaluates and returns the results, the other ranks
+    return None.
     """
     from detectron_tpu_torch.data import task_evaluation
     from detectron_tpu_torch.data.json_dataset import JsonDataset
 
-    device = _check_device(device)
+    device = check_device(device)
     dataset_name = dataset_name or cfg.TEST.DATASETS[0]
     dataset = JsonDataset(dataset_name)
     proposal_file = None
@@ -450,7 +475,7 @@ def run_inference(args, dataset_name=None, output_dir=None, batch_size=8,
         all_boxes, all_segms, all_keyps = test_net(
             params, roidb[start:end], dataset, batch_size=batch_size,
             device=device)
-        if output_dir:
+        if output_dir and mesh_mod.is_chief():
             _write_detections(
                 output_dir, "detection_range_{}_{}.pkl".format(start, end),
                 all_boxes=all_boxes, all_segms=all_segms,
@@ -461,6 +486,8 @@ def run_inference(args, dataset_name=None, output_dir=None, batch_size=8,
     all_boxes, all_segms, all_keyps = test_net(
         params, roidb, dataset, batch_size=batch_size, output_dir=output_dir,
         device=device)
+    if not mesh_mod.is_chief():
+        return None
     t_eval = Timer()
     t_eval.tic()
     results = task_evaluation.evaluate_all(

@@ -5,11 +5,21 @@ mask_rcnn_losses, keypoint_losses).
 The losses take fixed-shape tensors with validity masks: a masked element
 adds 0 to the sum and 0 to the normalizer, which reproduces the reference's
 dynamically sized blobs. Everything is computed in float32.
+
+Data-parallel (parallel/train_step.py with a mesh): each rank holds some
+images of the global batch, and `group` is the data group. A loss whose
+normalizer counts the batch's elements (valid RoIs, valid mask RoIs,
+visible keypoints) divides this rank's sum by that count summed over the
+group, so the ranks' losses (and gradients) add up to the global batch's,
+as the JAX package's sharded step computes it. The RPN's normalizer is a
+constant of the cfg (TRAIN.IMS_PER_BATCH is the global batch). With group
+None each loss is the one-device loss.
 """
 
 import torch
 
 from detectron_tpu_torch.core.config import cfg
+from detectron_tpu_torch.parallel import comm
 
 
 def smooth_l1(x, beta):
@@ -55,7 +65,7 @@ def rpn_losses(cls_logits, bbox_pred, labels, bbox_targets, bbox_valid):
 
 
 def fast_rcnn_losses(cls_logits, bbox_pred, labels, label_valid,
-                     bbox_targets, bbox_fg):
+                     bbox_targets, bbox_fg, group=None):
     """Box head losses over the sampled RoIs of the whole batch.
     cls_logits (N, C); labels (N,) in [0, C); label_valid (N,); bbox_pred
     (N, 4C') per class (C' = 2 for class-agnostic regression: background
@@ -63,7 +73,7 @@ def fast_rcnn_losses(cls_logits, bbox_pred, labels, label_valid,
     Returns (softmax CE mean over valid RoIs, smooth L1 of the label
     class's deltas summed over fg / valid count, accuracy_cls)."""
     valid = label_valid.to(torch.float32)
-    n_valid = torch.clamp(valid.sum(), min=1.0)
+    n_valid = torch.clamp(comm.global_sum(valid.sum(), group), min=1.0)
     labels = labels.long()
     logp = torch.log_softmax(cls_logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, 1, labels[:, None])[:, 0]
@@ -81,7 +91,8 @@ def fast_rcnn_losses(cls_logits, bbox_pred, labels, label_valid,
     return cls_loss, bbox_loss, acc
 
 
-def mask_rcnn_losses(mask_logits, mask_targets, mask_labels, mask_valid):
+def mask_rcnn_losses(mask_logits, mask_targets, mask_labels, mask_valid,
+                     group=None):
     """Mask head loss: sigmoid CE over every pixel of the valid fg RoIs on
     the label's channel (the only channel when class-agnostic), normalized
     by n_valid * M^2 and scaled by MRCNN.WEIGHT_LOSS_MASK.
@@ -95,11 +106,12 @@ def mask_rcnn_losses(mask_logits, mask_targets, mask_labels, mask_valid):
         sel = mask_logits[..., 0]
     ce = sigmoid_ce(sel.to(torch.float32), mask_targets.to(torch.float32))
     valid = mask_valid.to(torch.float32)[:, None, None]
-    denom = torch.clamp(valid.sum() * M * M, min=1.0)
+    denom = torch.clamp(comm.global_sum(valid.sum(), group) * M * M,
+                        min=1.0)
     return cfg.MRCNN.WEIGHT_LOSS_MASK * torch.sum(ce * valid) / denom
 
 
-def keypoint_losses(kps_logits, kps_targets, kps_weights):
+def keypoint_losses(kps_logits, kps_targets, kps_weights, group=None):
     """Keypoint head loss: a softmax cross-entropy over each keypoint's
     S x S heatmap, in float32, summed over the weighted keypoints and
     divided by their count (NORMALIZE_BY_VISIBLE_KEYPOINTS, at least 1)
@@ -113,7 +125,11 @@ def keypoint_losses(kps_logits, kps_targets, kps_weights):
     w = kps_weights.to(torch.float32)
     loss = torch.sum(nll * w)
     if cfg.KRCNN.NORMALIZE_BY_VISIBLE_KEYPOINTS:
-        loss = loss / torch.clamp(w.sum(), min=1.0)
+        loss = loss / torch.clamp(comm.global_sum(w.sum(), group), min=1.0)
     else:
-        loss = loss / (N * K)
+        count = N * K
+        if group is not None:
+            count = comm.global_sum(torch.tensor(float(count),
+                                                 device=w.device), group)
+        loss = loss / count
     return cfg.KRCNN.LOSS_WEIGHT * loss

@@ -181,14 +181,17 @@ def roi_feature_transform(features, scales, rois, resolution,
         tuple(tuple(r) for r in cfg.TPU.ROI_RUNGS))
 
 
-def forward_box_outputs(params, features, scales, rois):
+def forward_box_outputs(params, features, scales, rois, model_group=None):
     """RoI transform + box head + outputs: the head FAST_RCNN.ROI_BOX_HEAD
     names (models/registry.py; a C4 model's res5 and a spatial mean on
     14 x 14 pooled res4 features), all RoIs of the batch at once (the JAX
     package runs the C4 head in RoI chunks of TPU.ROI_CHUNK to bound its
     RoIAlign's dense intermediate, which K2 does not make). rois (B, R, 4)
     -> (cls_logits (B, R, C), bbox_pred (B, R, 4C'), head features
-    (B*R, D))."""
+    (B*R, D)). With a model_group (training on a data x model mesh) the
+    box head's fc6 is this rank's column shard (and fc7's weight its row
+    shard, parallel/mesh.py::shard_dim); a head without fc6 (C4's res5)
+    is replicated."""
     init_mod.check_model_supported()
     B, R = rois.shape[:2]
     roi_feat = roi_feature_transform(
@@ -196,8 +199,12 @@ def forward_box_outputs(params, features, scales, rois):
         cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO,
         cfg.FAST_RCNN.ROI_XFORM_METHOD)
     head = registry.get_func(init_mod.box_head_name())
-    feat = head.apply(params["box_head"],
-                      roi_feat.reshape((B * R,) + roi_feat.shape[2:]))
+    roi_feat = roi_feat.reshape((B * R,) + roi_feat.shape[2:])
+    if model_group is None or "fc6" not in params["box_head"]:
+        feat = head.apply(params["box_head"], roi_feat)
+    else:
+        feat = head.apply(params["box_head"], roi_feat,
+                          model_group=model_group)
     cls_logits, bbox_pred = fast_rcnn_heads.apply_fast_rcnn_outputs(
         params["box_outs"], feat)
     return cls_logits.reshape(B, R, -1), bbox_pred.reshape(B, R, -1), feat

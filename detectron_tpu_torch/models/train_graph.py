@@ -6,7 +6,8 @@ res5, so res5 gets the gradient of both branches).
 With RPN.RPN_ON off (Fast R-CNN training) the RoIs are the batch's
 precomputed proposals, and there are no RPN losses.
 
-Batch layout (padded static shapes, tensors on one device):
+Batch layout (padded static shapes, tensors on one device; under a mesh,
+this rank's rows of the global batch):
   images      (B, H, W, 3)  BGR, mean-subtracted, zero-padded
   im_info     (B, 3)        [scaled_h, scaled_w, scale]
   gt_boxes    (B, G, 4)     scaled coords, non-crowd
@@ -120,10 +121,17 @@ def _check_draws(draws, name, shape):
             name, tuple(draws[name].shape), shape))
 
 
-def training_losses(params, batch, draws):
+def training_losses(params, batch, draws, mesh=None):
     """Returns (total_loss, dict of the losses and accuracy_cls), all
-    float32 scalars on the batch's device."""
+    float32 scalars on the batch's device.
+
+    With a mesh (parallel/mesh.py) the batch and the draws are this rank's
+    rows of the global ones, the losses this rank's shares of the global
+    batch's (their normalizers summed over mesh.data_group), and params
+    are this rank's shards: the box head splits over mesh.model_group."""
     _check_supported()
+    group = mesh.data_group if mesh is not None else None
+    model_group = mesh.model_group if mesh is not None else None
     images, im_info = batch["images"], batch["im_info"]
     B = images.shape[0]
     im_info = im_info.to(torch.float32)
@@ -160,7 +168,7 @@ def training_losses(params, batch, draws):
 
     # Box head.
     cls_logits, bbox_pred, _ = mb.forward_box_outputs(
-        params, features, scales, sampled["rois"])
+        params, features, scales, sampled["rois"], model_group=model_group)
     S = sampled["rois"].shape[1]
     out["loss_cls"], out["loss_bbox"], out["accuracy_cls"] = \
         L.fast_rcnn_losses(cls_logits.reshape(B * S, -1),
@@ -168,7 +176,7 @@ def training_losses(params, batch, draws):
                            sampled["labels"].reshape(-1),
                            sampled["valid"].reshape(-1),
                            sampled["bbox_targets"].reshape(-1, 4),
-                           sampled["fg"].reshape(-1))
+                           sampled["fg"].reshape(-1), group=group)
 
     # Mask and keypoint branches on the fg-first slice of the sampled RoIs.
     fg_cap = int(round(cfg.TRAIN.FG_FRACTION * cfg.TRAIN.BATCH_SIZE_PER_IM))
@@ -189,7 +197,8 @@ def training_losses(params, batch, draws):
         out["loss_mask"] = L.mask_rcnn_losses(
             mlogits.reshape(B * fg_cap, res, res, -1),
             mtgt.reshape(B * fg_cap, res, res),
-            sampled["labels"][:, :fg_cap].reshape(-1), mw.reshape(-1))
+            sampled["labels"][:, :fg_cap].reshape(-1), mw.reshape(-1),
+            group=group)
 
     if cfg.MODEL.KEYPOINTS_ON:
         kps_rois = sampled["rois"][:, :fg_cap]
@@ -201,7 +210,7 @@ def training_losses(params, batch, draws):
         K = kbins.shape[-1]
         out["loss_kps"] = L.keypoint_losses(
             klogits, kbins.reshape(B * fg_cap, K),
-            kweights.reshape(B * fg_cap, K))
+            kweights.reshape(B * fg_cap, K), group=group)
 
     total = sum(v for k, v in out.items() if k.startswith("loss_"))
     return total, out

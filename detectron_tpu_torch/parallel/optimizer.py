@@ -9,6 +9,9 @@
   unless SOLVER.BIAS_WEIGHT_DECAY; AffineChannel params and frozen stages
   (RESNETS.FREEZE_AT, TRAIN.FREEZE_CONV_BODY) are never updated.
 - SOLVER.CLIP_GRADIENTS > 0 scales all gradients to that global norm.
+  Under a mesh the gradients are the data group's sums already, and a
+  leaf split on the model axis adds its squares summed over the model
+  group: each shard counts once, each replicated leaf once.
 - Warm-up (linear or constant) for WARM_UP_ITERS, then steps_with_decay
   over SOLVER.STEPS (or "step" every STEP_SIZE) by GAMMA.
 
@@ -106,17 +109,36 @@ def init_opt_state(params):
         for _, p in flatten(params)])), "step": 0}
 
 
+def global_norm(leaves, mesh=None):
+    """The global L2 norm of the gradients [(path, g), ...]: under a
+    mesh with a model group, the model-split leaves' squares summed over
+    that group (parallel/mesh.shard_dim)."""
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for _, g in leaves]
+    if mesh is None or mesh.model_group is None:
+        return torch.sqrt(sum(sq))
+    from detectron_tpu_torch.parallel import comm
+    from detectron_tpu_torch.parallel.mesh import shard_dim
+
+    split = [s for (path, _), s in zip(leaves, sq)
+             if shard_dim(path) is not None]
+    repl = [s for (path, _), s in zip(leaves, sq) if shard_dim(path) is None]
+    if not split:
+        return torch.sqrt(sum(repl))
+    return torch.sqrt(sum(repl) + comm.global_sum(sum(split),
+                                                  mesh.model_group))
+
+
 @torch.no_grad()
-def apply_updates(params, grads, opt_state):
+def apply_updates(params, grads, opt_state, mesh=None):
     """One Caffe2 SGD + momentum step with Detectron's group rules.
-    grads: a tree like params (frozen leaves may be zeros). Returns
-    (new_params, new_opt_state, lr); the inputs are left unchanged."""
+    grads: a tree like params (frozen leaves may be zeros); under a mesh,
+    summed over its data group already. Returns (new_params,
+    new_opt_state, lr); the inputs are left unchanged."""
     leaves = flatten(params)
     g_leaves = [g for _, g in flatten(grads)]
     v_leaves = [v for _, v in flatten(opt_state["momentum"])]
     if cfg.SOLVER.CLIP_GRADIENTS > 0:
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in g_leaves))
+        gnorm = global_norm(flatten(grads), mesh)
         scale = torch.clamp(cfg.SOLVER.CLIP_GRADIENTS
                             / torch.clamp(gnorm, min=1e-12), max=1.0)
         g_leaves = [g * scale for g in g_leaves]

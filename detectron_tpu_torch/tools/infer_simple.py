@@ -70,9 +70,10 @@ def main(argv=None):
     from detectron_tpu_torch.utils import blob as blob_utils
     from detectron_tpu_torch.utils import image_io
     from detectron_tpu_torch.utils import vis as vis_utils
+    from detectron_tpu_torch.utils.device import check_device
 
     args = parse_args(argv)
-    device = test_engine._check_device(args.device)
+    device = check_device(args.device)
     merge_cfg_from_file(args.cfg_file)
     if args.set_cfgs:
         merge_cfg_from_list(args.set_cfgs)

@@ -1,12 +1,14 @@
-"""Epoch-style trainer on one device (the port's twin of
-tools/train_net.py:28-186).
+"""Epoch-style trainer on one device or a data-parallel world (the port's
+twin of tools/train_net.py:28-186).
 
     python -m detectron_tpu_torch.tools.train_net --dataset voc2007 \
         --cfg CFG.yaml [--bs N] [--nw N] [--epochs 6] [--start_epoch 0] \
         [--lr X] [--lr_decay_epochs 4 5] [--lr_decay_gamma X] \
         [--load_detectron PKL | --load_ckpt DIR [--resume]] \
         [--use_tfboard] [--no_save] [--disp_interval N] \
-        [--set KEY VALUE ...] [--device cuda|cpu]
+        [--set KEY VALUE ...] [--device cuda|cpu|cuda:0,cuda:1,...] \
+        [--multihost | --multihost_coordinator HOST:PORT --num_hosts N \
+         --host_rank R] [--dist_backend nccl|gloo]
 
 The JAX tool's flags, with its meaning, plus --device (default cuda; cpu
 only where asked for, and cuda raises without a GPU). As the JAX tool
@@ -23,11 +25,16 @@ package's format. --resume with --load_ckpt starts at the epoch the
 checkpoint's step falls in (its momentum and step restored), the loader
 fast-forwarded past the batches the earlier steps consumed.
 
-One device: a --device naming several (cuda:0,cuda:1) and the multi-host
-flags raise, naming ROADMAP Queue A, A8.
+More than one device: train_net_step's world (parallel/launch.py,
+join_world): one process per device, from a --device list or the
+multi-host flags; --bs (default
+the world size x TRAIN.IMS_PER_BATCH) is the global batch the epochs
+count, each rank loads global / world images a step from a stream seeded
+RNG_SEED + rank, and only rank 0 writes the checkpoints.
 """
 
 import argparse
+import sys
 
 from detectron_tpu_torch.core.config import assert_and_infer_cfg, cfg
 from detectron_tpu_torch.utils.logging import setup_logging
@@ -57,13 +64,9 @@ def parse_args(argv=None):
     parser.add_argument("--no_save", action="store_true")
     parser.add_argument("--disp_interval", type=int, default=20)
     parser.add_argument("--set", dest="set_cfgs", nargs="+", default=[])
-    parser.add_argument("--multihost", action="store_true",
-                        help="multi-host training (not ported yet)")
-    parser.add_argument("--multihost_coordinator", default=None)
-    parser.add_argument("--num_hosts", type=int, default=None)
-    parser.add_argument("--host_rank", type=int, default=None)
-    parser.add_argument("--device", default="cuda",
-                        help="torch device to run on (cuda, or cpu)")
+    from detectron_tpu_torch.parallel import launch
+
+    launch.add_world_args(parser)
     return parser.parse_args(argv)
 
 
@@ -79,17 +82,26 @@ def epoch_schedule(steps_per_epoch, num_epochs, lr_decay_epochs):
 
 def main(argv=None):
     """Train; returns train_net_step.run_steps' run with steps_per_epoch
-    and the start epoch added."""
-    from detectron_tpu_torch.core.test_engine import _check_device
+    and the start epoch added (None where a --device list started the
+    ranks)."""
+    from detectron_tpu_torch.parallel import launch
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    with launch.world_of(args, argv, "detectron_tpu_torch.tools.train_net") \
+            as world:
+        return None if world is None else _train(args, *world)
+
+
+def _train(args, device, mesh):
     from detectron_tpu_torch.data.roidb import combined_roidb_for_training
+    from detectron_tpu_torch.parallel import mesh as mesh_mod
     from detectron_tpu_torch.tools import train_net_step as tns
 
-    args = parse_args(argv)
-    tns.refuse_more_than_one_device(args)
-    device = _check_device(args.device)
     tns.merge_cfg(args)
-
-    batch_size = args.batch_size or cfg.TRAIN.IMS_PER_BATCH
+    # The global batch (run_steps checks that it divides by the world).
+    batch_size = args.batch_size or \
+        mesh_mod.rank_and_world()[1] * cfg.TRAIN.IMS_PER_BATCH
     cfg.TRAIN.IMS_PER_BATCH = batch_size
     if args.lr is not None:
         cfg.SOLVER.BASE_LR = args.lr
@@ -118,7 +130,7 @@ def main(argv=None):
             save(step + 1, name="model_epoch{}".format(epoch))
 
     run = tns.run_steps(args, roidb, device, params, opt_state,
-                        start_epoch * steps_per_epoch, after_step)
+                        start_epoch * steps_per_epoch, after_step, mesh=mesh)
     run.update(steps_per_epoch=steps_per_epoch, start_epoch=start_epoch)
     return run
 

@@ -1,12 +1,14 @@
-"""Train a Generalized R-CNN step by step on one device (the port's twin of
-tools/train_net_step.py:28-251).
+"""Train a Generalized R-CNN step by step on one device or a data-parallel
+world of them (the port's twin of tools/train_net_step.py:28-251).
 
     python -m detectron_tpu_torch.tools.train_net_step --dataset coco2017 \
         --cfg CFG.yaml [--bs N] [--nw N] [--iter_size N] [--lr X] \
         [--lr_decay_gamma X] [--load_detectron PKL | --load_ckpt DIR \
         [--resume] [--start_step N]] [--use_tfboard] [--no_save] \
         [--ckpt_num_per_epoch N] [--disp_interval N] [--set KEY VALUE ...] \
-        [--device cuda|cpu] [--deterministic]
+        [--device cuda|cpu|cuda:0,cuda:1,...] [--deterministic] \
+        [--multihost | --multihost_coordinator HOST:PORT --num_hosts N \
+         --host_rank R] [--dist_backend nccl|gloo]
 
 The JAX tool's flags, with its meaning, plus --device (default cuda; cpu
 only where asked for, and cuda raises without a GPU) and --deterministic:
@@ -18,8 +20,9 @@ before the process starts (torch raises without it). The pieces:
 
 - the roidb of cfg.TRAIN.DATASETS (data/roidb.py), with
   TRAIN.PROPOSAL_FILES in Fast R-CNN mode (RPN.RPN_ON off);
-- the linear-scaling rule for lr, MAX_ITER and STEPS when the batch
-  (--bs times --iter_size) differs from NUM_GPUS x TRAIN.IMS_PER_BATCH;
+- the linear-scaling rule for lr, MAX_ITER and STEPS when the global
+  batch (--bs times --iter_size) differs from NUM_GPUS x
+  TRAIN.IMS_PER_BATCH;
 - weights: the numpy init from RNG_SEED, then a Detectron .pkl
   (--load_detectron) or the ImageNet body
   (MODEL.LOAD_IMAGENET_PRETRAINED_WEIGHTS), then --load_ckpt's params
@@ -37,14 +40,30 @@ before the process starts (torch raises without it). The pieces:
 - checkpoints in the JAX package's format (utils/net.save_ckpt) every
   ckpt_interval steps, at the end, and on an interrupt or an exception.
 
-Multi-device and multi-host training wait for ROADMAP Queue A, A8:
---multihost and its companion flags, and a --device naming several
-devices, raise. The epoch trainer (tools/train_net.py) shares this tool's
-cfg, state and step loop (merge_cfg, load_state, run_steps).
+More than one device (the JAX tool's multi-host semantics, :86-186): the
+port runs one process per device (parallel/mesh.py). --multihost alone
+joins the world torchrun describes (env://: RANK, WORLD_SIZE,
+MASTER_ADDR, MASTER_PORT; device cuda is cuda:LOCAL_RANK);
+--multihost_coordinator HOST:PORT --num_hosts N --host_rank R joins
+tcp://HOST:PORT as rank R of N; a --device list (cuda:0,cuda:1) starts
+one such process per listed device on this host (parallel/launch.py).
+NCCL serves CUDA devices and gloo the CPU; --dist_backend gloo lets
+several ranks share one card. Then --bs (default: the world size x
+TRAIN.IMS_PER_BATCH) is the global batch: it sets the linear scaling
+and cfg.TRAIN.IMS_PER_BATCH, and must divide by the world size. Each
+rank loads its local batch (global / world) from a stream seeded
+RNG_SEED + rank, takes its rows of the global batch's sampling draws,
+and runs the data-parallel step (parallel/train_step.py with the 1-D
+mesh): the losses and the logged stats are the global batch's, equal on
+every rank. Only rank 0 writes checkpoints and tfboard. The epoch
+trainer (tools/train_net.py) shares this tool's world
+(parallel/launch.join_world), cfg, state and step loop (merge_cfg,
+load_state, run_steps).
 """
 
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
@@ -52,6 +71,7 @@ import torch
 
 from detectron_tpu_torch.core.config import (
     assert_and_infer_cfg, cfg, merge_cfg_from_file, merge_cfg_from_list)
+from detectron_tpu_torch.parallel import launch
 from detectron_tpu_torch.utils.logging import setup_logging
 
 logger = setup_logging(__name__)
@@ -79,13 +99,7 @@ def parse_args(argv=None):
     parser.add_argument("--ckpt_num_per_epoch", type=int, default=3)
     parser.add_argument("--disp_interval", type=int, default=20)
     parser.add_argument("--set", dest="set_cfgs", nargs="+", default=[])
-    parser.add_argument("--multihost", action="store_true",
-                        help="multi-host training (not ported yet)")
-    parser.add_argument("--multihost_coordinator", default=None)
-    parser.add_argument("--num_hosts", type=int, default=None)
-    parser.add_argument("--host_rank", type=int, default=None)
-    parser.add_argument("--device", default="cuda",
-                        help="torch device to run on (cuda, or cpu)")
+    launch.add_world_args(parser)
     parser.add_argument("--deterministic", action="store_true",
                         help="run the steps under "
                         "torch.use_deterministic_algorithms (on the card "
@@ -141,16 +155,6 @@ def init_params(args):
     return params
 
 
-def refuse_more_than_one_device(args):
-    """Training on more than one device or host waits for ROADMAP Queue A,
-    A8: the multi-host flags and a --device naming several devices raise."""
-    if (args.multihost or args.multihost_coordinator or args.num_hosts
-            or args.host_rank is not None or "," in args.device):
-        raise NotImplementedError("not ported yet (ROADMAP Queue A, A8): "
-                                  "training on more than one device or "
-                                  "host")
-
-
 def merge_cfg(args):
     """--cfg, then --set, then the JAX tools' --dataset rules
     (TRAIN.DATASETS from DATASET_MAP; MODEL.NUM_CLASSES 2 for a keypoint
@@ -196,20 +200,26 @@ def load_state(args, device):
 
 
 def run_steps(args, roidb, device, params, opt_state, start_step,
-              after_step, iter_size=1, save_at_end=False):
+              after_step, iter_size=1, save_at_end=False, mesh=None):
     """The step loop of both trainers: steps [start_step,
-    cfg.SOLVER.MAX_ITER) of parallel/train_step on minibatches of
-    cfg.TRAIN.IMS_PER_BATCH images from data/loader.TrainLoader
+    cfg.SOLVER.MAX_ITER) of parallel/train_step on the global batch of
+    cfg.TRAIN.IMS_PER_BATCH images, this rank's share of it (global /
+    world) from data/loader.TrainLoader seeded RNG_SEED + rank
     (fast-forwarded past the batches the earlier steps consumed), each
-    step's sampling draws from step_generator(step), step k-1's stats read
-    back while step k is queued and logged by TrainingStats.
+    step's sampling draws this rank's rows of the global batch's from
+    step_generator(step) (the rows of its own canvas: ranks may load
+    canvases of different sizes, and each draws the global batch's
+    uniforms for its own), the gradients summed over the mesh's data
+    group (one device: mesh None or without groups), step k-1's stats
+    read back while step k is queued and logged by TrainingStats.
 
     after_step(step, save) runs after each step; save(step, name=None)
     writes a checkpoint of params and optimizer state in the JAX package's
     format under <cfg.OUTPUT_DIR>/<cfg stem>/ckpt (nothing with
-    --no_save). save_at_end saves one at step MAX_ITER after the loop, even
-    when it ran no step. A last checkpoint is saved on an interrupt or an
-    exception, as the reference does. Returns the run: the output directory, the
+    --no_save, or on a rank other than 0). save_at_end saves one at step
+    MAX_ITER after the loop, even when it ran no step. A last checkpoint
+    is saved on an interrupt or an exception, as the reference does.
+    Returns the run: the output directory, the
     checkpoints written ("ckpts", the last also as "ckpt"), the start
     step, the stats read back per step, the seconds of each step (loader
     wait included), and per minibatch the seconds spent waiting for the
@@ -217,21 +227,33 @@ def run_steps(args, roidb, device, params, opt_state, start_step,
     from detectron_tpu_torch.data.loader import TrainLoader
     from detectron_tpu_torch.models import bridge
     from detectron_tpu_torch.models import train_graph
+    from detectron_tpu_torch.parallel import mesh as mesh_mod
     from detectron_tpu_torch.parallel import train_step as ts
     from detectron_tpu_torch.utils import net as net_utils
     from detectron_tpu_torch.utils.training_stats import TrainingStats
 
+    rank, world = mesh_mod.rank_and_world()
+    chief = rank == 0
     batch_size = cfg.TRAIN.IMS_PER_BATCH
+    if batch_size % world:
+        raise ValueError("the global batch of {} images does not divide "
+                         "into {} ranks".format(batch_size, world))
+    local_batch = batch_size // world
+    # The step's mesh argument, where there is a world to sum over.
+    on_mesh = () if mesh is None or mesh.data_group is None else (mesh,)
     output_dir = os.path.join(
         cfg.OUTPUT_DIR,
         os.path.splitext(os.path.basename(args.cfg_file or "default"))[0])
     os.makedirs(output_dir, exist_ok=True)
     opt_state["step"] = start_step
-    loader = TrainLoader(roidb, batch_size, seed=cfg.RNG_SEED,
+    loader_seed = cfg.RNG_SEED + rank
+    logger.info("loader stream seed %d (host %d/%d, local batch %d)",
+                loader_seed, rank, world, local_batch)
+    loader = TrainLoader(roidb, local_batch, seed=loader_seed,
                          num_threads=args.num_workers,
                          start_batch=start_step * iter_size)
     tblogger = None
-    if args.use_tfboard:
+    if args.use_tfboard and chief:
         from tensorboardX import SummaryWriter
         tblogger = SummaryWriter(output_dir)
     training_stats = TrainingStats(args, args.disp_interval, tblogger)
@@ -240,7 +262,7 @@ def run_steps(args, roidb, device, params, opt_state, start_step,
            "loader_wait_s": [], "canvases": []}
 
     def save(step, name=None):
-        if args.no_save:
+        if args.no_save or not chief:
             return
         run["ckpt"] = net_utils.save_ckpt(
             output_dir, step, bridge.to_jax_layout(params),
@@ -270,15 +292,17 @@ def run_steps(args, roidb, device, params, opt_state, start_step,
             training_stats.IterTic()
             gen = step_generator(step)
             batches = [next_batch() for _ in range(iter_size)]
-            draws = [train_graph.make_draws(
-                gen, batch_size, tuple(b["images"].shape[1:3]),
-                b["gt_boxes"].shape[1], device) for b in batches]
+            draws = [{k: v[rank * local_batch:(rank + 1) * local_batch]
+                      .to(device) for k, v in train_graph.make_draws(
+                          gen, batch_size, tuple(b["images"].shape[1:3]),
+                          b["gt_boxes"].shape[1], "cpu").items()}
+                     for b in batches]
             if iter_size > 1:
                 params, opt_state, stats = ts.train_step_accum(
-                    params, opt_state, batches, draws)
+                    params, opt_state, batches, draws, *on_mesh)
             else:
                 params, opt_state, stats = ts.train_step(
-                    params, opt_state, batches[0], draws[0])
+                    params, opt_state, batches[0], draws[0], *on_mesh)
             training_stats.IterToc()
             # Deferred stats readback: step k-1's losses are read while
             # step k's queued kernels run.
@@ -302,17 +326,24 @@ def run_steps(args, roidb, device, params, opt_state, start_step,
 
 
 def main(argv=None):
-    """Train; returns run_steps' run."""
-    from detectron_tpu_torch.core.test_engine import _check_device
-    from detectron_tpu_torch.data.roidb import combined_roidb_for_training
-
+    """Train; returns run_steps' run (None where a --device list started
+    the ranks)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    refuse_more_than_one_device(args)
-    device = _check_device(args.device)
-    merge_cfg(args)
+    with launch.world_of(args, argv,
+                         "detectron_tpu_torch.tools.train_net_step") as world:
+        return None if world is None else _train(args, *world)
 
+
+def _train(args, device, mesh):
+    from detectron_tpu_torch.data.roidb import combined_roidb_for_training
+    from detectron_tpu_torch.parallel import mesh as mesh_mod
+
+    merge_cfg(args)
     assert args.iter_size >= 1, "--iter_size must be >= 1"
-    batch_size = args.batch_size or cfg.TRAIN.IMS_PER_BATCH
+    # The global batch (run_steps checks that it divides by the world).
+    batch_size = args.batch_size or \
+        mesh_mod.rank_and_world()[1] * cfg.TRAIN.IMS_PER_BATCH
     old_base_lr = apply_linear_scaling(batch_size, args.iter_size)
     logger.info("Linear scaling: lr %.5f -> %.5f, max_iter -> %d",
                 old_base_lr, cfg.SOLVER.BASE_LR, cfg.SOLVER.MAX_ITER)
@@ -342,7 +373,7 @@ def main(argv=None):
     try:
         return run_steps(args, roidb, device, params, opt_state, start_step,
                          after_step, iter_size=args.iter_size,
-                         save_at_end=True)
+                         save_at_end=True, mesh=mesh)
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
 

@@ -10,7 +10,9 @@ may fall the other way, later convs carry that on, and a residual add
 that cancels keeps its operands' ulps; a systematic rounding fault would
 move about half the elements. Under torch.use_deterministic_algorithms,
 K4's deterministic variant (roi_window_accum_det) gives equal bits in two
-calls, and two identical training steps equal gradients. Every test skips
+calls, and two identical training steps equal gradients. The parallel
+step with its ranks sharing the card over gloo (parallel/dryrun) equals
+the one-process step, and NCCL runs a world of 1. Every test skips
 where no CUDA device is present. On a machine with an NVIDIA GPU (no
 JAX needed, so without the suite's conftest):
 
@@ -828,3 +830,76 @@ def test_cli_resume_follows_an_uninterrupted_run_under_the_switch(
     assert [p for p, _ in flat_got] == [p for p, _ in flat_ref]
     for (path, a), (_, b) in zip(flat_got, flat_ref):
         np.testing.assert_array_equal(a, b, err_msg=str(path))
+
+
+def _one_process_dryrun_step(spec):
+    """The dryrun spec's step in this process on cuda, cuDNN off: (stats,
+    params after it in the JAX layout)."""
+    from detectron_tpu_torch.models import bridge
+    from detectron_tpu_torch.parallel import dryrun
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.parallel import train_step as ts
+
+    dryrun.set_cfg(spec["cfg"])
+    torch.backends.cudnn.enabled = False
+    try:
+        params = bridge.to_torch(spec["tree"], "cuda")
+        new, _, stats = ts.train_step(
+            params, opt.init_opt_state(params),
+            {k: torch.as_tensor(v).cuda() for k, v in spec["batch"].items()},
+            {k: torch.as_tensor(v).cuda() for k, v in spec["draws"].items()})
+        return ({k: float(v) for k, v in stats.items()},
+                bridge.to_jax_layout(new))
+    finally:
+        torch.backends.cudnn.enabled = True
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_dryrun_ranks_on_one_card_match_one_process(device, n):
+    """dryrun_multichip(n) with its ranks sharing cuda:0 over gloo (1-D at
+    2, 2 data x 2 model with the box-head split at 4), float32 without
+    cuDNN, against the one-process step on the same images and draws:
+    losses to 1e-4 relative, params within 1e-4 of each leaf's largest
+    value (the order of float sums: the box head's matmul over one or two
+    images of RoIs, the sum over ranks, K4's atomics)."""
+    from detectron_tpu_torch.models import init
+    from detectron_tpu_torch.parallel import dryrun
+    from detectron_tpu_torch.parallel import optimizer as opt
+
+    ranks = dryrun.dryrun_multichip(n, device="cuda:0", backend="gloo",
+                                    cudnn=False)
+    n_data, _ = dryrun.mesh_shape(n)
+    dryrun.tiny_cfg(batch=n_data)
+    batch = dryrun.dryrun_batch(n_data)
+    stats, ref = _one_process_dryrun_step({
+        "cfg": dryrun.cfg_snapshot(), "tree": init.init_model(0),
+        "batch": batch, "draws": dryrun.global_draws(1, batch)})
+    assert all(r["stats"] == ranks[0]["stats"] for r in ranks)
+    for k, v in stats.items():
+        np.testing.assert_allclose(ranks[0]["stats"][0][k], v, rtol=1e-4,
+                                   err_msg=k)
+    got = dict(opt.flatten(ranks[0]["params"]))
+    for path, r in opt.flatten(ref):
+        assert np.abs(got[path] - r).max() <= 1e-4 * np.abs(r).max() + 1e-7, \
+            path
+    for r in ranks:
+        assert r["launches"]["nms_keep_mask"] > 0
+        assert r["launches"]["roi_window_accum"] > 0
+
+
+def test_nccl_world_of_one(device):
+    """NCCL on the card at a world of 1: the process group and two steps,
+    each with the bucketed all-reduce of its gradient tree over the data
+    group."""
+    from detectron_tpu_torch.models import init
+    from detectron_tpu_torch.parallel import dryrun, launch
+
+    dryrun.tiny_cfg(batch=1)
+    batch = dryrun.dryrun_batch(1)
+    (got,) = launch.spawn(
+        "detectron_tpu_torch.parallel.dryrun:run_rank", ["cuda:0"],
+        ({"cfg": dryrun.cfg_snapshot(), "tree": init.init_model(0),
+          "batch": batch, "draws": dryrun.global_draws(1, batch),
+          "mesh": (1, 1), "steps": 2},), timeout_s=600)
+    assert len(got["stats"]) == 2 and np.isfinite(got["stats"][1]["loss"])
+    assert got["launches"]["nms_keep_mask"] > 0

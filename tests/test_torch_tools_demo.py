@@ -27,8 +27,9 @@ in this process) on the same inputs:
   1e-5, as test_torch_train_data's loader stream; the rest exactly), the
   same lr (within 1e-6),
   the same model_epoch{N} checkpoints at the same steps, and the same
-  epoch to resume from. More than one device and the multi-host flags
-  raise, naming A8.
+  epoch to resume from. The multi-host flags and a --device list make
+  the world the JAX tools' flags describe (one rank per device;
+  tests/test_torch_multihost.py runs one).
 """
 
 import importlib.util
@@ -44,6 +45,7 @@ import torch
 from detectron_tpu.core.config import cfg as jax_cfg
 from detectron_tpu_torch.core import test_engine
 from detectron_tpu_torch.core.config import cfg
+from detectron_tpu_torch.parallel import launch
 from detectron_tpu_torch.parallel import optimizer as opt
 from detectron_tpu_torch.tools import infer_simple, train_net, train_net_step
 from detectron_tpu_torch.utils import image_io
@@ -465,6 +467,35 @@ def test_epoch_trainer_follows_the_jax_tool(epoch_runs, train_root, tmp_path,
 @pytest.mark.parametrize("flags", [
     ["--multihost"], ["--num_hosts", "2"], ["--host_rank", "0"],
     ["--device", "cuda:0,cuda:1"]])
-def test_epoch_trainer_refuses_more_than_one_device(flags):
-    with pytest.raises(NotImplementedError, match="A8"):
+def test_epoch_trainer_refuses_more_than_one_device(flags, monkeypatch):
+    """The world the epoch trainer's flags make, as the JAX tools read
+    them: --multihost alone joins the world torchrun describes (env://)
+    and raises without it; --num_hosts or --host_rank alone leave one
+    process on one device; a --device list starts one rank per device,
+    each a device that exists (none of a cuda list on a CPU host)."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    seen = []
+    monkeypatch.setattr(train_net, "_train",
+                        lambda args, device, mesh: seen.append((device,
+                                                                mesh)))
+    monkeypatch.setattr(launch, "spawn_cli",
+                        lambda *a, **k: seen.append((a, k)))
+    if flags == ["--multihost"]:
+        with pytest.raises(ValueError, match="env://"):
+            train_net.main(["--device", "cpu"] + flags)
+        assert not seen
+    elif flags[0] == "--device":
+        with pytest.raises(RuntimeError, match="is_available"):
+            train_net.main(["--device", "cpu"] + flags)
+        assert not seen
+        assert train_net.main(["--bs", "2", "--device", "cpu,cpu"]) is None
+        assert seen == [(("detectron_tpu_torch.tools.train_net",
+                          ["--bs", "2"], ["cpu", "cpu"]),
+                         {"backend": None})]
+    else:
         train_net.main(["--device", "cpu"] + flags)
+        (device, mesh), = seen
+        assert str(device) == "cpu" and (mesh.n_data, mesh.n_model) == (1, 1)
+        assert mesh.data_group is None
+    assert not torch.distributed.is_initialized()

@@ -287,9 +287,19 @@ def test_cli_starts_from_the_weights_jax_loads(train_root, tmp_path,
                                       err_msg=str(path))
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """--multihost alone reads the world from torchrun's environment
+    (env://), and says which of its variables are missing."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="RANK, WORLD_SIZE, MASTER_ADDR, "
+                       "MASTER_PORT is not set"):
         train_net_step.main(["--multihost", "--device", "cpu"])
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="MASTER_ADDR, MASTER_PORT is not"):
+        train_net_step.main(["--multihost", "--device", "cpu"])
+    assert not torch.distributed.is_initialized()
 
 
 # ---------------------------------------------------------------------------
