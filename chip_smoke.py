@@ -150,7 +150,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      losses and every gradient leaf bit-equal, K4's deterministic variant
      (roi_window_accum_det) launched and the atomic K4 not; torch raises
      for any op of the step without a deterministic implementation. The
-     same two steps with the switch off are printed beside them. Then
+     same two steps with the switch off are printed beside them. The same
+     pair for Mask R-CNN R-50-C4 (its preset, full width: K4's variant at
+     the whole-map window of the res4 map). Then
      train_net_step --deterministic at phase 8's sizes for 4 steps, and
      for 2 steps then --resume to 4: the two checkpoints (params,
      momentum, step) and the stats of steps 2-3 bit-equal, through K4's
@@ -271,7 +273,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   and 200, bf16), K4 at the C4 training shapes (N = 1024 and 256), and
   K4's deterministic variant at every FPN and C4 shape of K4 (two calls
   bit-equal, K4's tolerance, its time beside the atomic kernel's on the
-  same inputs, and its two kernels' device times by name); phase 3 also checks a tiny Keypoint R-CNN detect_graph
+  same inputs with their device times' ratio, its kernels' device times
+  by name (DET_KERNELS), its work items and split tiles, and at the FPN
+  and C4 box shapes its pre-pass's tile lists against their plain
+  version); phase 3 also checks a tiny Keypoint R-CNN detect_graph
   (heatmaps of matched detections within 1e-4 of max|cpu|) and
   train_step (loss_kps among the losses), a tiny Mask R-CNN R-50-C4, a
   tiny ResNeXt-50 32x8d and a tiny GN Mask R-CNN detect_graph and
@@ -289,8 +294,9 @@ launches_by_path has every path: "test_net" being phase 7's
 run_inference, "train_net" phase 8's train_net_step, "keypoint_infer"
 and "keypoint_test_net" phase 9's detect_graph and run_inference,
 "keypoint_train" phase 10's train_net_step, "c4_infer", "c4_test_net"
-and "c4_train" phases 11-13, "deterministic_train" and
-"deterministic_resume" phase 14's steps and its trainer, "x152_infer",
+and "c4_train" phases 11-13, "deterministic_train",
+"deterministic_c4_train" and "deterministic_resume" phase 14's FPN and
+C4 steps and its trainer, "x152_infer",
 "x152_test_net", "x152_train" phases 15-17, "gn_infer" and "gn_train"
 phase 18, "tta_test_net" and "tta_keypoint_test_net" phase 19,
 "variant_<name>_infer" / "variant_<name>_train" phase 20's,
@@ -301,8 +307,9 @@ and K4's deterministic variant carry their C4 shapes' measurements under
 "c4" (and K1's 12000-box lanes under "c4_train"), K1-K3 theirs at the
 TTA canvas under "tta" (and "tta_tail", "tta_mask"), the variant its
 atomic twin's times as atomic_ms /
-atomic_device_ms and its kernels' as roi_reach_kernel_device_ms /
-roi_window_accum_det_kernel_device_ms with their events a call), then as the last line
+atomic_device_ms, its device time over the atomic's as
+det_over_atomic_device, and its kernels' as <name>_device_ms with their
+events a call for each name of DET_KERNELS), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No single PyTorch call computes any of K1-K6 (there is no torchvision),
 so every kernel's library_ms is null. --profile-train adds a torch.profiler
@@ -397,9 +404,13 @@ RES2_MACS = 4096 + 36864 + 2 * 16384 + 2 * (2 * 16384 + 36864)
 RES2_WEIGHTS = RES2_MACS      # one weight per multiply-add of a pixel
 RES2_BIASES = 3 * (64 + 64 + 256)
 # Names of the port's CUDA kernels (csrc/*.cu), as the profiler lists them.
+# K4's deterministic variant: its pre-pass (reach, scan, fill) and its
+# accumulate.
+DET_KERNELS = ("roi_reach_kernel", "roi_tile_scan_kernel",
+               "roi_tile_fill_kernel", "roi_window_accum_det_kernel")
 PORT_KERNELS = ("nms_iou_mask_kernel", "nms_scan", "roi_window_pool_kernel",
-                "roi_window_accum_kernel", "roi_window_accum_det_kernel",
-                "roi_reach_kernel", "stem_pool", "fused_res2")
+                "roi_window_accum_kernel", "stem_pool",
+                "fused_res2") + DET_KERNELS
 
 
 def cuda_ms(fn, reps):
@@ -426,23 +437,36 @@ def device_kernels(fn, reps=10):
     synchronize as cuda_ms times them, recorded after two warm-up calls
     under the profiler (without them it missed some calls' kernels, 8 of
     10 for K4's deterministic variant): {event name: (device ms a call,
-    events a call)}."""
+    events a call)}. Every call launches the same kernels, but a trace may
+    miss some calls (most traces on an H100 held 9 of 10): an event's time
+    a call is its time per event seen times its events a call (rounded
+    up). A trace with no device event is taken again, twice; then the
+    call's CUDA-event time (cuda_ms, wrapper host time included) stands in,
+    under the name "cuda events"."""
+    import math
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=2, active=reps,
-                                   repeat=1)) as prof:
-        for _ in range(2 + reps):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return {e.key: (e.self_device_time_total / 1e3 / reps, e.count / reps)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=2, active=reps,
+                                       repeat=1)) as prof:
+            for _ in range(2 + reps):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        got = {e.key: (e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count}
+        if got:
+            return {k: (ms / n * math.ceil(n / reps), math.ceil(n / reps))
+                    for k, (ms, n) in got.items()}
+    print("profiler: no device event in 3 traces; CUDA events instead")
+    return {"cuda events": (cuda_ms(fn, reps), 1)}
 
 
 def device_ms(fn, reps=10):
@@ -773,10 +797,12 @@ def check_kernels(device):
                    (wy, wx) == (64, 48))
 
     def det_accum_check(shape, zero, starts, ct, vy, vx, rows, bnd, primary,
-                        tag=None):
+                        tag=None, lists=False):
         """K4's deterministic variant on K4's inputs: two calls bit-equal,
         within K4's tolerance of the plain version; timed beside the atomic
-        kernel on the same inputs."""
+        kernel on the same inputs, with its device time over the atomic's.
+        With `lists`, its pre-pass's per-tile lists equal their plain
+        version (roi_tile_lists_plain)."""
         rk = roi_align_kernel
         args = (starts, ct, vy, vx, rows)
         runs = [rk.roi_window_accum_det(zero.clone(), *args)
@@ -792,23 +818,41 @@ def check_kernels(device):
                                  .format(shape, torch.equal(*runs), err,
                                          tol))
         got = runs[0]
-        # The variant's two kernels by name, with their events a call
-        # (1 each when the profiler sees every launch).
+        counts, listed = rk.roi_tile_lists(starts, vy, vx, rows, zero.shape)
+        if lists:
+            want = rk.roi_tile_lists_plain(starts, vy, vx, rows, zero.shape,
+                                           rk.DET_TILE)
+            if not (torch.equal(counts, want[0]) and
+                    torch.equal(listed, want[1])):
+                raise AssertionError(
+                    "K4's deterministic variant at {}: the pre-pass's "
+                    "tile lists differ from roi_tile_lists_plain ({} / {} "
+                    "entries)".format(shape, listed.numel(),
+                                      want[1].numel()))
+            shape += ", tile lists equal their plain version"
+        # Work items (32 rows of a tile's list) and the tiles whose items
+        # chain their read-modify-writes in list order.
+        chunks = (counts.long() + 31) // 32
+        shape += " ({} rows listed in {} tiles, {} items, {} split)".format(
+            listed.numel(), int((counts > 0).sum()), int(chunks.sum()),
+            int((chunks > 1).sum()))
+        # The variant's kernels by name, with their events a call (1 each
+        # when the profiler sees every launch).
         named = {}
         for key, (ms, count) in device_kernels(
                 lambda: rk.roi_window_accum_det(got, *args)).items():
-            kernel = next((k for k in ("roi_reach_kernel",
-                                       "roi_window_accum_det_kernel")
-                           if k in key), "other")
+            kernel = next((k for k in DET_KERNELS if k in key), "other")
             old = named.get(kernel, (0.0, 0.0))
             named[kernel] = (old[0] + ms, old[1] + count)
+        det_dev = sum(ms for ms, _ in named.values())
+        atomic_dev = device_ms(lambda: rk.roi_window_accum(got, *args))
         record("roi_window_accum_det", shape + ", two calls bit-equal", err,
                lambda: rk.roi_window_accum_det(got, *args),
                lambda: rk.roi_window_accum_plain(ref, *args), bnd, primary,
                tag, atomic_ms=cuda_ms(lambda: rk.roi_window_accum(got, *args),
                                       20),
-               atomic_device_ms=device_ms(
-                   lambda: rk.roi_window_accum(got, *args)),
+               atomic_device_ms=atomic_dev,
+               det_over_atomic_device=det_dev / atomic_dev,
                **{"{}_{}".format(k, f): v[i] for k, v in named.items()
                   for i, f in enumerate(("device_ms", "events"))})
 
@@ -859,7 +903,7 @@ def check_kernels(device):
                 zero, starts, ct, vy, vx, r,
                 window_bound(canvas.shape, 4, *(t[lo:hi] for t in
                                                 (starts, vy, vx)), True),
-                (pooled, r) == (7, None))
+                (pooled, r) == (7, None), lists=(pooled, r) == (7, None))
         del canvas, zero, got, ref
 
     check_c4_window_kernels(device, pool_check, record, det_accum_check)
@@ -940,7 +984,8 @@ def check_c4_window_kernels(device, pool_check, record, det_accum_check):
                "c4" if n == BATCH * 512 else None)
         det_accum_check(shape, zero, starts, ct, vy, vx, None,
                         window_bound(feat.shape, 4, starts, vy, vx, True),
-                        False, "c4" if n == BATCH * 512 else None)
+                        False, "c4" if n == BATCH * 512 else None,
+                        lists=n == BATCH * 512)
         del feat, zero, got, ref, ct
 
 
@@ -3419,11 +3464,12 @@ def run_variant_paths(device):
 # Phase 14: deterministic training steps on the card (K4 without atomics)
 # ---------------------------------------------------------------------------
 
-def run_det_train_check(device):
-    """Phase 14: two identical full-width Mask R-CNN R-50-FPN training
-    steps (phase 5's cfg, params, batch and one set of sampling draws:
-    loss and gradients, no update) under torch.use_deterministic_algorithms
-    give bit-equal losses and gradients, through the deterministic K4
+def run_det_train_check(device, label="Mask R-CNN R-50-FPN", c4=False):
+    """Phase 14: two identical full-width training steps of `label`
+    (phase 5's cfg, or with `c4` the mask_rcnn_r50_c4 preset's; phase 5's
+    params' seed, batch and one set of sampling draws: loss and gradients,
+    no update) under torch.use_deterministic_algorithms give bit-equal
+    losses and gradients, through the deterministic K4
     (roi_window_accum_det) only; torch raises for any op of the step that
     has no deterministic implementation on the card. Then the same two
     steps with the switch off, for comparison (the atomic K4). Returns the
@@ -3437,7 +3483,7 @@ def run_det_train_check(device):
     from detectron_tpu_torch.utils.synthetic import synthetic_train_batch
 
     rk = roi_align_kernel
-    set_cfg(tiny=False, dtype="bfloat16",
+    set_cfg(tiny=False, dtype="bfloat16", c4=c4,
             extra=["SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS)])
     params = make_params(device, torch.float32)
     batch = synthetic_train_batch(BATCH, *CANVAS, device,
@@ -3472,19 +3518,20 @@ def run_det_train_check(device):
     same_loss, differ, n, times = two_steps(True)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     off_loss, off_differ, _, off_times = two_steps(False)
-    print("deterministic training (Mask R-CNN R-50-FPN, bf16 / f32 params, "
-          "{} x {} x {}, loss and gradients twice on the same inputs; "
+    print("deterministic training ({}, bf16 / f32 params, {} x {} x {}, "
+          "loss and gradients twice on the same inputs; "
           "CUBLAS_WORKSPACE_CONFIG {}): under "
           "torch.use_deterministic_algorithms losses equal {}, {} of {} "
           "gradient leaves differ, step ms {}, launches {}; with the switch "
           "off losses equal {}, {} leaves differ, step ms {}".format(
-              BATCH, *CANVAS, os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
-              same_loss, differ, n, [round(t, 3) for t in times], launches,
-              off_loss, off_differ, [round(t, 3) for t in off_times]))
+              label, BATCH, *CANVAS,
+              os.environ.get("CUBLAS_WORKSPACE_CONFIG"), same_loss, differ,
+              n, [round(t, 3) for t in times], launches, off_loss,
+              off_differ, [round(t, 3) for t in off_times]))
     if not same_loss or differ:
-        raise AssertionError("two training steps under the deterministic "
+        raise AssertionError("two {} training steps under the deterministic "
                              "switch differ: {} of {} gradient leaves"
-                             .format(differ, n))
+                             .format(label, differ, n))
     if launches["roi_window_accum"] or not launches["roi_window_accum_det"]:
         raise AssertionError("under the switch K4 must run its "
                              "deterministic variant only: {}".format(
@@ -4716,6 +4763,8 @@ def main():
                                (GN_MODEL, "gn", False)):
         if key == "x152":
             paths["deterministic_train"] = run_det_train_check(device)
+            paths["deterministic_c4_train"] = run_det_train_check(
+                device, "Mask R-CNN R-50-C4", c4=True)
             with tempfile.TemporaryDirectory() as workdir:
                 paths["deterministic_resume"] = run_det_resume_check(
                     device, workdir)
@@ -4786,8 +4835,8 @@ def main():
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
             "library_ms": None, "shape": e["shape"],
             **{k: v for k, v in e.items() if k.startswith((
-                "atomic_", "roi_reach_kernel_",
-                "roi_window_accum_det_kernel_", "other_"))},
+                "atomic_", "det_over_atomic", "other_") + tuple(
+                    d + "_" for d in DET_KERNELS))},
             **{k: dict(v, library_ms=None) for k, v in e.items()
                if k.startswith(("c4", "tta"))}})
     print(json.dumps({"kernels": kernels}))

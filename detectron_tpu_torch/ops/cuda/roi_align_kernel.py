@@ -25,8 +25,11 @@ over the cells the weights reach only, with overlapping windows summed
 (16-byte vector reductions on the card, so the order of the sum, and its
 last bits, change from run to run). Under torch.use_deterministic_algorithms
 the wrapper launches roi_window_accum_det (csrc/roi_window_accum_det.cu)
-instead: the same function with no atomics, one CTA owning each canvas
-tile and adding the RoIs that reach it in row order, so its bits repeat.
+instead: the same function without float atomics, so its bits repeat. A
+pre-pass lists on the device, for every (image, DET_TILE canvas tile), the
+RoI rows whose nonzero weights reach it, in row order (its contract is
+roi_tile_lists_plain); the accumulate adds each list, 32 rows a work item,
+into the tile's cells, and the items of one tile in list order.
 """
 
 import ctypes
@@ -37,6 +40,8 @@ from detectron_tpu_torch.ops.cuda import build
 
 MAX_POOLED = 16
 MAX_WINDOW = 128
+# Canvas tile (rows, columns) of roi_window_accum_det's per-tile RoI lists.
+DET_TILE = (8, 16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -231,26 +236,49 @@ def roi_window_accum(canvas_grad, starts, ct, vy, vx, rows=None):
     return canvas_grad
 
 
+def _det_layout(canvas_shape, C, rows, WY, WX, P):
+    """roi_window_accum_det's scratch layout for these shapes, from the
+    kernel's source (roi_window_accum_det_layout): the tile, the tiles
+    along each side, and the int32 offsets of the tile counts and list
+    entries and the scratch's size (int32 1 holds the entries' number)."""
+    B, Hc, Wc = canvas_shape[:3]
+    fn = build.load("roi_window_accum_det.cu", "roi_window_accum_det_layout",
+                    [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    out = (ctypes.c_longlong * 7)()
+    build.check(fn(B, Hc, Wc, C, rows, WY, WX, P, ctypes.addressof(out)),
+                "roi_window_accum_det_layout")
+    keys = ("tile_h", "tile_w", "tiles_y", "tiles_x", "counts", "entries",
+            "ints")
+    lay = dict(zip(keys, out))
+    if (lay["tile_h"], lay["tile_w"]) != DET_TILE:
+        raise RuntimeError("roi_window_accum_det.cu tiles the canvas {} x "
+                           "{}, DET_TILE says {}".format(
+                               lay["tile_h"], lay["tile_w"], DET_TILE))
+    return lay
+
+
 def roi_window_accum_det(canvas_grad, starts, ct, vy, vx, rows=None):
-    """K4 without atomics (kernel csrc/roi_window_accum_det.cu): the same
-    function and arguments as roi_window_accum, each canvas cell owned by
-    one CTA that adds the RoI rows reaching it in row order, so two calls
-    on the same inputs give the same bits. The wrapper allocates the
-    kernel's (rows, 5) int32 scratch of reach rectangles. CPU tensors take
-    the plain version."""
+    """K4 without float atomics (kernel csrc/roi_window_accum_det.cu): the
+    same function and arguments as roi_window_accum, each canvas cell's
+    terms added in an order fixed by the inputs (the rows of each DET_TILE
+    tile's list in row order, 32 a work item, the items in list order), so
+    two calls on the same inputs give the same bits. The wrapper allocates
+    the kernel's int32 scratch (the per-tile lists and their counts). CPU
+    tensors take the plain version."""
     if canvas_grad.device.type == "cpu":
         return roi_window_accum_plain(canvas_grad, starts, ct, vy, vx, rows)
     name = "roi_window_accum_det"
     lo, hi = _check_accum(name, canvas_grad, starts, ct, vy, vx, rows)
     B, Hc, Wc, C = canvas_grad.shape
     N, P, WY = vy.shape
+    lay = _det_layout(canvas_grad.shape, C, hi - lo, WY, vx.shape[2], P)
     fn = build.load("roi_window_accum_det.cu", "roi_window_accum_det_launch",
                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                     + [ctypes.c_void_p])
-    reach = torch.empty((max(hi - lo, 1), 5), dtype=torch.int32,
-                        device=canvas_grad.device)
+    scratch = torch.empty(max(lay["ints"], 1), dtype=torch.int32,
+                          device=canvas_grad.device)
     stream = torch.cuda.current_stream(canvas_grad.device).cuda_stream
-    err = fn(canvas_grad.data_ptr(), starts.data_ptr(), reach.data_ptr(),
+    err = fn(canvas_grad.data_ptr(), starts.data_ptr(), scratch.data_ptr(),
              ct.data_ptr(), vy.data_ptr(), vx.data_ptr(), B, Hc, Wc, C, lo,
              hi, WY, vx.shape[2], P, stream)
     build.check(err, name)
@@ -258,7 +286,103 @@ def roi_window_accum_det(canvas_grad, starts, ct, vy, vx, rows=None):
     return canvas_grad
 
 
+def roi_tile_lists_plain(starts, vy, vx, rows, canvas_shape, tile):
+    """Plain version of roi_window_accum_det's pre-pass contract. A RoI row
+    n of [lo, hi) = `rows` (None: all) reaches canvas cell (b, y0 + h, x0 +
+    w), (b, y0, x0) = starts[n], where some vy[n, :, h] and some vx[n, :, w]
+    are nonzero and the cell lies on the canvas (B, Hc, Wc, ...); rows with
+    b outside [0, B) or a negative origin reach nothing. With the canvas cut
+    into tiles of `tile` = (rows, columns), returns (counts (B, tiles_y,
+    tiles_x) int32: the rows that reach each tile; lists (sum of counts,)
+    int64: each tile's rows in increasing order, the tiles in (b, ty, tx)
+    order)."""
+    B, Hc, Wc = canvas_shape[:3]
+    th, tw = tile
+    ty_n, tx_n = -(-Hc // th), -(-Wc // tw)
+    N, _, WY = vy.shape
+    WX = vx.shape[2]
+    lo, hi = (0, N) if rows is None else rows
+    dev = vy.device
+    st = starts[lo:hi].long()
+    b, y0, x0 = st[:, 0], st[:, 1], st[:, 2]
+    valid = (b >= 0) & (b < B) & (y0 >= 0) & (x0 >= 0)
+    ys = y0[:, None] + torch.arange(WY, device=dev)
+    xs = x0[:, None] + torch.arange(WX, device=dev)
+    row_hit = vy[lo:hi].ne(0).any(1) & (ys < Hc) & valid[:, None]
+    col_hit = vx[lo:hi].ne(0).any(1) & (xs < Wc) & valid[:, None]
+    # Tile bands each row reaches: (n, ty_n) and (n, tx_n).
+    bands_y = torch.zeros((hi - lo, ty_n + 1), dtype=torch.bool, device=dev)
+    bands_x = torch.zeros((hi - lo, tx_n + 1), dtype=torch.bool, device=dev)
+    bands_y.scatter_(1, torch.where(row_hit, ys // th, ty_n).clamp(0, ty_n),
+                     True)
+    bands_x.scatter_(1, torch.where(col_hit, xs // tw, tx_n).clamp(0, tx_n),
+                     True)
+    hit = bands_y[:, :ty_n, None] & bands_x[:, None, :tx_n]   # (n, ty, tx)
+    grid = torch.zeros((B, ty_n, tx_n, hi - lo), dtype=torch.bool,
+                       device=dev)
+    idx = valid.nonzero()[:, 0]
+    grid[b[idx], :, :, idx] = hit[idx]
+    counts = grid.sum(-1).to(torch.int32)
+    lists = grid.nonzero()[:, 3] + lo
+    return counts, lists
+
+
+def roi_tile_lists(starts, vy, vx, rows, canvas_shape):
+    """roi_window_accum_det's pre-pass alone, on the card: (counts, lists)
+    as roi_tile_lists_plain gives them at tile = DET_TILE, read back from
+    the kernel's scratch (a check of the lists; no path calls it). CPU
+    tensors take the plain version."""
+    if vy.device.type == "cpu":
+        return roi_tile_lists_plain(starts, vy, vx, rows, canvas_shape,
+                                    DET_TILE)
+    name = "roi_tile_lists"
+    B, Hc, Wc, C = canvas_shape
+    N, P, WY = vy.shape
+    WX = vx.shape[2]
+    if not (starts.is_cuda and starts.device == vy.device
+            and vx.device == vy.device):
+        raise ValueError(name + ": all inputs must be on one CUDA device "
+                         "(or all on the CPU)")
+    if vy.dtype != torch.float32 or vx.dtype != torch.float32 or \
+            starts.dtype != torch.int32:
+        raise TypeError(name + ": vy/vx must be float32 and starts int32")
+    if starts.shape != (N, 3) or vx.shape[:2] != (N, P) or \
+            P > MAX_POOLED or WY > MAX_WINDOW or WX > MAX_WINDOW:
+        raise ValueError(name + ": starts {} / vy {} / vx {} disagree or "
+                         "exceed P <= {}, windows <= {}".format(
+                             tuple(starts.shape), tuple(vy.shape),
+                             tuple(vx.shape), MAX_POOLED, MAX_WINDOW))
+    lo, hi = (0, N) if rows is None else tuple(rows)
+    if not 0 <= lo <= hi <= N:
+        raise ValueError(name + ": rows ({}, {}) outside [0, {}]".format(
+            lo, hi, N))
+    if not all(t.is_contiguous() for t in (starts, vy, vx)):
+        raise ValueError(name + " needs contiguous inputs")
+    lay = _det_layout(canvas_shape, C, hi - lo, WY, WX, P)
+    if hi == lo:
+        return (torch.zeros((B, lay["tiles_y"], lay["tiles_x"]),
+                            dtype=torch.int32, device=vy.device),
+                torch.zeros(0, dtype=torch.int64, device=vy.device))
+    fn = build.load("roi_window_accum_det.cu", "roi_window_accum_det_lists",
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                    + [ctypes.c_void_p])
+    scratch = torch.empty(max(lay["ints"], 1), dtype=torch.int32,
+                          device=vy.device)
+    stream = torch.cuda.current_stream(vy.device).cuda_stream
+    build.check(fn(starts.data_ptr(), scratch.data_ptr(), vy.data_ptr(),
+                   vx.data_ptr(), B, Hc, Wc, C, lo, hi, WY, WX, P, stream),
+                name)
+    roi_tile_lists.launches += 1
+    tiles = B * lay["tiles_y"] * lay["tiles_x"]
+    counts = scratch[lay["counts"]:lay["counts"] + tiles].view(
+        B, lay["tiles_y"], lay["tiles_x"])
+    n = int(scratch[1])
+    lists = scratch[lay["entries"]:lay["entries"] + 4 * n].view(n, 4)[:, 0]
+    return counts.clone(), lists.long()
+
+
 roi_window_pool.launches = 0
 roi_window_pool_seg.launches = 0
 roi_window_accum.launches = 0
 roi_window_accum_det.launches = 0
+roi_tile_lists.launches = 0

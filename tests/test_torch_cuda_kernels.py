@@ -659,52 +659,83 @@ def _deterministic():
         torch.use_deterministic_algorithms(False)
 
 
+def _c4_weights(n, device, seed=4):
+    """Whole-map windows of n RoIs on a 2 x 52 x 84 map (the C4 box head's
+    K4, 1024 channels): canvas, starts (image n % 2), vy, vx."""
+    from detectron_tpu_torch.ops import roi_align as ra
+
+    rng = np.random.RandomState(seed)
+    canvas = torch.zeros((2, 52, 84, 1024), device=device)
+    xy = rng.uniform(-8, 16 * np.array([84, 52]) * 0.9, (n, 2))
+    wh = rng.lognormal(4.5, 0.8, (n, 2)).clip(4, 800)
+    rois = torch.tensor(np.concatenate([xy, xy + wh], -1),
+                        dtype=torch.float32, device=device)
+    vy, vx = ra.roi_weights(rois, 1.0 / 16, 14, 0, 52, 84)
+    starts = torch.zeros((n, 3), dtype=torch.int32, device=device)
+    starts[:, 0] = torch.arange(n, device=device) % 2
+    return canvas, starts, vy, vx
+
+
+def _on_one_spot(starts, vy, vx):
+    """Every row takes the origin and weights of the row whose weights
+    reach the most cells, in place."""
+    k = int((vy.ne(0).any(1).sum(1) * vx.ne(0).any(1).sum(1)).argmax())
+    starts[:], vy[:], vx[:] = starts[k].clone(), vy[k].clone(), \
+        vx[k].clone()
+
+
+# Rows of the one-spot cases: every row lands in one tile's list, so a
+# range of 64 rows ends on the second 32-row work item's end, one of 65
+# (5, 70) one row into a third, and (31, 33) is two rows.
+_SPOT_ROWS = {"spot_rows_0_64": (0, 64), "spot_rows_5_70": (5, 70),
+              "spot_rows_31_33": (31, 33)}
+
+
 def _det_inputs(case, device):
     """K4 inputs: the ladder's sparse weights at the base window (P = 7
-    and 14) and at the (128, 128) rung with P = 16 and an active row range,
-    64 RoIs on one spot, windows past the canvas edges with C = 35 (the
-    scalar path), and whole-map windows of a 52 x 84 map (the C4 box
-    head's K4, 1024 channels)."""
-    if case in ("base7", "base14", "rung128"):
+    and 14, also at C = 35: the scalar copies and adds) and at the (128,
+    128) rung with P = 16 and an active row range, 64 RoIs on one spot
+    (100 with row ranges that end on and inside a work item), windows past
+    the canvas edges with C = 35, and whole-map windows of a 52 x 84 map
+    (the C4 box head's K4, 1024 channels): 200 RoIs, and all 1024 rows of
+    the C4 box shape on one spot (a hot tile of 32 work items)."""
+    if case in ("base7", "base14", "rung128", "c35_p7", "c35_p14"):
         P, window, C = {"base7": (7, None, 256), "base14": (14, None, 80),
-                        "rung128": (16, (128, 128), 64)}[case]
+                        "rung128": (16, (128, 128), 64),
+                        "c35_p7": (7, None, 35),
+                        "c35_p14": (14, None, 35)}[case]
         canvas, starts, vy, vx = _ladder_pool_inputs(P + C, 60, P, window,
                                                      torch.float32, device,
                                                      C=C)
-    elif case == "one_spot":
-        canvas, starts, vy, vx = _ladder_pool_inputs(80, 64, 7, None,
-                                                     torch.float32, device,
-                                                     C=80)
-        k = int((vy.ne(0).any(1).sum(1) * vx.ne(0).any(1).sum(1)).argmax())
-        starts[:], vy[:], vx[:] = starts[k].clone(), vy[k].clone(), \
-            vx[k].clone()
+    elif case == "one_spot" or case in _SPOT_ROWS:
+        canvas, starts, vy, vx = _ladder_pool_inputs(
+            80, 64 if case == "one_spot" else 100, 7, None, torch.float32,
+            device, C=80)
+        _on_one_spot(starts, vy, vx)
     elif case == "edges":
         canvas, starts, vy, vx = _pool_inputs(35, 12, 16, 128, 128,
                                               torch.float32, device, C=35,
                                               Hc=140, Wc=150)
         starts[:, 1] = torch.arange(12, device=device) % 4 * 70 // 3
         starts[:, 2] = torch.arange(12, device=device) // 4 * 108 // 2
+    elif case == "hot_tile":
+        canvas, starts, vy, vx = _c4_weights(1024, device)
+        _on_one_spot(starts, vy, vx)
     else:
-        from detectron_tpu_torch.ops import roi_align as ra
-
-        rng = np.random.RandomState(4)
-        canvas = torch.zeros((2, 52, 84, 1024), device=device)
-        xy = rng.uniform(-8, 16 * np.array([84, 52]) * 0.9, (200, 2))
-        wh = rng.lognormal(4.5, 0.8, (200, 2)).clip(4, 800)
-        rois = torch.tensor(np.concatenate([xy, xy + wh], -1),
-                            dtype=torch.float32, device=device)
-        vy, vx = ra.roi_weights(rois, 1.0 / 16, 14, 0, 52, 84)
-        starts = torch.zeros((200, 3), dtype=torch.int32, device=device)
-        starts[:, 0] = torch.arange(200, device=device) % 2
+        canvas, starts, vy, vx = _c4_weights(200, device)
     P = vy.shape[1]
     ct = torch.randn((vy.shape[0], P, P, canvas.shape[-1]), device=device,
                      generator=torch.Generator(device).manual_seed(P))
-    rows = (5, 41) if case == "rung128" else None
+    rows = (5, 41) if case == "rung128" else _SPOT_ROWS.get(case)
     return canvas, starts, ct, vy.contiguous(), vx.contiguous(), rows
 
 
-@pytest.mark.parametrize("case", ["base7", "base14", "rung128", "one_spot",
-                                  "edges", "c4_map"])
+_DET_CASES = ["base7", "base14", "rung128", "one_spot", "edges", "c4_map",
+              "hot_tile", "spot_rows_0_64", "spot_rows_5_70",
+              "spot_rows_31_33", "c35_p7", "c35_p14"]
+
+
+@pytest.mark.parametrize("case", _DET_CASES)
 def test_roi_window_accum_det_repeats_its_bits(device, case):
     """Under the deterministic switch K4 runs its atomic-free variant: two
     calls on the same inputs give equal bits, within K4's tolerance (1e-5
@@ -731,6 +762,46 @@ def test_roi_window_accum_det_repeats_its_bits(device, case):
     rk.roi_window_accum(base.clone(), starts, ct, vy, vx, rows)
     assert rk.roi_window_accum.launches == atomic + 1
     assert rk.roi_window_accum_det.launches == det + 2
+
+
+@pytest.mark.parametrize("case", ["image_minus_one", "zero_weights"])
+def test_roi_window_accum_det_rows_reaching_nothing(device, case):
+    """Rows that reach no cell (image -1, or all-zero weights) list in no
+    tile: two calls leave the canvas unchanged bit for bit (negative zeros
+    included), and each still counts one launch."""
+    canvas, starts, ct, vy, vx, _ = _det_inputs("base7", device)
+    if case == "image_minus_one":
+        starts[:, 0] = -1
+    else:
+        vy.zero_()
+    base = torch.randn(canvas.shape, device=device,
+                       generator=torch.Generator(device).manual_seed(1))
+    base[0, ::3] = -0.0
+    got = base.clone()
+    det = rk.roi_window_accum_det.launches
+    for _ in range(2):
+        assert rk.roi_window_accum_det(got, starts, ct, vy, vx) is got
+    torch.cuda.synchronize()
+    assert rk.roi_window_accum_det.launches == det + 2
+    assert torch.equal(got.view(torch.int32), base.view(torch.int32))
+    counts, lists = rk.roi_tile_lists(starts, vy, vx, None, canvas.shape)
+    assert int(counts.sum()) == 0 and lists.numel() == 0
+
+
+@pytest.mark.parametrize("case", _DET_CASES)
+def test_roi_tile_lists_match_plain(device, case):
+    """The deterministic K4's pre-pass gives each DET_TILE tile exactly the
+    rows whose nonzero weights reach it, in increasing order
+    (roi_tile_lists_plain), and counts one launch."""
+    canvas, starts, _, vy, vx, rows = _det_inputs(case, device)
+    before = rk.roi_tile_lists.launches
+    counts, lists = rk.roi_tile_lists(starts, vy, vx, rows, canvas.shape)
+    want = rk.roi_tile_lists_plain(starts, vy, vx, rows, canvas.shape,
+                                   rk.DET_TILE)
+    assert rk.roi_tile_lists.launches == before + 1
+    assert torch.equal(counts, want[0])
+    assert torch.equal(lists, want[1])
+    assert lists.numel() > 0
 
 
 def test_train_step_gradients_repeat_under_the_switch(device):
