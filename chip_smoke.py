@@ -6,7 +6,10 @@ Run from the repository root:
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. Device and build: the card's name and power limit from nvidia-smi,
-     then every CUDA kernel (K1-K6) built from csrc/.
+     then every CUDA kernel (K1-K6) built from csrc/, ptxas's registers
+     and spills, and the count of TF32 tensor-core products
+     (HMMA.1688.F32.TF32) and scalar FFMAs in the SASS of K6's float32
+     route, which must have the former.
   2. Per-kernel check at the main paths' shapes: each kernel's wrapper on
      CUDA tensors against its plain PyTorch version on the same inputs
      (K1, the IoU bitmask then a one-warp scan per lane, at the RPN's
@@ -19,16 +22,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      exactly; K2/K3 within 2 bf16 ulps; K4, whose vector reductions sum
      overlapping windows in an order that changes from run to run,
      within 1e-5 max|ref| + 1e-6; K6 in bf16 within 2^-7 |ref| + 2^-6
-     max|ref| with under 20% of the elements differing, in f32 within
-     1e-5 max|ref|), with median CUDA-event times of both (one call
+     max|ref| with under 20% of the elements differing, in f32 (at the
+     full-width res2 input and at phase 3's) within 1e-5 max|ref|), with
+     median CUDA-event times of both (one call
      between two events, so a small kernel's time includes its wrapper's
      host time), the kernel's device time alone (device_ms, torch.profiler
      over 10 calls), and the least time the card could take for the same
      work (bound_ms:
      bytes over 3.35 TB/s or operations over the peak rate of the inputs'
-     type, 989 TFLOP/s bf16 and 67 TFLOP/s f32, whichever is larger). A
-     yardstick line times the port's unfused stem post-ops + res2 stage
-     (cuDNN) beside K5 + K6 on the same input.
+     type, 989 TFLOP/s bf16 and 67 TFLOP/s f32, whichever is larger; for
+     K6's float32 route, which multiplies on the tensor cores as three
+     TF32 products, operations over the larger of 67 and 494.7 / 3
+     TFLOP/s). Yardstick lines time the port's unfused stem post-ops +
+     res2 stage (cuDNN) beside K5 + K6 on the same input in bf16, and in
+     f32 the unfused post-ops then res2 by cuDNN (TF32 off) or by K6's
+     float32 route (the "auto" mode).
   3. Checks of whole functions, GPU (kernels) against CPU (plain
      versions): the RoIAlign ladder's backward (K4 over the base window
      and each fix-up rung, autograd of the exact gather for slivers) at
@@ -264,6 +272,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      ranks with the box head's fc6 / fc7 split, float32 without cuDNN,
      its step against the one-process step on its 2 images, at phase
      25's tolerances.
+  29. The float32 TPU.FUSED_RES2 path at full width (run after phase 6):
+     the "auto" mode (the unfused stem post-ops, then K6's float32 route),
+     which the default TPU.COMPUTE_DTYPE takes. detect_graph on phase 4's
+     images and calibrated weights in float32, then train_step on phase
+     5's batch and draws, each with TPU.FUSED_RES2 off and on in turns
+     (off, on, on, off; MAIN_RUNS batches or TRAIN_STEPS steps a turn
+     after a warm-up): host ms a batch and a step, K6 launched once a
+     batch and a step (and never with the switch off), the detections on
+     against off by phase 3's criterion (95% matched, counts within 5%),
+     finite training stats, the warm-up step's loss on within
+     LOSS_REL_F32 of off, K6 on the training batch's own res2 input
+     within 1e-5 max|ref| of fused_res2_plain, then one profiled batch of
+     each setting (busy time, idle share). One on turn's launches go into
+     launches_by_path as "inference_fused_res2_f32" and
+     "training_fused_res2_f32".
   Each rank's K1-K4 launches go into launches_by_path ("dp_train_rank<r>",
   "nccl_world1_train", "multihost_train_rank<r>",
   "multihost_resume_rank<r>", "sharded_test_net_rank<r>",
@@ -302,7 +325,9 @@ phase 18, "tta_test_net" and "tta_keypoint_test_net" phase 19,
 "variant_<name>_infer" / "variant_<name>_train" phase 20's,
 "infer_simple" and "keypoint_infer_simple" phase 21, "voc_train_net",
 "voc_train_net_resume" and "voc_test_net" phase 22, and
-"cityscapes_test_net" phase 23; K1, K2, K4
+"cityscapes_test_net" phase 23; K6 carries its float32 route's
+measurements under "f32" (the full-width res2 input) and "f32_small"
+(phase 3's); K1, K2, K4
 and K4's deterministic variant carry their C4 shapes' measurements under
 "c4" (and K1's 12000-box lanes under "c4_train"), K1-K3 theirs at the
 TTA canvas under "tta" (and "tta_tail", "tta_mask"), the variant its
@@ -345,6 +370,11 @@ MAIN_RUNS = 3
 ENGINE_IMAGES = 48
 ENGINE_BATCH = 8
 TRAIN_STEPS = 3
+# Phase 29: the float32 warm-up step's loss with TPU.FUSED_RES2 on, relative
+# to the unfused path's. K6 moves res2 by at most 1e-5 of its max|ref|, but
+# the RPN's top-k and NMS and the RoI sampling turn that into whole proposal
+# swaps (3.8e-4 measured on an H100); a K6 fault moves every level above.
+LOSS_REL_F32 = 1e-2
 # Phase 8: the synthetic training set's size and train_net_step's steps.
 TRAIN_NET_IMAGES = 16
 TRAIN_NET_STEPS = 8
@@ -387,7 +417,11 @@ CLIP_GRADIENTS = 10.0
 # H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s, and FLOP/s by
 # operand type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# "tf32x3": float32-accurate products on the tensor cores as three TF32
+# products (494.7 TFLOP/s of TF32, dense); K6's float32 route alone
+# runs them, and its bound is the lesser of the float32 and the tf32x3
+# time.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 494.7e12 / 3}
 # Phase 3 holds every ReLU input of a float32 training step within this
 # share of its call's largest float64 input (the float32 forward's rounding,
 # grown through the body, is ~1e-4 of it at res5 on these inputs).
@@ -1026,9 +1060,10 @@ def res2_stage(params, device, rng):
 def check_fused_kernels(device, rng, record):
     """Phase 2, K5 and K6 at the TPU.FUSED_RES2 path's full-width shapes:
     the stem conv's output (B, 416, 672, 64) and res2's input
-    (B, 208, 336, 64), bf16; K6 also in f32 at the phase-3 tiny canvas's
-    res2 shape (B, 64, 80, 64). Prints the yardstick: the port's unfused
-    stem post-ops + res2 (cuDNN convs) beside K5 + K6."""
+    (B, 208, 336, 64), bf16; K6 also in f32 there (entry "f32") and at the
+    phase-3 tiny canvas's res2 shape (B, 64, 80, 64) ("f32_small"). Prints
+    the yardsticks: the port's unfused stem post-ops + res2 (cuDNN convs)
+    beside K5 + K6 in bf16, and beside the unfused post-ops + K6 in f32."""
     import torch
 
     from detectron_tpu_torch.models import layers as L
@@ -1061,8 +1096,10 @@ def check_fused_kernels(device, rng, record):
 
     params = make_params(device, torch.bfloat16)
     stage = res2_stage(params, device, rng)
-    for dtype, shape in ((torch.bfloat16, (BATCH, Hp // 2, Wp // 2, 64)),
-                         (torch.float32, (BATCH, 64, 80, 64))):
+    for dtype, shape, tag in (
+            (torch.bfloat16, (BATCH, Hp // 2, Wp // 2, 64), None),
+            (torch.float32, (BATCH, Hp // 2, Wp // 2, 64), "f32"),
+            (torch.float32, (BATCH, 64, 80, 64), "f32_small")):
         h = torch.randn(shape, generator=gen, device=device).relu().to(dtype)
         folded = fk.fold_res2_weights(stage, dtype)
         got = fk.fused_res2(h, folded)
@@ -1083,15 +1120,18 @@ def check_fused_kernels(device, rng, record):
                                                        share))
         pixels = shape[0] * shape[1] * shape[2]
         item = h.element_size()
+        nbytes = pixels * (64 + 256) * item + RES2_WEIGHTS * item \
+            + RES2_BIASES * 4
+        bnd = bound(nbytes, 2 * RES2_MACS * pixels, "bfloat16") if tag is \
+            None else min(bound(nbytes, 2 * RES2_MACS * pixels, t)
+                          for t in ("float32", "tf32x3"))
         record("fused_res2", "x={} {} (share differing {:.4f}, max|ref| "
                "{:.3f})".format(shape, name, share,
                                 float(ref.float().abs().max())),
                err, lambda: fk.fused_res2(h, folded),
-               lambda: fk.fused_res2_plain(h, folded),
-               bound(pixels * (64 + 256) * item + RES2_WEIGHTS * item
-                     + RES2_BIASES * 4, 2 * RES2_MACS * pixels,
-                     "bfloat16" if dtype == torch.bfloat16 else "float32"),
-               dtype == torch.bfloat16)
+               lambda: fk.fused_res2_plain(h, folded), bnd, tag is None,
+               tag)
+        del h, got, ref
 
     # Yardstick (not library_ms: no single PyTorch call computes K5 or
     # K6): the port's unfused path on the same stem-conv output.
@@ -1110,6 +1150,30 @@ def check_fused_kernels(device, rng, record):
     print("yardstick at x={} bf16: unfused stem post-ops + res2 (cuDNN) "
           "{:.4f} ms; K5 + fold + K6 {:.4f} ms".format(
               tuple(x.shape), cuda_ms(unfused, 20), cuda_ms(fused, 20)))
+
+    # The float32 yardstick: the unfused stem post-ops, then res2 by cuDNN
+    # (TF32 off) or by fold + K6 (the "auto" mode's float32 route).
+    x32 = x.float()
+    stage32 = [{k: {n: t.float() for n, t in v.items()} for k, v in
+                bp.items()} for bp in stage]
+
+    def post_ops():
+        return L.max_pool(L.relu(resnet._norm(bn, x32)), 3, 2, 1)
+
+    def unfused32():
+        y = post_ops()
+        for bp in stage32:
+            y = resnet.apply_bottleneck(bp, y, 1)
+        return y
+
+    def auto32():
+        return fk.fused_res2(post_ops().contiguous(),
+                             fk.fold_res2_weights(stage32, torch.float32))
+
+    print("yardstick at x={} f32: unfused stem post-ops + res2 (cuDNN, "
+          "TF32 off) {:.4f} ms; unfused post-ops + fold + K6 {:.4f} "
+          "ms".format(tuple(x.shape), cuda_ms(unfused32, 20),
+                      cuda_ms(auto32, 20)))
 
 
 # ---------------------------------------------------------------------------
@@ -1497,20 +1561,21 @@ def check_small_train(device, keypoints=False, c4=False, extra=()):
                              "path on the small input: {}".format(bad))
 
 
-def main_inputs(device, params=True, blocked=True):
-    """The inference main path's bf16 params (None without `params`) and
-    images (and im_info); with TPU.S2D_INPUT and `blocked`, the images'
-    space_to_depth blocks, as that stem takes them."""
+def main_inputs(device, params=True, blocked=True, dtype=None):
+    """The inference main path's params (None without `params`) and images
+    (and im_info), bf16 unless `dtype`; with TPU.S2D_INPUT and `blocked`,
+    the images' space_to_depth blocks, as that stem takes them."""
     import torch
 
     from detectron_tpu_torch.core.config import cfg
     from detectron_tpu_torch.models import resnet
 
-    params = make_params(device, torch.bfloat16) if params else None
+    dtype = dtype or torch.bfloat16
+    params = make_params(device, dtype) if params else None
     rng = np.random.RandomState(0)
     images = torch.from_numpy(
         rng.randn(BATCH, *CANVAS, 3).astype(np.float32) * 20.0).to(
-            device, torch.bfloat16)
+            device, dtype)
     if cfg.TPU.S2D_INPUT and blocked:
         images = resnet.space_to_depth(images)
     im_info = torch.tensor([IM_INFO] * BATCH, device=device)
@@ -1551,6 +1616,163 @@ def compare_fused_inference(device):
                 extra=FUSED_RES2 if fused else ())
         profile_call("one inference batch, TPU.FUSED_RES2 {}".format(fused),
                      batch, n_kernels=20, n_ops=0)
+
+
+def run_fused_f32_paths(device, clip):
+    """Phase 29: the float32 TPU.FUSED_RES2 path at full width, the "auto"
+    mode (the unfused stem post-ops, then K6's float32 route), which the
+    default TPU.COMPUTE_DTYPE takes. detect_graph on phase 4's images and
+    calibrated weights in float32, then train_step on phase 5's batch and
+    draws (CLIP_GRADIENTS as phase 5), each with TPU.FUSED_RES2 off and on
+    in turns (off, on, on, off): MAIN_RUNS batches or TRAIN_STEPS steps a
+    turn after a warm-up, K6 launched once a batch and a step. On against
+    off: the detections by check_small_input's criterion; the warm-up
+    step's loss within LOSS_REL_F32 of the off turn's; and K6 on the
+    training batch's own res2 input (the stem's unfused post-ops on its
+    images) within 1e-5 max|ref| of fused_res2_plain. Then one profiled
+    batch of each setting. Returns the launches of one on turn (MAIN_RUNS
+    batches, TRAIN_STEPS steps):
+    {"inference_fused_res2_f32": ..., "training_fused_res2_f32": ...}."""
+    import torch
+
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import bridge, resnet, train_graph
+    from detectron_tpu_torch.models import layers as L
+    from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.parallel import train_step as ts
+    from detectron_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    def settings(fused, train=False):
+        set_cfg(tiny=False, dtype="float32",
+                extra=(FUSED_RES2 if fused else []) +
+                (["SOLVER.CLIP_GRADIENTS", str(clip)] if train else []))
+
+    launches = {}
+    settings(False)
+    tree = make_tree()
+    params = bridge.to_torch(tree, device, torch.float32)
+    _, images, im_info = main_inputs(device, params=False,
+                                     dtype=torch.float32)
+    times, outs = {False: [], True: []}, {}
+    wrappers = dict(kernel_wrappers(), fused_res2=fk.fused_res2)
+    for fused in (False, True, True, False):
+        settings(fused)
+        outs[fused] = det.detect_graph(params, images, im_info)  # warm-up
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(MAIN_RUNS):
+            det.detect_graph(params, images, im_info)
+        torch.cuda.synchronize()
+        times[fused].append((time.perf_counter() - t0) / MAIN_RUNS * 1e3)
+        got = {name: fn.launches for name, fn in wrappers.items()}
+        if got["fused_res2"] != (MAIN_RUNS if fused else 0):
+            raise AssertionError("K6 launched {} times in {} float32 "
+                                 "batches".format(got["fused_res2"],
+                                                  MAIN_RUNS))
+        if fused:
+            launches = got
+    require_launches(launches, ("nms_keep_mask", "roi_window_pool",
+                                "fused_res2"), "float32 FUSED_RES2")
+    on, off = ({k: v.cpu() for k, v in outs[f].items()} for f in (True,
+                                                                  False))
+    frac = match_detections(on, off)
+    n_off, n_on = int(off["valid"].sum()), int(on["valid"].sum())
+    print("float32 inference (Mask R-CNN R-50-FPN, {} x {} x {}) in turns "
+          "(off, on, on, off), host ms per batch over {} batches: "
+          "TPU.FUSED_RES2 off {}, on {}; on against off: valid {} / {}, "
+          "matched {:.4f}; launches of an on turn {}".format(
+              BATCH, *CANVAS, MAIN_RUNS, [round(t, 3) for t in times[False]],
+              [round(t, 3) for t in times[True]], n_on, n_off, frac,
+              launches))
+    if n_off == 0 or frac < 0.95 or abs(n_off - n_on) > 0.05 * n_off:
+        raise AssertionError("float32 detect_graph with TPU.FUSED_RES2 "
+                             "disagrees with the unfused path")
+    for fused in (False, True):
+        settings(fused)
+        profile_call("one float32 inference batch, TPU.FUSED_RES2 {}"
+                     .format(fused), lambda: det.detect_graph(
+                         params, images, im_info), n_kernels=20, n_ops=0)
+    del params, outs
+
+    batch = synthetic_train_batch(BATCH, *CANVAS, device,
+                                  np.random.RandomState(0))
+    train_launches, times, first = {}, {False: [], True: []}, {}
+    wrappers = dict(kernel_wrappers(accum=True), fused_res2=fk.fused_res2)
+    for fused in (False, True, True, False):
+        settings(fused, train=True)
+        params = bridge.to_torch(tree, device, torch.float32)
+        opt_state = opt.init_opt_state(params)
+        gen = torch.Generator().manual_seed(0)
+
+        def step(params, opt_state):
+            return ts.train_step(params, opt_state, batch,
+                                 train_graph.make_draws(
+                                     gen, BATCH, CANVAS,
+                                     cfg.TPU.MAX_GT_BOXES, device))
+        params, opt_state, stats = step(params, opt_state)   # warm-up
+        first[fused] = {k: float(v) for k, v in stats.items()}
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        marks = [time.perf_counter()]
+        for _ in range(TRAIN_STEPS):
+            params, opt_state, stats = step(params, opt_state)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        times[fused].append(statistics.median(
+            (b - a) * 1e3 for a, b in zip(marks, marks[1:])))
+        got = {name: fn.launches for name, fn in wrappers.items()}
+        if got["fused_res2"] != (TRAIN_STEPS if fused else 0):
+            raise AssertionError("K6 launched {} times in {} float32 "
+                                 "steps".format(got["fused_res2"],
+                                                TRAIN_STEPS))
+        if not all(np.isfinite(float(v)) for v in stats.values()):
+            raise AssertionError("non-finite float32 training stats: "
+                                 "{}".format(stats))
+        if fused:
+            train_launches = got
+            with torch.no_grad():
+                body = params["body"]
+                h = resnet.stem_conv(body["conv1"], batch["images"].to(
+                    torch.float32))
+                h = L.max_pool(L.relu(resnet._norm(body["res_conv1_bn"], h)),
+                               3, 2, 1).contiguous()
+                folded = fk.fold_res2_weights(body["res2"], torch.float32)
+                ref = fk.fused_res2_plain(h, folded)
+                err = float((fk.fused_res2(h, folded) - ref).abs().max())
+            top = float(ref.abs().max())
+            print("float32 training batch's res2 input {}: K6 against "
+                  "fused_res2_plain max_abs_err {:.3e} (limit {:.3e})".format(
+                      tuple(h.shape), err, 1e-5 * top))
+            if not err <= 1e-5 * top:
+                raise AssertionError("K6 float32 disagrees with its plain "
+                                     "version on the training batch")
+            del h, ref
+        del params, opt_state
+    require_launches(train_launches, ("nms_keep_mask", "roi_window_pool",
+                                      "roi_window_accum", "fused_res2"),
+                     "float32 FUSED_RES2 training")
+    rel = abs(first[True]["loss"] - first[False]["loss"]) / \
+        abs(first[False]["loss"])
+    print("float32 training (Mask R-CNN R-50-FPN, {} x {} x {}, {} RoIs/"
+          "img) in turns (off, on, on, off), median host ms per step over {} "
+          "steps: TPU.FUSED_RES2 off {}, on {}; warm-up step loss off {} on "
+          "{} (relative difference {:.3e}, limit {}); launches of an on "
+          "turn {}".format(
+              BATCH, *CANVAS, cfg.TRAIN.BATCH_SIZE_PER_IM, TRAIN_STEPS,
+              [round(t, 3) for t in times[False]],
+              [round(t, 3) for t in times[True]], first[False]["loss"],
+              first[True]["loss"], rel, LOSS_REL_F32, train_launches))
+    if not rel <= LOSS_REL_F32:
+        raise AssertionError("float32 train_step's loss with TPU.FUSED_RES2 "
+                             "is {:.3e} away from the unfused path's".format(
+                                 rel))
+    return {"inference_fused_res2_f32": launches,
+            "training_fused_res2_f32": train_launches}
 
 
 def run_main_path(device, extra=()):
@@ -4728,6 +4950,12 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("ptxas {}: {}".format(source, line.strip()))
+    sass = build.sass_counts("fused_res2.cu", "fused_res2_f32_kernel",
+                             ("HMMA.1688.F32.TF32", "FFMA"))
+    print("sass fused_res2_f32_kernel: {}".format(sass))
+    if sass["HMMA.1688.F32.TF32"] == 0:
+        raise AssertionError("K6's float32 route has no TF32 tensor-core "
+                             "product in its SASS")
 
     set_cfg(tiny=False, dtype="bfloat16")
     entries = check_kernels(device)
@@ -4748,6 +4976,9 @@ def main():
                                         args.clip_gradients),
              "inference_fused_res2": run_main_path(device, FUSED_RES2)}
     compare_fused_inference(device)
+    t0 = time.perf_counter()
+    paths.update(run_fused_f32_paths(device, args.clip_gradients))
+    print("phase 29: {:.3f} s".format(time.perf_counter() - t0))
     with tempfile.TemporaryDirectory() as workdir:
         paths["test_net"] = run_engine_path(device, workdir)
     with tempfile.TemporaryDirectory() as workdir:
@@ -4838,7 +5069,7 @@ def main():
                 "atomic_", "det_over_atomic", "other_") + tuple(
                     d + "_" for d in DET_KERNELS))},
             **{k: dict(v, library_ms=None) for k, v in e.items()
-               if k.startswith(("c4", "tta"))}})
+               if k.startswith(("c4", "tta", "f32"))}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

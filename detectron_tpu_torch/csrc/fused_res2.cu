@@ -18,10 +18,10 @@
 // position outside the image, as the Pallas kernel's zero_edge_rows and
 // edge-column masks do.
 //
-// One CTA of 512 threads per (image, TY x TX output tile) runs the whole
-// stage with every intermediate in shared memory, as the TPU kernel keeps
-// them in VMEM; only x (and the weights) are read and only the output is
-// written. The tile carries a 3-cell halo: level L of the tile is the
+// One CTA (512 threads in bf16, 384 in f32) per (image, TY x TX output
+// tile) runs the whole stage with every intermediate in shared memory, as
+// the TPU kernel keeps them in VMEM; only x (and the weights) are read and
+// only the output is written. The tile carries a 3-cell halo: level L of the tile is the
 // (TY + 6 - 2L) x (TX + 6 - 2L) grid around it, and a0 is computed on level
 // 0, b0/h0/a1 on level 1, b1/h1/a2 on level 2, b2/h2 on the tile. Three
 // activation buffers, reused as values die:
@@ -30,8 +30,9 @@
 //   Hb (level 1 x 256): a0 (level 0 x 64), then h0; h1 and h2 in place
 // Activations are stored in T, position-major with channels contiguous and
 // 16-byte chunks XOR-swizzled by position (no bank conflicts on the
-// fragment loads). Each conv is an implicit GEMM (rows: the grid's
-// positions, K: taps x input channels, N: output channels).
+// fragment loads; swz for bf16, swz_f32 for f32). Each conv is an implicit
+// GEMM (rows: the grid's positions, K: taps x input channels, N: output
+// channels).
 //
 // bf16 (the path that TPU.FUSED_RES2 runs): 8 x 16 tiles, mma.sync m16n8k16
 // with f32 accumulation. What bounds it: operations, 59.5 GFLOP at
@@ -57,10 +58,38 @@
 // Shared memory: 189 KB of activations + the 32 KB ring = 220.5 KB of the
 // 227 KB a block can have, at the 8 x 16 tile and its 1.51x halo factor.
 //
-// f32 (only the "auto" mode's small f32 check runs it): scalar FMAs over
-// the same implicit GEMMs in warp items of one 16-row m-tile by NT 8-column
-// n-tiles (the mma.sync m16n8 accumulator layout), weights read from L1/L2
-// in (Cout, kh, kw, Cin) layout, 4 x 8 tiles (155 KB of shared memory).
+// f32 (TPU.FUSED_RES2's "auto" mode, which the default TPU.COMPUTE_DTYPE
+// float32 takes): the same stage on the tensor cores at f32 accuracy,
+// 3xTF32. What bounds it: operations, 59.5 GFLOP at (2, 208, 336, 64)
+// against 179 MB of bytes; three TF32 products run at 494.7 / 3 TFLOP/s,
+// f32 FMAs at 67. The design:
+//  - every operand splits into a TF32 head (cvt.rna.tf32.f32's rounding)
+//    and the TF32 head of its remainder, and each m16n8k8 product is
+//    lo(a) hi(w) + hi(a) lo(w) + hi(a) hi(w) (the dropped lo lo term and
+//    the tails' rounding are ~2^-22 of a product); the wrapper splits the
+//    weights once, the kernel the activations as it loads their fragments;
+//  - the tensor cores' own f32 sums round toward zero, which over a whole
+//    conv's K drifts past 1e-5 of the result (measured: 1.14e-5 of
+//    max|ref| with one accumulator chain): each weight chunk's products
+//    (4 k-steps, a chain of 12 mma) sum from zero and join the conv's sum
+//    by a rounded f32 add;
+//  - the weights go through a shared-memory ring in the order the nine
+//    convs consume them: 104 chunks of 64 output x 32 input channels, head
+//    and tail (16 KB), two 16-byte cp.async per thread each, issued
+//    one chunk ahead (a ring of kRingF = 2);
+//  - activations stay f32 in shared memory, 16-byte pieces XOR-swizzled by
+//    the position's low three bits reversed (swz_f32); a k-step maps the
+//    mma's k to channel pairs, so that a lane's two A values of a row are
+//    one 8-byte load and its B heads and tails one 16-byte load;
+//  - each conv's warp items are one m-tile x NT n-tiles, NT set per level
+//    (kNtL0 .. kNtT); a warp splits an A fragment once for all of its
+//    item's NT n-tiles, so a few large items beat many small ones
+//    (measured: 16 items a conv where the level allows ran ~1.4x slower).
+// The tile is 8 x 6: 192 KB of activations and a ring of 2 chunks
+// (224 KB), 1.87x halo recompute against 2.16x at 4 x 8. Twelve warps, not
+// 16: the items need no more, and the registers are not spilled. Half
+// chunks through a ring of 4 (twice the barriers, a prefetch three deep)
+// ran 1.3x slower: the per-chunk barrier costs more than the copy's latency.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,8 +102,9 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 
-// Packed weights (elements), each (Cout, kh, kw, Cin); see
-// ops/cuda/fused_stem_kernel.py::pack_res2_weights.
+// Packed bf16 weights (elements), each (Cout, kh, kw, Cin); see
+// ops/cuda/fused_stem_kernel.py::pack_res2_weights (f32: the chunks of
+// pack_res2_weights_tf32).
 constexpr int kWa0 = 0;
 constexpr int kWb0 = kWa0 + 64 * 64;
 constexpr int kWc0 = kWb0 + 64 * 576;
@@ -131,46 +161,6 @@ __device__ __forceinline__ void store_pair(T* p, float a, float b) {
   }
 }
 
-// One operand of a conv: output position (r, c) reads input position
-// (r + oy + dy, c + ox + dx) of `in` (a grid of width wi, cin channels) for
-// the taps 0 <= dy, dx < taps, against w (Cout, taps, taps, cin).
-template <typename T>
-struct Operand {
-  const T* in;
-  int cin, wi, oy, ox, taps;
-  const T* w;
-};
-
-// f32: acc[nt] += the operand's product for the warp's rows (input base
-// positions p0, p1: fragment rows g and g + 8) and output channels
-// n0 + 8 nt + {2t, 2t + 1}.
-template <int NT>
-__device__ __forceinline__ void accumulate(float (&acc)[NT][4], const Operand<float> op, int p0,
-                                           int p1, int n0, int lane) {
-  const int t = lane & 3;
-  const int ldw = op.taps * op.taps * op.cin;
-  for (int dy = 0; dy < op.taps; ++dy) {
-    for (int dx = 0; dx < op.taps; ++dx) {
-      const int q0 = p0 + dy * op.wi + dx, q1 = p1 + dy * op.wi + dx;
-      const float* wt = op.w + (dy * op.taps + dx) * op.cin;
-      for (int k = 0; k < op.cin; ++k) {
-        const float a0 = op.in[swz<float>(q0, k, op.cin)];
-        const float a1 = op.in[swz<float>(q1, k, op.cin)];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int n = n0 + nt * 8 + 2 * t;
-          const float w0 = __ldg(wt + n * ldw + k);
-          const float w1 = __ldg(wt + (n + 1) * ldw + k);
-          acc[nt][0] = fmaf(a0, w0, acc[nt][0]);
-          acc[nt][1] = fmaf(a0, w1, acc[nt][1]);
-          acc[nt][2] = fmaf(a1, w0, acc[nt][2]);
-          acc[nt][3] = fmaf(a1, w1, acc[nt][3]);
-        }
-      }
-    }
-  }
-}
-
 // Where a conv's output goes: position (r, c) of the ho x wo output grid is
 // cell (r + py, c + px) of `buf` (a grid of width wb, n channels); its image
 // cell is (gy + r, gx + c) of the H x W image.
@@ -180,66 +170,6 @@ struct Target {
   int wb, py, px;
   int gy, gx;
 };
-
-// One conv over an ho x wo grid with n output channels: the sum of op0 and
-// (if op1.in) op1, plus bias, then the epilogue.
-template <typename T, int NT, Epilogue EPI>
-__device__ __forceinline__ void conv(const Operand<T> op0, const Operand<T> op1, int ho, int wo,
-                                     int n, const float* __restrict__ bias, const Target<T> out,
-                                     int H, int W) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m_total = ho * wo;
-  const int mtiles = (m_total + 15) / 16;
-  const int nblocks = n / (8 * NT);
-  for (int item = warp; item < mtiles * nblocks; item += kWarps) {
-    const int mt = item % mtiles;
-    const int n0 = (item / mtiles) * 8 * NT;
-    int r[2], c[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = min(mt * 16 + g + 8 * h, m_total - 1);
-      r[h] = m / wo;
-      c[h] = m % wo;
-    }
-    float acc[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[nt][k] = 0.0f;
-    }
-    accumulate<NT>(acc, op0, (r[0] + op0.oy) * op0.wi + c[0] + op0.ox,
-                   (r[1] + op0.oy) * op0.wi + c[1] + op0.ox, n0, lane);
-    if (op1.in != nullptr) {
-      accumulate<NT>(acc, op1, (r[0] + op1.oy) * op1.wi + c[0] + op1.ox,
-                     (r[1] + op1.oy) * op1.wi + c[1] + op1.ox, n0, lane);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (mt * 16 + g + 8 * h >= m_total) continue;
-      const int pos = (r[h] + out.py) * out.wb + c[h] + out.px;
-      const int gy = out.gy + r[h], gx = out.gx + c[h];
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int ch = n0 + nt * 8 + 2 * t;
-        float v0 = acc[nt][2 * h] + bias[ch];
-        float v1 = acc[nt][2 * h + 1] + bias[ch + 1];
-        T* dst = out.buf + swz<T>(pos, ch, n);
-        if constexpr (EPI == kResidual) {
-          const float2 prev = load_pair(dst);
-          v0 = fmaxf(round_act<T>(v0) + prev.x, 0.0f);
-          v1 = fmaxf(round_act<T>(v1) + prev.y, 0.0f);
-        } else {
-          v0 = fmaxf(v0, 0.0f);
-          v1 = fmaxf(v1, 0.0f);
-          if (EPI == kReluMasked && !inside) v0 = v1 = 0.0f;
-        }
-        store_pair(dst, v0, v1);
-      }
-    }
-  }
-}
 
 template <int TY, int TX>
 struct Tile {
@@ -555,90 +485,336 @@ fused_res2_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-// f32: scalar FMAs (see the source note).
-template <typename T, int TY, int TX>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_res2_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
-                  T* __restrict__ out, int H, int W) {
-  using G = Tile<TY, TX>;
-  constexpr int E = 16 / sizeof(T);
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 tensor cores, weights staged in shared memory
+// ---------------------------------------------------------------------------
+
+// The tile: 8 x 6 outputs, picked by measurement against 4 x 8, 5 x 8 and
+// 6 x 8 at full width (PERF.md, section 6): its 192 KB of f32 activations
+// leave room for a ring of two weight chunks in the 227 KB a block can have.
+constexpr int kTY = 8, kTX = 6;
+using TileF = Tile<kTY, kTX>;
+constexpr int kChunkF = 64 * 32 * 2;            // floats: 64 x 32, head and tail
+constexpr int kChunksF = 104;                   // the nine convs' chunks
+constexpr int kRingF = 2;                       // chunks in shared memory
+constexpr int kSmemF = 4 * (TileF::kElems + kRingF * kChunkF);
+static_assert(kSmemF <= 232448, "more shared memory than a block can have");
+// 12 warps: every level's warp items fit (at most 12), and a thread may
+// then hold 168 registers; 16 warps' 128 spilled (96 bytes of stores) and
+// ran 7% slower at full width.
+constexpr int kThreadsF = 384, kWarpsF = kThreadsF / 32;
+
+// Element index of channel ch of position pos in an f32 buffer of C
+// channels: 16-byte pieces XOR-swizzled by the position's low three bits
+// reversed, so that four consecutive positions put a piece pair each on
+// distinct banks (the A fragments' and the epilogue's 8-byte accesses).
+__device__ __forceinline__ int swz_f32(int pos, int ch, int C) {
+  const int f = ((pos & 1) << 2) | (pos & 2) | ((pos >> 2) & 1);
+  return pos * C + ((((ch >> 2) ^ f)) << 2) + (ch & 3);
+}
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite value (to nearest,
+// ties away from zero), in two integer ops: ptxas expands the cvt into a
+// longer sequence.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as a TF32 head and the TF32 head of the remainder (the wrapper's
+// split_tf32), in f32 registers.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a b, from a zero accumulator.
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
+}
+
+// Chunk i (if any) into ring slot i % kRingF: 64 rows of 16 pieces, each
+// piece XOR-swizzled by bit 2 with the row's parity (two rows a load phase);
+// one commit group either way.
+__device__ __forceinline__ void fetch_chunk_f32(float* ring, const float* w, int i) {
+  if (i < kChunksF) {
+#pragma unroll
+    for (int u = threadIdx.x; u < kChunkF / 4; u += kThreadsF) {
+      const int row = u >> 4, v = u & 15;
+      cp_async16(ring + (i % kRingF) * kChunkF + row * 64 + ((v ^ ((row & 1) << 2)) << 2),
+                 w + static_cast<int64_t>(i) * kChunkF + 4 * u);
+    }
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ const float* next_chunk_f32(float* ring, const float* w, int& c) {
+  cp_async_wait<kRingF - 2>();
+  __syncthreads();
+  fetch_chunk_f32(ring, w, c + kRingF - 1);
+  return ring + (c++ % kRingF) * kChunkF;
+}
+
+// Warp items: one m-tile x NT n-tiles of a 64-channel n-block, so that a
+// warp splits each A fragment once for NT n-tiles; each warp holds one
+// item's accumulators across the n-block's chunks (at most 16 items). NT of
+// each level, measured at full width (PERF.md, section 6, PR 16 run 10):
+constexpr int kNtL0 = 8;  // 11 m-tiles: 11 items (an A split serves 8 n-tiles)
+constexpr int kNtL1 = 8;  // 8 m-tiles: 8 items; 2 m-tiles x 4 n-tiles ran the same
+constexpr int kNtL2 = 4;  // 5 m-tiles: 10 items; 8 n-tiles (5 items) ran ~7% slower
+constexpr int kNtT = 2;   // 3 m-tiles: 12 items; 4 n-tiles (6 items) ran the same
+
+// One operand of an f32 conv (its weights come from the chunks): output
+// position (r, c) reads input position (r + oy + dy, c + ox + dx) of `in`
+// (a grid of width wi, cin channels) for the taps 0 <= dy, dx < taps.
+struct OpF {
+  const float* in;
+  int cin, wi, oy, ox, taps;
+  __device__ int chunks() const { return taps * taps * cin / 32; }
+};
+
+// The epilogue of a warp item: m-tile mt, the output channels ch0 + 8 j +
+// {2t, 2t + 1}.
+template <Epilogue EPI, int NT>
+__device__ __forceinline__ void epilogue_f32(const float (&acc)[NT][4], int mt, int ch0,
+                                             int m_total, int wo, int n,
+                                             const float* __restrict__ bias,
+                                             const Target<float> out, int H, int W) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = mt * 16 + g + 8 * h;
+    if (m >= m_total) continue;
+    const int r = m / wo, c = m % wo;
+    const int pos = (r + out.py) * out.wb + c + out.px;
+    const int gy = out.gy + r, gx = out.gx + c;
+    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int ch = ch0 + 8 * j + 2 * t;
+      float v0 = acc[j][2 * h] + bias[ch];
+      float v1 = acc[j][2 * h + 1] + bias[ch + 1];
+      float2* dst = reinterpret_cast<float2*>(out.buf + swz_f32(pos, ch, n));
+      if constexpr (EPI == kResidual) {
+        const float2 prev = *dst;
+        v0 = fmaxf(v0 + prev.x, 0.0f);
+        v1 = fmaxf(v1 + prev.y, 0.0f);
+      } else {
+        v0 = fmaxf(v0, 0.0f);
+        v1 = fmaxf(v1, 0.0f);
+        if (EPI == kReluMasked && !inside) v0 = v1 = 0.0f;
+      }
+      *dst = make_float2(v0, v1);
+    }
+  }
+}
+
+// One f32 conv over an ho x wo grid with n output channels: per n-block of
+// 64, op0's chunks then (if op1.in) op1's, each a 32-input slice of one tap,
+// each k-step summed on the tensor cores as lo(a) hi(w) + hi(a) lo(w) +
+// hi(a) hi(w) and added to the f32 sum; plus bias, then the epilogue. Warp
+// items of NT n-tiles; c counts the weight chunks consumed so far.
+//
+// Fragments: mma m16n8k8 takes A (row g / g + 8, k t / t + 4) and B (k t /
+// t + 4, n g); a k-step of 8 input channels maps k t to channel 2t and
+// k t + 4 to channel 2t + 1, so a lane reads its two A values of a row as
+// one 8-byte load and its head and tail of both B values as one 16-byte
+// load (the packing in ops/cuda/fused_stem_kernel.py::pack_res2_weights_tf32).
+template <Epilogue EPI, int NT>
+__device__ __forceinline__ void conv_f32(const OpF op0, const OpF op1, int ho, int wo, int n,
+                                         const float* __restrict__ bias, const Target<float> out,
+                                         int H, int W, float* ring, const float* w, int& c) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m_total = ho * wo;
+  const int mtiles = (m_total + 15) / 16;
+  const bool active = warp < mtiles * (8 / NT);
+  const int mt = warp % mtiles, n0 = (warp / mtiles) * 8 * NT;
+  const int nk0 = op0.chunks();
+  const int nk = nk0 + (op1.in != nullptr ? op1.chunks() : 0);
+  // This lane's A rows g and g + 8 of the m-tile, as grid cells.
+  int rr[2], cc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = min(mt * 16 + g + 8 * h, m_total - 1);
+    rr[h] = m / wo;
+    cc[h] = m % wo;
+  }
+  // This lane's B piece of k-step ks in row 8 j + g of its n-tiles:
+  // piece 4 ks + t, swizzled by the row's parity.
+  const int bofs = (n0 + g) * 64 + 4 * t, bpar = g & 1;
+
+  for (int nb = 0; nb < n / 64; ++nb) {
+    float acc[NT][4], d[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[j][k] = 0.0f;
+    for (int kc = 0; kc < nk; ++kc) {
+      const float* sb = next_chunk_f32(ring, w, c);
+      if (!active) continue;
+      // This chunk's operand, field by field (a reference to either
+      // operand would put both on the stack).
+      const bool first = kc < nk0;
+      const float* in = first ? op0.in : op1.in;
+      const int cin = first ? op0.cin : op1.cin, wi = first ? op0.wi : op1.wi;
+      const int oy = first ? op0.oy : op1.oy, ox = first ? op0.ox : op1.ox;
+      const int kk = first ? kc : kc - nk0;
+      const int per_tap = cin >> 5;
+      const int tap = kk / per_tap, ch_in = 32 * (kk % per_tap);
+      const bool taps3 = (first ? op0.taps : op1.taps) == 3;
+      const int dy = taps3 ? tap / 3 : 0, dx = taps3 ? tap % 3 : 0;
+      // Row bases: the cell's channel ch_in + 2 (t & 1), and the swizzle
+      // term of its piece (t >> 1) ^ f(pos) (swz_f32: a k-step's piece is
+      // 2 ks above it, below the 8-piece swizzle span).
+      int aoff[2], aswz[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pos = (rr[h] + oy + dy) * wi + cc[h] + ox + dx;
+        aoff[h] = pos * cin + ch_in + 2 * (t & 1);
+        aswz[h] = (t >> 1) ^ (((pos & 1) << 2) | (pos & 2) | ((pos >> 2) & 1));
+      }
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t ah[4], al[4];
+        const float2 r0 = *reinterpret_cast<const float2*>(in + aoff[0] +
+                                                           ((aswz[0] ^ (2 * ks)) << 2));
+        const float2 r1 = *reinterpret_cast<const float2*>(in + aoff[1] +
+                                                           ((aswz[1] ^ (2 * ks)) << 2));
+        split_tf32(r0.x, ah[0], al[0]);
+        split_tf32(r1.x, ah[1], al[1]);
+        split_tf32(r0.y, ah[2], al[2]);
+        split_tf32(r1.y, ah[3], al[3]);
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float4 b = *reinterpret_cast<const float4*>(sb + bofs + 8 * j * 64 +
+                                                            16 * (ks ^ bpar));
+          bh[j][0] = __float_as_uint(b.x);
+          bh[j][1] = __float_as_uint(b.y);
+          bl[j][0] = __float_as_uint(b.z);
+          bl[j][1] = __float_as_uint(b.w);
+        }
+        // The three products in passes over the item's n-tiles, so that
+        // consecutive mma are independent.
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (ks == 0)
+            mma_tf32_zero(d[j], al, bh[j][0], bh[j][1]);
+          else
+            mma_tf32(d[j], al, bh[j][0], bh[j][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(d[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(d[j], ah, bh[j][0], bh[j][1]);
+      }
+      // The chunk's partial joins the conv's sum.
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[j][k] += d[j][k];
+    }
+    if (active)
+      epilogue_f32<EPI, NT>(acc, mt, 64 * nb + n0, m_total, wo, n, bias, out, H, W);
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsF, 1)
+fused_res2_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ bias, float* __restrict__ out, int H, int W) {
+  using G = TileF;
+  constexpr int TY = kTY, TX = kTX;
+  static_assert((G::L0 + 15) / 16 * (8 / kNtL0) <= kWarpsF &&
+                    (G::L1 + 15) / 16 * (8 / kNtL1) <= kWarpsF &&
+                    ((TY + 2) * (TX + 2) + 15) / 16 * (8 / kNtL2) <= kWarpsF &&
+                    (TY * TX + 15) / 16 * (8 / kNtT) <= kWarpsF,
+                "a level has more warp items than warps");
   extern __shared__ __align__(16) unsigned char smem[];
-  T* X = reinterpret_cast<T*>(smem);
-  T* Bf = X + G::kX;
-  T* Hb = Bf + G::kB;
+  float* X = reinterpret_cast<float*>(smem);
+  float* Bf = X + G::kX;
+  float* Hb = Bf + G::kB;
+  float* ring = Hb + G::kH;
   const int64_t img = blockIdx.z;
   const int ty0 = blockIdx.y * TY, tx0 = blockIdx.x * TX;
   const int gy0 = ty0 - 3, gx0 = tx0 - 3;  // image cell of level 0's (0, 0)
 
-  // The input tile with its 3-cell halo; zeros outside the image.
-  for (int i = threadIdx.x; i < G::L0 * (64 / E); i += kThreads) {
-    const int pos = i / (64 / E), ch = (i % (64 / E)) * E;
+  // The first weight chunks in flight, then the input tile with its 3-cell
+  // halo; zeros outside the image.
+#pragma unroll
+  for (int i = 0; i < kRingF - 1; ++i) fetch_chunk_f32(ring, w, i);
+  for (int i = threadIdx.x; i < G::L0 * 16; i += kThreadsF) {
+    const int pos = i >> 4, ch = (i & 15) * 4;
     const int gy = gy0 + pos / G::W0, gx = gx0 + pos % G::W0;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      v = __ldg(reinterpret_cast<const uint4*>(x + ((img * H + gy) * W + gx) * 64 + ch));
+      v = __ldg(reinterpret_cast<const float4*>(x + ((img * H + gy) * W + gx) * 64 + ch));
     }
-    *reinterpret_cast<uint4*>(X + swz<T>(pos, ch, 64)) = v;
+    *reinterpret_cast<float4*>(X + swz_f32(pos, ch, 64)) = v;
   }
-  __syncthreads();
 
-  const Operand<T> none{nullptr, 0, 0, 0, 0, 0, nullptr};
+  const OpF none{nullptr, 0, 0, 0, 0, 0};
   const float* b0 = bias;
   const float* b1 = bias + kBiasBlock;
   const float* b2 = bias + 2 * kBiasBlock;
+  int c = 0;
   // Block 0.
-  conv<T, 4, kReluMasked>(Operand<T>{X, 64, G::W0, 0, 0, 1, w + kWa0}, none, TY + 6, G::W0, 64,
-                          b0, Target<T>{Hb, G::W0, 0, 0, gy0, gx0}, H, W);
-  __syncthreads();
-  conv<T, 8, kRelu>(Operand<T>{Hb, 64, G::W0, 0, 0, 3, w + kWb0}, none, TY + 4, G::W1, 64,
-                    b0 + 64, Target<T>{Bf, G::W1, 0, 0, gy0 + 1, gx0 + 1}, H, W);
-  __syncthreads();
-  conv<T, 8, kRelu>(Operand<T>{Bf, 64, G::W1, 0, 0, 1, w + kWc0},
-                    Operand<T>{X, 64, G::W0, 1, 1, 1, w + kWs0}, TY + 4, G::W1, 256, b0 + 128,
-                    Target<T>{Hb, G::W1, 0, 0, gy0 + 1, gx0 + 1}, H, W);
-  __syncthreads();
+  conv_f32<kReluMasked, kNtL0>(OpF{X, 64, G::W0, 0, 0, 1}, none, TY + 6, G::W0, 64, b0,
+                               Target<float>{Hb, G::W0, 0, 0, gy0, gx0}, H, W, ring, w, c);
+  conv_f32<kRelu, kNtL1>(OpF{Hb, 64, G::W0, 0, 0, 3}, none, TY + 4, G::W1, 64, b0 + 64,
+                         Target<float>{Bf, G::W1, 0, 0, gy0 + 1, gx0 + 1}, H, W, ring, w, c);
+  conv_f32<kRelu, kNtL1>(OpF{Bf, 64, G::W1, 0, 0, 1}, OpF{X, 64, G::W0, 1, 1, 1}, TY + 4,
+                         G::W1, 256, b0 + 128, Target<float>{Hb, G::W1, 0, 0, gy0 + 1, gx0 + 1},
+                         H, W, ring, w, c);
   // Block 1: h1 overwrites h0 cell by cell (each cell reads its own h0).
-  conv<T, 8, kReluMasked>(Operand<T>{Hb, 256, G::W1, 0, 0, 1, w + kWa1}, none, TY + 4, G::W1, 64,
-                          b1, Target<T>{X, G::W1, 0, 0, gy0 + 1, gx0 + 1}, H, W);
-  __syncthreads();
-  conv<T, 8, kRelu>(Operand<T>{X, 64, G::W1, 0, 0, 3, w + kWb1}, none, TY + 2, G::W2, 64,
-                    b1 + 64, Target<T>{Bf, G::W2, 0, 0, gy0 + 2, gx0 + 2}, H, W);
-  __syncthreads();
-  conv<T, 8, kResidual>(Operand<T>{Bf, 64, G::W2, 0, 0, 1, w + kWc1}, none, TY + 2, G::W2, 256,
-                        b1 + 128, Target<T>{Hb, G::W1, 1, 1, gy0 + 2, gx0 + 2}, H, W);
-  __syncthreads();
+  conv_f32<kReluMasked, kNtL1>(OpF{Hb, 256, G::W1, 0, 0, 1}, none, TY + 4, G::W1, 64, b1,
+                               Target<float>{X, G::W1, 0, 0, gy0 + 1, gx0 + 1}, H, W, ring, w, c);
+  conv_f32<kRelu, kNtL2>(OpF{X, 64, G::W1, 0, 0, 3}, none, TY + 2, G::W2, 64, b1 + 64,
+                         Target<float>{Bf, G::W2, 0, 0, gy0 + 2, gx0 + 2}, H, W, ring, w, c);
+  conv_f32<kResidual, kNtL2>(OpF{Bf, 64, G::W2, 0, 0, 1}, none, TY + 2, G::W2, 256, b1 + 128,
+                             Target<float>{Hb, G::W1, 1, 1, gy0 + 2, gx0 + 2}, H, W, ring, w, c);
   // Block 2.
-  conv<T, 8, kReluMasked>(Operand<T>{Hb, 256, G::W1, 1, 1, 1, w + kWa2}, none, TY + 2, G::W2, 64,
-                          b2, Target<T>{X, G::W2, 0, 0, gy0 + 2, gx0 + 2}, H, W);
-  __syncthreads();
-  conv<T, 4, kRelu>(Operand<T>{X, 64, G::W2, 0, 0, 3, w + kWb2}, none, TY, TX, 64, b2 + 64,
-                    Target<T>{Bf, TX, 0, 0, ty0, tx0}, H, W);
-  __syncthreads();
-  conv<T, 8, kResidual>(Operand<T>{Bf, 64, TX, 0, 0, 1, w + kWc2}, none, TY, TX, 256, b2 + 128,
-                        Target<T>{Hb, G::W1, 2, 2, ty0, tx0}, H, W);
+  conv_f32<kReluMasked, kNtL2>(OpF{Hb, 256, G::W1, 1, 1, 1}, none, TY + 2, G::W2, 64, b2,
+                               Target<float>{X, G::W2, 0, 0, gy0 + 2, gx0 + 2}, H, W, ring, w, c);
+  conv_f32<kRelu, kNtT>(OpF{X, 64, G::W2, 0, 0, 3}, none, TY, TX, 64, b2 + 64,
+                        Target<float>{Bf, TX, 0, 0, ty0, tx0}, H, W, ring, w, c);
+  conv_f32<kResidual, kNtT>(OpF{Bf, 64, TX, 0, 0, 1}, none, TY, TX, 256, b2 + 128,
+                            Target<float>{Hb, G::W1, 2, 2, ty0, tx0}, H, W, ring, w, c);
   __syncthreads();
 
   // The tile's h2, from level 1's cells (r + 2, c + 2), to the output.
-  for (int i = threadIdx.x; i < TY * TX * (256 / E); i += kThreads) {
-    const int pos = i / (256 / E), ch = (i % (256 / E)) * E;
-    const int r = pos / TX, c = pos % TX;
-    if (ty0 + r < H && tx0 + c < W) {
-      *reinterpret_cast<uint4*>(out + ((img * H + ty0 + r) * W + tx0 + c) * 256 + ch) =
-          *reinterpret_cast<const uint4*>(Hb + swz<T>((r + 2) * G::W1 + c + 2, ch, 256));
+  for (int i = threadIdx.x; i < TY * TX * 64; i += kThreadsF) {
+    const int pos = i >> 6, ch = (i & 63) * 4;
+    const int r = pos / TX, cc = pos % TX;
+    if (ty0 + r < H && tx0 + cc < W) {
+      *reinterpret_cast<float4*>(out + ((img * H + ty0 + r) * W + tx0 + cc) * 256 + ch) =
+          *reinterpret_cast<const float4*>(Hb + swz_f32((r + 2) * G::W1 + cc + 2, ch, 256));
     }
   }
 }
 
 template <typename T, typename Kernel>
-int launch(Kernel kernel, size_t smem, int ty, int tx, const void* x, const void* w,
+int launch(Kernel kernel, int threads, size_t smem, int ty, int tx, const void* x, const void* w,
            const void* bias, void* out, int B, int H, int W, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((W + tx - 1) / tx, (H + ty - 1) / ty, B);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w),
-                                           static_cast<const float*>(bias), static_cast<T*>(out),
-                                           H, W);
+  kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                                          static_cast<const float*>(bias), static_cast<T*>(out),
+                                          H, W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -646,18 +822,18 @@ int launch(Kernel kernel, size_t smem, int ty, int tx, const void* x, const void
 
 // x: (B, H, W, 64), out: (B, H, W, 256), both NHWC in the activation dtype
 // (dtype 1 = bf16, 0 = f32), 16-byte aligned; w: the 212,992 packed folded
-// weights in that dtype (16-byte aligned); bias: the 1,152 packed f32
-// biases. Launches on `stream` and returns cudaGetLastError() (or the
-// attribute call's error).
+// bf16 weights, or for f32 the 104 chunks of 4,096 floats (heads and
+// tails), 16-byte aligned; bias: the 1,152 packed f32 biases. Launches on
+// `stream` and returns cudaGetLastError() (or the attribute call's error).
 extern "C" int fused_res2_launch(const void* x, const void* w, const void* bias, void* out, int B,
                                  int H, int W, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    return launch<bf16>(fused_res2_tc_kernel<8, 16>,
+    return launch<bf16>(fused_res2_tc_kernel<8, 16>, kThreads,
                         sizeof(bf16) * (Tile<8, 16>::kElems + kRing * kChunkElems), 8, 16, x, w,
                         bias, out, B, H, W, s);
   }
-  return launch<float>(fused_res2_kernel<float, 4, 8>, sizeof(float) * Tile<4, 8>::kElems, 4, 8,
-                       x, w, bias, out, B, H, W, s);
+  return launch<float>(fused_res2_f32_kernel, kThreadsF, kSmemF, kTY, kTX, x, w, bias, out, B, H,
+                       W, s);
 }

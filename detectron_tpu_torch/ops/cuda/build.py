@@ -96,6 +96,22 @@ def load(source, symbol, argtypes):
     return fn
 
 
+def sass_counts(source, kernel, opcodes):
+    """How often each of `opcodes` occurs in the SASS of the functions of
+    `source`'s library (built on first use) whose mangled name holds
+    `kernel`, from the toolkit's cuobjdump: {opcode: count}."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(build_all()[source])],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    bodies = [f for f in text.split("Function : ")[1:]
+              if kernel in f.split("\n", 1)[0]]
+    if not bodies:
+        raise RuntimeError("no function {} in the SASS of {}".format(
+            kernel, source))
+    return {op: sum(f.count(op) for f in bodies) for op in opcodes}
+
+
 def check(err, name):
     if err != 0:
         raise RuntimeError("{} launch failed: CUDA error {}".format(name, err))

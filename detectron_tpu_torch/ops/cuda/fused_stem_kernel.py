@@ -9,8 +9,10 @@ NHWC, since only the values have to match.
 
 fused_res2 replaces ::fused_res2: the whole res2 stage (three bottlenecks,
 64 -> 256 channels, frozen BN folded into the conv weights) in one pass,
-forward only. Its rounding is the fused path's own, not the unfused
-stage's (fused_stem_kernel.py:184-221, :269-325):
+forward only; bf16 on bf16 tensor-core products, f32 on 3xTF32 ones (the
+weights split by split_tf32 and laid out by pack_res2_weights_tf32). Its
+rounding is the fused path's own, not the unfused stage's
+(fused_stem_kernel.py:184-221, :269-325):
 - folding: w' = cast(f32(w) * f32(s)) per output channel, the bias f32;
   block 0's branch2c and branch1 keep their weights and share the bias
   bc + bs;
@@ -198,6 +200,63 @@ def pack_res2_weights(folded):
     return torch.cat(ws), torch.cat(bs).float()
 
 
+def split_tf32(w):
+    """(head, tail) of float32 w for 3xTF32 products: head is w rounded to
+    TF32 (10 mantissa bits, to nearest, ties away from zero: the kernel's
+    cvt.rna.tf32.f32), tail the remainder w - head rounded the same way.
+    head + tail is w within 2^-22 |w|."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    head = rna(w)
+    return head, rna(w - head)
+
+
+def res2_chunk_order(folded):
+    """The f32 kernel's weight chunks in the order it consumes them, (104,
+    64, 32): each a slice of 64 output x 32 input channels of a conv's
+    (Cout, K) matrix, K in (kh, kw, Cin) order. Per block: branch2a,
+    branch2b (32 inputs of one tap a chunk), then per 64 output channels
+    branch2c's slices and, in block 0, branch1's after them (one sum)."""
+    chunks = []
+    for blk in folded:
+        mats = {k: t.permute(0, 2, 3, 1).reshape(t.shape[0], -1, 32)
+                for k, t in blk.items() if k[0] == "w"}
+        chunks += [mats["wa"].transpose(0, 1), mats["wb"].transpose(0, 1)]
+        c = torch.stack([mats[k].reshape(4, 64, -1, 32)
+                         for k in ("wc", "ws") if k in mats], 1)
+        chunks.append(c.permute(0, 1, 3, 2, 4).reshape(-1, 64, 32))
+    return torch.cat(chunks)
+
+
+# pack_res2_weights_tf32's gather maps, by device and weight shapes.
+_CHUNK_INDEX = {}
+
+
+def pack_res2_weights_tf32(folded):
+    """The f32 kernel's operands: the 104 chunks of res2_chunk_order, each
+    4,096 floats: for output channel n (64 rows), k-step s (8 inputs) and
+    lane t of 4, the heads of inputs 8s + 2t and 8s + 2t + 1, then their
+    tails (split_tf32); and the biases as pack_res2_weights gives them.
+    One gather through a cached map of element indices takes the chunks
+    from the concatenated weights (a few kernel launches a call)."""
+    weights = [t for blk in folded for k, t in blk.items() if k[0] == "w"]
+    key = (weights[0].device, tuple(tuple(t.shape) for t in weights))
+    index = _CHUNK_INDEX.get(key)
+    if index is None:
+        flat = torch.arange(sum(t.numel() for t in weights),
+                            device=key[0])
+        views = iter(flat.split([t.numel() for t in weights]))
+        index = _CHUNK_INDEX[key] = res2_chunk_order(
+            [{k: next(views).view(t.shape) for k, t in blk.items()
+              if k[0] == "w"} for blk in folded]).reshape(-1)
+    chunks = torch.cat([t.reshape(-1) for t in weights])[index]
+    head, tail = split_tf32(chunks.view(-1, 64, 4, 4, 2))
+    bias = torch.cat([blk[k] for blk in folded for k in ("ba", "bb", "bc")])
+    return torch.cat([head, tail], -1).reshape(-1), bias.float()
+
+
 def _check_folded(folded, x):
     shapes = [{"wa": (64, 64 if i == 0 else 256, 1, 1), "wb": (64, 64, 3, 3),
                "wc": (256, 64, 1, 1), "ba": (64,), "bb": (64,),
@@ -245,7 +304,8 @@ def fused_res2(x, folded):
     if not x.is_contiguous() or x.data_ptr() % _ALIGN:
         raise ValueError(name + " needs a contiguous, 16-byte aligned x")
     _check_folded(folded, x)
-    w, b = pack_res2_weights(folded)
+    w, b = (pack_res2_weights_tf32 if x.dtype == torch.float32
+            else pack_res2_weights)(folded)
     B, H, W, _ = x.shape
     fn = build.load("fused_res2.cu", "fused_res2_launch",
                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4

@@ -8,7 +8,10 @@ value plus 2 to 4 at the top magnitude) with under 20% of the elements
 differing: the kernel and cuDNN sum in other orders, so a bf16 rounding
 may fall the other way, later convs carry that on, and a residual add
 that cancels keeps its operands' ulps; a systematic rounding fault would
-move about half the elements. Under torch.use_deterministic_algorithms,
+move about half the elements. K6's float32 route runs on TF32 tensor
+cores (its SASS has HMMA.1688.F32.TF32 and no FFMA loop) and is held at
+the full-width res2 input and at ragged single-image shapes. Under
+torch.use_deterministic_algorithms,
 K4's deterministic variant (roi_window_accum_det) gives equal bits in two
 calls, and two identical training steps equal gradients. The parallel
 step with its ranks sharing the card over gloo (parallel/dryrun) equals
@@ -403,8 +406,9 @@ def test_stem_pool_matches_plain_exactly(device, shape):
     assert torch.equal(got, fk.stem_pool_plain(x, s, b))
 
 
-def _res2_stage(seed, device):
-    """A random res2 stage in the bridged (OIHW) layout, random affines."""
+def res2_stage(seed, device):
+    """A random res2 stage in the bridged (OIHW) layout, random affines
+    (also the CPU tests' in tests/test_torch_fused_res2_tf32.py)."""
     rng = np.random.RandomState(seed)
 
     def conv(cout, cin, k):
@@ -429,11 +433,12 @@ def _res2_stage(seed, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 16, 32, 64), (1, 8, 16, 64),
-                                   (1, 13, 21, 64), (2, 52, 84, 64)])
+                                   (1, 13, 21, 64), (2, 52, 84, 64),
+                                   (2, 208, 336, 64)])
 def test_fused_res2_matches_plain(device, shape, dtype):
     """Whole tiles, one tile, ragged tiles at the bottom and right edges,
-    and many tiles."""
-    folded = fk.fold_res2_weights(_res2_stage(shape[1], device), dtype)
+    many tiles, and the full-width res2 input of an 832 x 1344 canvas."""
+    folded = fk.fold_res2_weights(res2_stage(shape[1], device), dtype)
     x = torch.tensor(np.random.RandomState(shape[2]).randn(*shape),
                      dtype=dtype, device=device).relu()
     before = fk.fused_res2.launches
@@ -463,7 +468,7 @@ def test_fused_res2_bf16_ragged_single_image(device, shape):
     """bf16, one image, H and W not multiples of the 8 x 16 tile (one tile
     and a ragged row and column of tiles; many tiles at about the stage's
     full size)."""
-    folded = fk.fold_res2_weights(_res2_stage(shape[2], device),
+    folded = fk.fold_res2_weights(res2_stage(shape[2], device),
                                   torch.bfloat16)
     x = torch.tensor(np.random.RandomState(shape[1]).randn(*shape),
                      dtype=torch.bfloat16, device=device).relu()
@@ -475,8 +480,37 @@ def test_fused_res2_bf16_ragged_single_image(device, shape):
     assert float((d > 0).float().mean()) < 0.2
 
 
+@pytest.mark.parametrize("shape", [(1, 9, 17, 64), (1, 37, 50, 64),
+                                   (1, 211, 333, 64)])
+def test_fused_res2_f32_ragged_single_image(device, shape):
+    """float32, one image, H and W not multiples of the f32 route's tile:
+    within 1e-5 max|ref|, one launch a call."""
+    folded = fk.fold_res2_weights(res2_stage(shape[2], device),
+                                  torch.float32)
+    x = torch.tensor(np.random.RandomState(shape[1]).randn(*shape),
+                     dtype=torch.float32, device=device).relu()
+    before = fk.fused_res2.launches
+    got = fk.fused_res2(x, folded)
+    assert fk.fused_res2.launches == before + 1
+    ref = fk.fused_res2_plain(x, folded)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_fused_res2_f32_runs_on_tf32_tensor_cores(device):
+    """The f32 route's SASS issues m16n8k8 TF32 tensor-core products, not
+    a loop of scalar FFMAs."""
+    from detectron_tpu_torch.ops.cuda import build
+
+    got = build.sass_counts("fused_res2.cu", "fused_res2_f32_kernel",
+                            ("HMMA.1688.F32.TF32", "FFMA"))
+    assert got["HMMA.1688.F32.TF32"] > 0 and \
+        got["FFMA"] < got["HMMA.1688.F32.TF32"], got
+
+
 def test_fused_wrappers_raise_instead_of_falling_back(device):
-    folded = fk.fold_res2_weights(_res2_stage(0, device), torch.bfloat16)
+    folded = fk.fold_res2_weights(res2_stage(0, device), torch.bfloat16)
     x = torch.zeros((1, 8, 16, 64), dtype=torch.bfloat16, device=device)
     with pytest.raises(TypeError):
         fk.fused_res2(x.half(), folded)
@@ -488,7 +522,7 @@ def test_fused_wrappers_raise_instead_of_falling_back(device):
         fk.fused_res2(x.transpose(1, 2), folded)  # not contiguous
     with pytest.raises(ValueError):
         fk.fused_res2(x.float().requires_grad_(True),
-                      fk.fold_res2_weights(_res2_stage(0, device),
+                      fk.fold_res2_weights(res2_stage(0, device),
                                            torch.float32))
     cpu = [{k: t.cpu() for k, t in blk.items()} for blk in folded]
     with pytest.raises(ValueError):
