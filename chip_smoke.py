@@ -287,6 +287,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      each setting (busy time, idle share). One on turn's launches go into
      launches_by_path as "inference_fused_res2_f32" and
      "training_fused_res2_f32".
+  30. The measuring and parity tools at full width
+     (detectron_tpu_torch/tools; run after phase 24, and
+     multiscale_bench inside the X-152 block): profile_net for 2
+     inference steps and 1 training step (R-50-FPN, batch 2, bf16,
+     --calibrate; the training step at CLIP_GRADIENTS) and
+     trace_summary on both traces: the inference trace's device self
+     time within TRACE_SESSION_REL (0.5%) of its own profiler session's
+     device total (key_averages()), and a step of it within
+     TRACE_BUSY_REL of profile_call's busy time for the same step (the
+     median of 3 profiles; the kernels behind the gap are printed), K1
+     attributed to
+     ops/nms.py and K2 / K3 to ops/windowed_roi.py, K4 in the training
+     trace; stage_bench at batch 2 (3 iterations, calibrated); roi_bench
+     at batch 2 with P = 7 / 1000 RoIs and P = 14 / 100 RoIs, the ladder
+     and the level sweep within bf16_close's elementwise limit of the
+     exact gather; golden_compare: a dump of phase 4's calibrated tree
+     (the Mask R-CNN yaml, bf16) on one 800 x 1333 noise image, a dump
+     through --pkl of that tree, and their --diff, which must exit 0;
+     multiscale_bench --scales 640 800 --iters 2 on the X-152 block's
+     tree (finite losses). Each tool's K1-K6 launches (K4's
+     deterministic variant among them) go into
+     launches_by_path ("profile_net_infer", "profile_net_train",
+     "stage_bench", "roi_bench_p7", "roi_bench_p14", "golden_compare",
+     "golden_compare_pkl", "multiscale_bench").
   Each rank's K1-K4 launches go into launches_by_path ("dp_train_rank<r>",
   "nccl_world1_train", "multihost_train_rank<r>",
   "multihost_resume_rank<r>", "sharded_test_net_rank<r>",
@@ -313,7 +337,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 Prints a {"kernels": [...]} line (each kernel's launches on its own path:
 the inference main path for K1-K3, training for K4, phase 14 for K4's
 deterministic variant, the TPU.FUSED_RES2 path for K5/K6;
-launches_by_path has every path: "test_net" being phase 7's
+launches_by_path has every path that counted the kernel (a path's run
+reads only the counts of the kernels it can launch): "test_net" being
+phase 7's
 run_inference, "train_net" phase 8's train_net_step, "keypoint_infer"
 and "keypoint_test_net" phase 9's detect_graph and run_inference,
 "keypoint_train" phase 10's train_net_step, "c4_infer", "c4_test_net"
@@ -361,6 +387,10 @@ import tempfile
 import time
 
 import numpy as np
+
+# Names of the port's CUDA kernels as the profiler lists them (DET_KERNELS:
+# K4's deterministic variant).
+from detectron_tpu_torch.ops.cuda import DET_KERNELS, PORT_KERNELS
 
 BATCH = 2
 CANVAS = (832, 1344)
@@ -437,14 +467,6 @@ FUSED_RES2 = ["TPU.FUSED_RES2", "True"]
 RES2_MACS = 4096 + 36864 + 2 * 16384 + 2 * (2 * 16384 + 36864)
 RES2_WEIGHTS = RES2_MACS      # one weight per multiply-add of a pixel
 RES2_BIASES = 3 * (64 + 64 + 256)
-# Names of the port's CUDA kernels (csrc/*.cu), as the profiler lists them.
-# K4's deterministic variant: its pre-pass (reach, scan, fill) and its
-# accumulate.
-DET_KERNELS = ("roi_reach_kernel", "roi_tile_scan_kernel",
-               "roi_tile_fill_kernel", "roi_window_accum_det_kernel")
-PORT_KERNELS = ("nms_iou_mask_kernel", "nms_scan", "roi_window_pool_kernel",
-                "roi_window_accum_kernel", "stem_pool",
-                "fused_res2") + DET_KERNELS
 
 
 def cuda_ms(fn, reps):
@@ -1033,12 +1055,22 @@ def bf16_close(got, ref):
     max_abs_err, share differing)."""
     import torch
 
+    ok, d = bf16_within(got, ref)
+    share = float((d > 0).float().mean())
+    return ok and share < 0.2, float(d.max()), share
+
+
+def bf16_within(got, ref):
+    """bf16_close's elementwise part: (every |got - ref| within 2^-7 |ref|
+    + 2^-6 max|ref| and every value of got finite, |got - ref|). A NaN
+    in either fails it."""
+    import torch
+
     d = (got.float() - ref.float()).abs()
     top = float(ref.float().abs().max())
     ok = bool((d <= 2.0 ** -7 * ref.float().abs() + 2.0 ** -6 * top).all()) \
         and bool(torch.isfinite(got).all())
-    share = float((d > 0).float().mean())
-    return ok and share < 0.2, float(d.max()), share
+    return ok, d
 
 
 def res2_stage(params, device, rng):
@@ -1960,11 +1992,12 @@ def stage_times(params, opt_state, batch, draws, steps=4):
                   i + 1, (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
 
 
-def profile_call(label, fn, n_kernels=20, n_ops=15):
+def profile_call(label, fn, n_kernels=20, n_ops=15, by_name=None):
     """torch.profiler over one call of fn: its wall time, the device time
     summed over its kernels (device events only, so no time is counted
     twice under the ops that launched it), the device's idle share, and
-    the top kernels and ops by device time."""
+    the top kernels and ops by device time. Returns (wall ms, busy ms);
+    a dict given as by_name gets {kernel: (calls, device ms)}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1979,6 +2012,9 @@ def profile_call(label, fn, n_kernels=20, n_ops=15):
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if by_name is not None:
+        by_name.update({e.key: (e.count, e.self_device_time_total / 1e3)
+                        for e in kernels})
     print("profile of {}: wall {:.3f} ms, device busy {:.3f} ms (sum over "
           "kernels), idle share {:.3f}".format(label, wall, busy,
                                                1 - busy / wall))
@@ -1994,6 +2030,7 @@ def profile_call(label, fn, n_kernels=20, n_ops=15):
     for e in sorted(ops, key=lambda e: -e.cpu_time_total)[:n_ops]:
         print("  op {:9.3f} ms cpu total {:6d} calls  {}".format(
             e.cpu_time_total / 1e3, e.count, e.key[:90]))
+    return wall, busy
 
 
 # ---------------------------------------------------------------------------
@@ -3893,6 +3930,20 @@ def kernel_wrappers(accum=False):
     return wrappers
 
 
+def all_kernel_wrappers():
+    """K1-K6's wrappers, K4's deterministic variant among them, their
+    counts set to 0."""
+    from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
+    from detectron_tpu_torch.ops.cuda import roi_align_kernel
+
+    wrappers = dict(kernel_wrappers(accum=True),
+                    roi_window_accum_det=roi_align_kernel.roi_window_accum_det,
+                    stem_pool=fk.stem_pool, fused_res2=fk.fused_res2)
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
 def require_launches(launches, names, path):
     missing = [k for k in names if launches[k] == 0]
     if missing:
@@ -4409,6 +4460,218 @@ def run_new_phases(device, paths):
     t0 = time.perf_counter()
     run_native_ops_check()
     print("phase 24: {:.3f} s".format(time.perf_counter() - t0))
+
+
+# ---------------------------------------------------------------------------
+# Phase 30: the measuring tools at full width (detectron_tpu_torch/tools)
+# ---------------------------------------------------------------------------
+
+# The trace's device self time a step against profile_call's busy time for
+# one call of the same step, relative (two profiler sessions).
+TRACE_BUSY_REL = 0.10
+# The trace's device self time against its own profiler session's device
+# total (key_averages()), relative: the same events summed two ways.
+TRACE_SESSION_REL = 0.005
+# Kernels listed by how far their per-step device time in profile_net's
+# session lies from profile_call's.
+GAP_KERNELS = 8
+# Where the profiled kernels must be attributed (trace_summary's stage:
+# the deepest package frame outside the kernel wrappers).
+# The kernels each tool's run must launch (K1, K2, K4's wrappers).
+TOOL_KERNELS = {
+    "profile_net_infer": ("nms_keep_mask", "roi_window_pool"),
+    "profile_net_train": ("nms_keep_mask", "roi_window_pool",
+                          "roi_window_accum"),
+    "stage_bench": ("nms_keep_mask", "roi_window_pool"),
+    "roi_bench_p7": ("roi_window_pool",),
+    "roi_bench_p14": ("roi_window_pool",),
+    "golden_compare": ("nms_keep_mask", "roi_window_pool"),
+    "golden_compare_pkl": ("nms_keep_mask", "roi_window_pool")}
+KERNEL_STAGES = {"nms_iou_mask_kernel": {"ops/nms.py"},
+                 "nms_scan": {"ops/nms.py"},
+                 "roi_window_pool_kernel": {"ops/windowed_roi.py"}}
+
+
+def _tool_run(paths, key, fn):
+    """fn() with the counts of all seven wrappers (K1-K6, K4's
+    deterministic variant) zeroed before and read into paths[key] after;
+    returns fn's result."""
+    wrappers = all_kernel_wrappers()
+    t0 = time.perf_counter()
+    got = fn()
+    paths[key] = {name: w.launches for name, w in wrappers.items()}
+    print("{}: {:.3f} s, launches {}".format(key, time.perf_counter() - t0,
+                                             paths[key]))
+    return got
+
+
+def _print_session_gap(sess_by, steps, call_by):
+    """The kernels behind the gap between profile_net's session (stacks,
+    shapes, FLOPs on; `steps` steps) and profile_call's (one step): per
+    kernel, calls and device ms a step in each, by |difference|."""
+    rows = []
+    for k in set(sess_by) | set(call_by):
+        n_s, ms_s = sess_by.get(k, (0, 0.0))
+        n_c, ms_c = call_by.get(k, (0, 0.0))
+        rows.append((ms_s / steps - ms_c, n_s / steps, ms_s / steps, n_c,
+                     ms_c, k))
+    rows.sort(key=lambda r: -abs(r[0]))
+    gap = sum(r[0] for r in rows)
+    same = sum(r[0] for r in rows if r[1] == r[3])
+    print("session gap: {:.3f} ms a step, {:.3f} of it in kernels with the "
+          "same calls in both sessions; the {} largest:".format(
+              gap, same, GAP_KERNELS))
+    for d, n_s, ms_s, n_c, ms_c, k in rows[:GAP_KERNELS]:
+        print("  {:+8.3f} ms  profile_net {:7.1f} calls {:8.3f} ms  "
+              "profile_call {:5d} calls {:8.3f} ms  {}".format(
+                  d, n_s, ms_s, n_c, ms_c, k[:70]))
+
+
+def _check_kernel_stages(summary, label):
+    """Every K1-K3 kernel of the trace is attributed to its stage."""
+    seen = {}
+    for name, stages in summary["kernel_stages"].items():
+        for k in KERNEL_STAGES:
+            if k in name:
+                got = seen.setdefault(k, {})
+                for st, n in stages.items():
+                    got[st] = got.get(st, 0) + n
+    print("{}: the port's kernels by stage: {}".format(label, seen))
+    for k, want in KERNEL_STAGES.items():
+        if k not in seen or set(seen[k]) - want:
+            raise AssertionError("{}: {} attributed to {}, expected {}"
+                                 .format(label, k, seen.get(k), want))
+
+
+def run_measuring_tools(device, workdir, paths):
+    """Phase 30, less multiscale_bench (which runs in the X-152 block,
+    run_multiscale_bench): profile_net (2 inference steps, 1 training
+    step; R-50-FPN, batch 2, bf16, calibrated) with trace_summary on both
+    traces, stage_bench at batch 2, roi_bench at P = 7 / 1000 RoIs and P =
+    14 / 100 RoIs, and golden_compare (a dump of the calibrated tree, a
+    dump through --pkl of it, their --diff). Each tool's K1-K6 launches go
+    into paths."""
+    import torch
+
+    from detectron_tpu_torch.models import bridge
+    from detectron_tpu_torch.tools import (golden_compare, profile_net,
+                                           roi_bench, stage_bench,
+                                           trace_summary)
+    from detectron_tpu_torch.utils import detectron_weight_helper as dwh
+    from detectron_tpu_torch.utils import image_io
+
+    # profile_net + trace_summary: inference, then one training step.
+    set_cfg(tiny=False, dtype="bfloat16")
+    got = _tool_run(paths, "profile_net_infer", lambda: profile_net.main([
+        "--batch_size", str(BATCH), "--steps", "2", "--calibrate",
+        "--out", workdir + "/infer"]))
+    summary = trace_summary.main([got["trace"], "--steps", "2", "--top",
+                                  "25"])
+    rel = abs(summary["total"] - got["device_ms"]) / got["device_ms"]
+    print("trace_summary device self time {:.3f} ms, its profiler "
+          "session's key_averages {:.3f} ms: {:.5f} apart (limit {})".format(
+              summary["total"], got["device_ms"], rel, TRACE_SESSION_REL))
+    if not rel <= TRACE_SESSION_REL:
+        raise AssertionError("trace_summary's device total is {:.5f} away "
+                             "from its session's own".format(rel))
+    trace_ms = summary["total"] / 2
+    # A profile can miss some of a call's kernels (device_kernels): the
+    # median of three profile_call runs of the step.
+    runs = []
+    for _ in range(3):
+        by_name = {}
+        runs.append((profile_call("one profile_net inference step",
+                                  got["step"], n_kernels=0, n_ops=0,
+                                  by_name=by_name)[1], by_name))
+    busy, call_by = sorted(runs, key=lambda r: r[0])[1]
+    rel = abs(trace_ms - busy) / busy
+    print("trace_summary device self time {:.3f} ms a step, profile_call "
+          "busy {:.3f} ms (median of 3): {:.4f} apart (limit {})".format(
+              trace_ms, busy, rel, TRACE_BUSY_REL))
+    _print_session_gap(got["device_by_name"], 2, call_by)
+    if not rel <= TRACE_BUSY_REL:
+        raise AssertionError("trace_summary's device total is {:.4f} away "
+                             "from profile_call's busy time".format(rel))
+    _check_kernel_stages(summary, "profile_net inference")
+
+    set_cfg(tiny=False, dtype="bfloat16")
+    got = _tool_run(paths, "profile_net_train", lambda: profile_net.main([
+        "--mode", "train", "--batch_size", str(BATCH), "--steps", "1",
+        "--calibrate", "--out", workdir + "/train", "--set",
+        "SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS)]))
+    summary = trace_summary.main([got["trace"], "--steps", "1", "--top",
+                                  "25"])
+    k4 = {n: dict(st) for n, st in summary["kernel_stages"].items()
+          if "roi_window_accum_kernel" in n}
+    print("profile_net training: K4 by stage: {}".format(k4))
+    if not k4:
+        raise AssertionError("no K4 kernel in the training trace")
+
+    set_cfg(tiny=False, dtype="bfloat16")
+    _tool_run(paths, "stage_bench", lambda: stage_bench.main([
+        "--batch_size", str(BATCH), "--iters", "3", "--calibrate"]))
+
+    for P, R in ((7, 1000), (14, 100)):
+        set_cfg(tiny=False, dtype="bfloat16")
+        res = _tool_run(paths, "roi_bench_p{}".format(P),
+                        lambda: roi_bench.main([
+                            "--batch", str(BATCH), "--rois", str(R),
+                            "--pooled", str(P), "--iters", "3"]))
+        ref = res["gather (exact, plain)"]["out"]
+        for name in ("ladder (K2 + K3 rungs + gather)",
+                     "level sweep (K2 a level)"):
+            ok, d = bf16_within(res[name]["out"], ref)
+            if not ok:
+                raise AssertionError("roi_bench P={}: {} is not within "
+                                     "bf16_close's limit of the gather "
+                                     "(max abs difference {:.3e})".format(
+                                         P, name, float(d.max())))
+        del res
+
+    # golden_compare: the calibrated tree dumped in process and through a
+    # Detectron .pkl of it, on one 800 x 1333 noise image, then --diff.
+    set_cfg(tiny=False, dtype="bfloat16", yaml=MASK_YAML)
+    tree = make_tree()
+    im = (np.random.RandomState(7).rand(800, 1333, 3) * 255).astype(np.uint8)
+    image_io.write_ppm(workdir + "/golden.ppm", im)
+    pkl = workdir + "/golden.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump({"blobs": dwh.to_detectron_blobs(tree)}, f,
+                    pickle.HIGHEST_PROTOCOL)
+    a = _tool_run(paths, "golden_compare", lambda: golden_compare.dump_stages(
+        bridge.to_torch(tree, device, torch.bfloat16),
+        image_io.imread(workdir + "/golden.ppm")))
+    np.savez(workdir + "/a.npz", **a)
+    _tool_run(paths, "golden_compare_pkl", lambda: golden_compare.main([
+        "--cfg", MASK_YAML, "--set", "TPU.COMPUTE_DTYPE", "bfloat16",
+        "--pkl", pkl, "--image", workdir + "/golden.ppm", "--out",
+        workdir + "/b.npz"]))
+    rc = golden_compare.main(["--diff", workdir + "/a.npz",
+                              workdir + "/b.npz"])
+    print("golden_compare --diff of the two dumps: exit {}".format(rc))
+    if rc != 0:
+        raise AssertionError("golden_compare --diff of the in-process and "
+                             "the --pkl dump exits {}".format(rc))
+    for key, names in TOOL_KERNELS.items():
+        require_launches(paths[key], names, key)
+
+
+def run_multiscale_bench(device, base, paths):
+    """Phase 30's multiscale_bench: the X-152 yaml's training step at
+    TRAIN.SCALES 640 and 800 (2 steps each after the first), from the
+    X-152 block's base tree."""
+    from detectron_tpu_torch.tools import multiscale_bench
+
+    rows = _tool_run(paths, "multiscale_bench", lambda: multiscale_bench.main(
+        ["--scales", "640", "800", "--iters", "2", "--set",
+         "SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS)], params=base))
+    bad = [r for r in rows[:-1] if not np.isfinite(r["loss0"])]
+    if bad:
+        raise AssertionError("multiscale_bench: non-finite loss {}".format(
+            bad))
+    require_launches(paths["multiscale_bench"],
+                     ("nms_keep_mask", "roi_window_pool",
+                      "roi_window_accum"), "multiscale_bench")
 
 
 # ---------------------------------------------------------------------------
@@ -5012,6 +5275,11 @@ def main():
         with tempfile.TemporaryDirectory() as workdir:
             paths[key + "_train"] = run_model_train_net_path(
                 device, workdir, model, base)
+        if key == "x152":
+            t0 = time.perf_counter()
+            run_multiscale_bench(device, base, paths)
+            print("phase 30, multiscale_bench: {:.3f} s".format(
+                time.perf_counter() - t0))
         del base
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
@@ -5022,6 +5290,10 @@ def main():
     paths.update(run_variant_paths(device))
     print("phase 20: {:.3f} s".format(time.perf_counter() - t0))
     run_new_phases(device, paths)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        run_measuring_tools(device, workdir, paths)
+    print("phase 30: {:.3f} s".format(time.perf_counter() - t0))
     run_parallel_phases(paths)
 
     meta = {
@@ -5055,8 +5327,8 @@ def main():
     kernels = []
     for name, (src, rep) in meta.items():
         e = entries[name]
-        by_path = {path: counts.get(name, 0)
-                   for path, counts in paths.items()}
+        by_path = {path: counts[name] for path, counts in paths.items()
+                   if name in counts}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": by_path[path_of[name]],

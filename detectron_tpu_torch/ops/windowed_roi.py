@@ -79,11 +79,21 @@ def window_params(rois, geom, scales, pooled, sampling_ratio, k_min, k_max,
     xc = torch.minimum(torch.clamp(xs, min=0.0), Wl[:, None] - 1.0)
 
     # Window origin: just above-left of the RoI, kept inside the level's
-    # padded block (rows) and the level (columns).
+    # padded block (rows) and the level (columns), x rounded down to
+    # ALIGN_X. The x bound is itself rounded up to ALIGN_X: rounding the
+    # bound Wl - window_x down (the JAX package's order, windowed_roi.py
+    # :131-134) leaves up to ALIGN_X - 1 of the level's last columns
+    # outside every window of that width, so a RoI at the right edge of a
+    # level whose width is not window_x plus a multiple of ALIGN_X (P4 of
+    # an 832 x 1344 canvas: 84 - 48 = 36) pooled clamped samples even at
+    # its fix-up rung. The window may then reach up to ALIGN_X - 1 columns
+    # past the level, into the canvas's zero padding, where no sample
+    # weighs (samples clamp to the level).
     wy0 = torch.minimum(torch.clamp(torch.floor(y1) - 1.0, min=0.0),
                         torch.clamp(Hp - window_y, min=0.0))
-    wx0 = torch.minimum(torch.clamp(torch.floor(x1) - 1.0, min=0.0),
-                        torch.clamp(Wl - window_x, min=0.0))
+    wx_hi = torch.ceil(torch.clamp(Wl - window_x, min=0.0) / ALIGN_X) * \
+        ALIGN_X
+    wx0 = torch.minimum(torch.clamp(torch.floor(x1) - 1.0, min=0.0), wx_hi)
     wx0 = torch.floor(wx0 / ALIGN_X) * ALIGN_X
 
     rel_y_raw = yc - wy0[:, None]

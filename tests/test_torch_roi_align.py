@@ -180,3 +180,47 @@ def test_roi_feature_transform_matches_jax():
         [torch.from_numpy(f) for f in feats], scales, torch.from_numpy(rois),
         7, 2)
     _close(got, ref, "float32")
+
+
+# The levels of an 832 x 1344 canvas at strides 4..32 (P2-P5): P4 is 84
+# wide, and its windows are 48 wide, so 84 - 48 is not a multiple of
+# ALIGN_X.
+CANVAS_DIMS = ((208, 336), (104, 168), (52, 84), (26, 42))
+CANVAS_SCALES = (0.25, 0.125, 0.0625, 0.03125)
+
+
+def test_ladder_right_edge_of_p4_matches_exact_gather():
+    """RoIs at P4's right edge, one routed to the base window and one to
+    the (64, 48) fix-up rung, against the JAX package's exact gather
+    RoIAlign (the JAX ladder rounds the window bound down and misses
+    P4's last columns, so it is no reference here)."""
+    pooled, B = 7, 1
+    rng = np.random.RandomState(3)
+    pyr = [rng.randn(B, h, w, 4).astype(np.float32) for h, w in CANVAS_DIMS]
+    # 300 x 300 fits the base window (32, 48) at P4; 180 x 700 (level 4 by
+    # its area) is too tall for it and fits the (64, 48) rung.
+    rois = np.array([[[1043.0, 100.0, 1343.0, 400.0],
+                      [1163.0, 50.0, 1343.0, 750.0],
+                      [1050.0, 500.0, 1339.5, 790.0]]], np.float32)
+    tpyr = [torch.from_numpy(f) for f in pyr]
+    trois = torch.from_numpy(rois)
+
+    geom = port_win.ladder_geom(list(CANVAS_DIMS), RUNGS)
+    assert (geom["wy_base"], geom["wx_base"]) == (32, 48)
+    flat = trois.reshape(-1, 4)
+    lvl = port_ml.roi_levels(flat, 2, 5, 224, 4)
+    assert lvl.tolist() == [4, 4, 4]
+    *_, ok = port_win.window_params(flat, geom, CANVAS_SCALES, pooled, 2, 2,
+                                    5, 224, 4, geom["wy_base"],
+                                    geom["wx_base"], torch.float32)
+    covered, rid = port_win.rung_route(flat, geom, CANVAS_SCALES, 2, 5, 224,
+                                       4)
+    assert ok.tolist() == [True, False, True]
+    assert bool(covered[1]) and geom["fix_rungs"][int(rid[1])] == (64, 48)
+
+    got = port_win.multilevel_roi_align_ladder(
+        tpyr, CANVAS_SCALES, trois, pooled, 2, 2, 5, 224, 4, RUNGS)
+    exact = np.asarray(jax_ml.multilevel_roi_align(
+        [jnp.asarray(f[0]) for f in pyr], CANVAS_SCALES,
+        jnp.asarray(rois[0]), pooled, 2, 2, 5, chunk=8))[None]
+    _close(got, exact, "float32")
