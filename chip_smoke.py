@@ -311,6 +311,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      launches_by_path ("profile_net_infer", "profile_net_train",
      "stage_bench", "roi_bench_p7", "roi_bench_p14", "golden_compare",
      "golden_compare_pkl", "multiscale_bench").
+  31. The twin of bench.py (detectron_tpu_torch/tools/bench.py, run last,
+     after phase 28) in fresh processes (sys.executable -m ...) with the
+     BENCH_* variables of this environment cleared: default inference,
+     inference with BENCH_SET "TPU.FUSED_RES2 True", and BENCH_MODE=train
+     at its default batch. Each must exit 0 and print exactly one line on
+     stdout, a JSON record with bench.py's metric name for its mode, unit
+     "images/sec/chip", finite positive value, median, mfu and
+     tflops_per_image, and device equal to this card's name; the line is
+     printed after the run's stderr (the card line, the warm-up, and the
+     "# run" line with the window rates and peak memory). The "# run"
+     line's launch counts over the timed calls (bench.parse_stderr) go
+     into launches_by_path ("bench_infer", "bench_infer_fused_res2",
+     "bench_train"); K1 and K2 (and K4 training, K5 and K6 fused) must
+     have launched.
   Each rank's K1-K4 launches go into launches_by_path ("dp_train_rank<r>",
   "nccl_world1_train", "multihost_train_rank<r>",
   "multihost_resume_rank<r>", "sharded_test_net_rank<r>",
@@ -350,9 +364,11 @@ C4 steps and its trainer, "x152_infer",
 phase 18, "tta_test_net" and "tta_keypoint_test_net" phase 19,
 "variant_<name>_infer" / "variant_<name>_train" phase 20's,
 "infer_simple" and "keypoint_infer_simple" phase 21, "voc_train_net",
-"voc_train_net_resume" and "voc_test_net" phase 22, and
-"cityscapes_test_net" phase 23; K6 carries its float32 route's
-measurements under "f32" (the full-width res2 input) and "f32_small"
+"voc_train_net_resume" and "voc_test_net" phase 22,
+"cityscapes_test_net" phase 23, and "bench_infer",
+"bench_infer_fused_res2" and "bench_train" phase 31; K6 carries its
+float32 route's measurements under "f32" (the full-width res2 input)
+and "f32_small"
 (phase 3's); K1, K2, K4
 and K4's deterministic variant carry their C4 shapes' measurements under
 "c4" (and K1's 12000-box lanes under "c4_train"), K1-K3 theirs at the
@@ -389,11 +405,15 @@ import time
 import numpy as np
 
 # Names of the port's CUDA kernels as the profiler lists them (DET_KERNELS:
-# K4's deterministic variant).
-from detectron_tpu_torch.ops.cuda import DET_KERNELS, PORT_KERNELS
+# K4's deterministic variant); reset_launches sets the wrappers' launch
+# counts to 0 and returns them by name.
+from detectron_tpu_torch.ops.cuda import (DET_KERNELS, PORT_KERNELS,
+                                          reset_launches)
 
 BATCH = 2
 CANVAS = (832, 1344)
+# The wrappers of K1-K3, which every inference path of the main model runs.
+MAIN_WRAPPERS = ("nms_keep_mask", "roi_window_pool", "roi_window_pool_seg")
 IM_INFO = (800.0, 1333.0, 1.6)
 MAIN_RUNS = 3
 # Phase 7: the synthetic val set's size and the engine's batch.
@@ -1693,8 +1713,7 @@ def run_fused_f32_paths(device, clip):
         settings(fused)
         outs[fused] = det.detect_graph(params, images, im_info)  # warm-up
         torch.cuda.synchronize()
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_launches(wrappers)
         t0 = time.perf_counter()
         for _ in range(MAIN_RUNS):
             det.detect_graph(params, images, im_info)
@@ -1748,8 +1767,7 @@ def run_fused_f32_paths(device, clip):
         params, opt_state, stats = step(params, opt_state)   # warm-up
         first[fused] = {k: float(v) for k, v in stats.items()}
         torch.cuda.synchronize()
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_launches(wrappers)
         marks = [time.perf_counter()]
         for _ in range(TRAIN_STEPS):
             params, opt_state, stats = step(params, opt_state)
@@ -1814,21 +1832,14 @@ def run_main_path(device, extra=()):
 
     from detectron_tpu_torch.core import test as det
     from detectron_tpu_torch.core.config import cfg
-    from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
 
     set_cfg(tiny=False, dtype="bfloat16", extra=extra)
     params, images, im_info = main_inputs(device)
     det.detect_graph(params, images, im_info)   # warm-up (cuDNN plans)
     torch.cuda.synchronize()
 
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": roi_align_kernel.roi_window_pool,
-                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
-    if cfg.TPU.FUSED_RES2:
-        wrappers.update(stem_pool=fk.stem_pool, fused_res2=fk.fused_res2)
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = reset_launches(MAIN_WRAPPERS + (
+        ("stem_pool", "fused_res2") if cfg.TPU.FUSED_RES2 else ()))
     t0 = time.perf_counter()
     for _ in range(MAIN_RUNS):
         out = det.detect_graph(params, images, im_info)
@@ -1870,7 +1881,7 @@ def run_train_path(device, profile, clip):
 
     from detectron_tpu_torch.core.config import cfg
     from detectron_tpu_torch.models import train_graph
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
+    from detectron_tpu_torch.ops.cuda import roi_align_kernel
     from detectron_tpu_torch.parallel import optimizer as opt
     from detectron_tpu_torch.parallel import train_step as ts
     from detectron_tpu_torch.utils.synthetic import synthetic_train_batch
@@ -1897,12 +1908,7 @@ def run_train_path(device, profile, clip):
     print("train warm-up step: {:.3f} ms, loss {}".format(
         (time.perf_counter() - t0) * 1e3, float(stats["loss"])))
 
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": roi_align_kernel.roi_window_pool,
-                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg,
-                "roi_window_accum": roi_align_kernel.roi_window_accum}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = kernel_wrappers(accum=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     stats_list, marks, k4_marks = [], [], []
@@ -2110,7 +2116,6 @@ def run_engine_path(device, workdir):
     from detectron_tpu_torch.core.config import cfg
     from detectron_tpu_torch.data.json_dataset import JsonDataset
     from detectron_tpu_torch.models import init
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
     from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
     from detectron_tpu_torch.utils import image_io
     from detectron_tpu_torch.utils import net as net_utils
@@ -2137,11 +2142,7 @@ def run_engine_path(device, workdir):
           "{:.3f} s".format(ENGINE_IMAGES, n_ann, ckpt,
                             time.perf_counter() - t0))
 
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": roi_align_kernel.roi_window_pool,
-                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = kernel_wrappers()
     out_dir = workdir + "/eval"
     t0 = time.perf_counter()
     results = test_engine.run_inference(
@@ -2278,7 +2279,6 @@ def run_train_net_path(device, workdir):
     from detectron_tpu_torch.core.config import cfg
     from detectron_tpu_torch.core import test_engine
     from detectron_tpu_torch.models import init
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
     from detectron_tpu_torch.parallel import optimizer as opt
     from detectron_tpu_torch.tools import train_net_step
     from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
@@ -2329,12 +2329,7 @@ def run_train_net_path(device, workdir):
     scale = cfg.NUM_GPUS * cfg.TRAIN.IMS_PER_BATCH // BATCH
     max_iter = TRAIN_NET_STEPS // scale
     assert max_iter * scale == TRAIN_NET_STEPS
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": roi_align_kernel.roi_window_pool,
-                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg,
-                "roi_window_accum": roi_align_kernel.roi_window_accum}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = kernel_wrappers(accum=True)
     t0 = time.perf_counter()
     run = train_net_step.main([
         "--dataset", "coco2017", "--bs", str(BATCH), "--nw", "4",
@@ -2482,7 +2477,6 @@ def run_keypoint_infer_path(device, workdir):
     from detectron_tpu_torch.core.config import cfg
     from detectron_tpu_torch.data.json_dataset import JsonDataset
     from detectron_tpu_torch.models import bridge
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
     from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
     from detectron_tpu_torch.utils import net as net_utils
     from detectron_tpu_torch.utils.logging import setup_logging
@@ -2494,11 +2488,7 @@ def run_keypoint_infer_path(device, workdir):
     _, images, im_info = main_inputs(device, params=False)
     det.detect_graph(params, images, im_info)   # warm-up (cuDNN plans)
     torch.cuda.synchronize()
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": roi_align_kernel.roi_window_pool,
-                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = kernel_wrappers()
     t0 = time.perf_counter()
     for _ in range(MAIN_RUNS):
         out = det.detect_graph(params, images, im_info)
@@ -2555,8 +2545,7 @@ def run_keypoint_infer_path(device, workdir):
     print("keypoint engine set-up: {} images, {} person annotations, "
           "checkpoint {}, in {:.3f} s".format(
               KPS_ENGINE_IMAGES, n_ann, ckpt, time.perf_counter() - t0))
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(wrappers)
     out_dir = workdir + "/eval"
     t0 = time.perf_counter()
     results = test_engine.run_inference(
@@ -2635,7 +2624,6 @@ def run_keypoint_train_net_path(device, workdir):
 
     from detectron_tpu_torch.core.config import cfg
     from detectron_tpu_torch.models import init
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
     from detectron_tpu_torch.parallel import optimizer as opt
     from detectron_tpu_torch.tools import train_net_step
     from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
@@ -2670,12 +2658,7 @@ def run_keypoint_train_net_path(device, workdir):
     scale = cfg.NUM_GPUS * cfg.TRAIN.IMS_PER_BATCH // BATCH
     max_iter = TRAIN_NET_STEPS // scale
     assert max_iter * scale == TRAIN_NET_STEPS
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": roi_align_kernel.roi_window_pool,
-                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg,
-                "roi_window_accum": roi_align_kernel.roi_window_accum}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = kernel_wrappers(accum=True)
     t0 = time.perf_counter()
     run = train_net_step.main([
         "--dataset", "keypoints_coco2017", "--bs", str(BATCH), "--nw", "4",
@@ -2856,7 +2839,6 @@ def run_model_infer_path(device, model, base):
     from detectron_tpu_torch.core import test as det
     from detectron_tpu_torch.core.config import cfg
     from detectron_tpu_torch.models import bridge
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
 
     label = model["label"]
     set_cfg(tiny=False, dtype="bfloat16", **model["cfg"])
@@ -2867,11 +2849,7 @@ def run_model_infer_path(device, model, base):
     det.detect_graph(params, images, im_info)   # warm-up (cuDNN plans)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": roi_align_kernel.roi_window_pool,
-                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = kernel_wrappers()
     t0 = time.perf_counter()
     for _ in range(MAIN_RUNS):
         out = det.detect_graph(params, images, im_info)
@@ -2932,7 +2910,6 @@ def run_model_engine_path(device, workdir, model, base):
     from detectron_tpu_torch.core import test_engine
     from detectron_tpu_torch.core.config import cfg
     from detectron_tpu_torch.data.json_dataset import JsonDataset
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
     from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
     from detectron_tpu_torch.utils import net as net_utils
     from detectron_tpu_torch.utils.logging import setup_logging
@@ -2953,11 +2930,7 @@ def run_model_engine_path(device, workdir, model, base):
     print("{} engine set-up: {} images, {} annotations, checkpoint {}, in "
           "{:.3f} s".format(label, n_images, n_ann, ckpt,
                             time.perf_counter() - t0))
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": roi_align_kernel.roi_window_pool,
-                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = kernel_wrappers()
     out_dir = workdir + "/eval"
     t0 = time.perf_counter()
     results = test_engine.run_inference(
@@ -3031,7 +3004,6 @@ def run_model_train_net_path(device, workdir, model, base):
 
     from detectron_tpu_torch.core.config import cfg
     from detectron_tpu_torch.models import init
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
     from detectron_tpu_torch.parallel import optimizer as opt
     from detectron_tpu_torch.tools import train_net_step
     from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
@@ -3068,12 +3040,7 @@ def run_model_train_net_path(device, workdir, model, base):
     scale = cfg.NUM_GPUS * cfg.TRAIN.IMS_PER_BATCH // BATCH
     max_iter = steps // scale
     assert max_iter * scale == steps
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": roi_align_kernel.roi_window_pool,
-                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg,
-                "roi_window_accum": roi_align_kernel.roi_window_accum}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = kernel_wrappers(accum=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run = train_net_step.main([
@@ -3340,13 +3307,8 @@ def _tta_engine_run(device, args, label, n_images):
     import torch
 
     from detectron_tpu_torch.core import test_engine
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
 
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": roi_align_kernel.roi_window_pool,
-                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = kernel_wrappers()
     passes = {}
     t0 = time.perf_counter()
     with counted_passes(passes):
@@ -3592,7 +3554,6 @@ def run_variant(device, spec, base):
     from detectron_tpu_torch.core.config import cfg
     from detectron_tpu_torch.models import bridge, train_graph
     from detectron_tpu_torch.models import model_builder as mb
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
     from detectron_tpu_torch.parallel import optimizer as opt
     from detectron_tpu_torch.parallel import train_step as ts
     from detectron_tpu_torch.utils.synthetic import synthetic_train_batch
@@ -3604,14 +3565,9 @@ def run_variant(device, spec, base):
     _, images, im_info = main_inputs(device, params=False)
     if cfg.TPU.S2D_STEM or cfg.TPU.S2D_INPUT:
         check_s2d_stem(device, params, images)
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": roi_align_kernel.roi_window_pool,
-                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg,
-                "roi_window_accum": roi_align_kernel.roi_window_accum}
     det.detect_graph(params, images, im_info)   # warm-up (cuDNN plans)
     torch.cuda.synchronize()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = kernel_wrappers(accum=True)
     t0 = time.perf_counter()
     out = det.detect_graph(params, images, im_info)
     torch.cuda.synchronize()
@@ -3662,8 +3618,7 @@ def run_variant(device, spec, base):
                                   np.random.RandomState(0))
     draws = train_graph.make_draws(torch.Generator().manual_seed(0), BATCH,
                                    CANVAS, cfg.TPU.MAX_GT_BOXES, device)
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(wrappers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, _, stats = ts.train_step(params, opt.init_opt_state(params),
@@ -3737,11 +3692,9 @@ def run_det_train_check(device, label="Mask R-CNN R-50-FPN", c4=False):
 
     from detectron_tpu_torch.core.config import cfg
     from detectron_tpu_torch.models import train_graph
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
     from detectron_tpu_torch.parallel import train_step as ts
     from detectron_tpu_torch.utils.synthetic import synthetic_train_batch
 
-    rk = roi_align_kernel
     set_cfg(tiny=False, dtype="bfloat16", c4=c4,
             extra=["SOLVER.CLIP_GRADIENTS", str(CLIP_GRADIENTS)])
     params = make_params(device, torch.float32)
@@ -3749,11 +3702,8 @@ def run_det_train_check(device, label="Mask R-CNN R-50-FPN", c4=False):
                                   np.random.RandomState(0))
     draws = train_graph.make_draws(torch.Generator().manual_seed(0), BATCH,
                                    CANVAS, cfg.TPU.MAX_GT_BOXES, device)
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": rk.roi_window_pool,
-                "roi_window_pool_seg": rk.roi_window_pool_seg,
-                "roi_window_accum": rk.roi_window_accum,
-                "roi_window_accum_det": rk.roi_window_accum_det}
+    wrappers = reset_launches(MAIN_WRAPPERS + ("roi_window_accum",
+                                               "roi_window_accum_det"))
 
     def two_steps(deterministic):
         torch.use_deterministic_algorithms(deterministic)
@@ -3772,8 +3722,7 @@ def run_det_train_check(device, label="Mask R-CNN R-50-FPN", c4=False):
         return bool(torch.equal(t0_, t1_)), differ, len(g0), times
 
     two_steps(True)   # warm-up: cuDNN's deterministic plans
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(wrappers)
     same_loss, differ, n, times = two_steps(True)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     off_loss, off_differ, _, off_times = two_steps(False)
@@ -3809,7 +3758,6 @@ def run_det_resume_check(device, workdir):
     import torch
 
     from detectron_tpu_torch.models import init
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
     from detectron_tpu_torch.parallel import optimizer as opt
     from detectron_tpu_torch.tools import train_net_step
     from detectron_tpu_torch.tools.make_synthetic_valset import make_valset
@@ -3817,7 +3765,6 @@ def run_det_resume_check(device, workdir):
     from detectron_tpu_torch.utils import net as net_utils
     from detectron_tpu_torch.utils.synthetic import calibrate_detector_params
 
-    rk = roi_align_kernel
     make_valset(workdir, TRAIN_NET_IMAGES, "train2017")
     # One image batch a step, as the preset's schedule counts them: no
     # linear scaling, so MAX_ITER is the number of steps.
@@ -3831,13 +3778,8 @@ def run_det_resume_check(device, workdir):
         pickle.dump({"blobs": dwh.to_detectron_blobs(tree)}, f,
                     pickle.HIGHEST_PROTOCOL)
     del tree
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": rk.roi_window_pool,
-                "roi_window_pool_seg": rk.roi_window_pool_seg,
-                "roi_window_accum": rk.roi_window_accum,
-                "roi_window_accum_det": rk.roi_window_accum_det}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = reset_launches(MAIN_WRAPPERS + ("roi_window_accum",
+                                               "roi_window_accum_det"))
 
     def cli(out, steps, *flags):
         set_cfg(tiny=False, dtype="bfloat16",
@@ -3918,30 +3860,14 @@ NATIVE_HW = (800, 1333)
 
 def kernel_wrappers(accum=False):
     """K1-K3's wrappers (and K4's with accum), their counts set to 0."""
-    from detectron_tpu_torch.ops.cuda import nms_kernel, roi_align_kernel
-
-    wrappers = {"nms_keep_mask": nms_kernel.nms_keep_mask,
-                "roi_window_pool": roi_align_kernel.roi_window_pool,
-                "roi_window_pool_seg": roi_align_kernel.roi_window_pool_seg}
-    if accum:
-        wrappers["roi_window_accum"] = roi_align_kernel.roi_window_accum
-    for fn in wrappers.values():
-        fn.launches = 0
-    return wrappers
+    return reset_launches(MAIN_WRAPPERS + (("roi_window_accum",) if accum
+                                           else ()))
 
 
 def all_kernel_wrappers():
     """K1-K6's wrappers, K4's deterministic variant among them, their
     counts set to 0."""
-    from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
-    from detectron_tpu_torch.ops.cuda import roi_align_kernel
-
-    wrappers = dict(kernel_wrappers(accum=True),
-                    roi_window_accum_det=roi_align_kernel.roi_window_accum_det,
-                    stem_pool=fk.stem_pool, fused_res2=fk.fused_res2)
-    for fn in wrappers.values():
-        fn.launches = 0
-    return wrappers
+    return reset_launches()
 
 
 def require_launches(launches, names, path):
@@ -5174,6 +5100,73 @@ def run_parallel_phases(paths):
         print("phase {}: {:.3f} s".format(phase, time.perf_counter() - t0))
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the twin of bench.py in fresh processes
+# ---------------------------------------------------------------------------
+
+# (launches_by_path key, environment, the metric, the kernels that must
+# launch, the kernels the path can launch).
+BENCH_RUNS = (
+    ("bench_infer", {}, "inference",
+     ("nms_keep_mask", "roi_window_pool"),
+     ("nms_keep_mask", "roi_window_pool", "roi_window_pool_seg")),
+    ("bench_infer_fused_res2", {"BENCH_SET": "TPU.FUSED_RES2 True"},
+     "inference", ("nms_keep_mask", "roi_window_pool", "stem_pool",
+                   "fused_res2"),
+     ("nms_keep_mask", "roi_window_pool", "roi_window_pool_seg",
+      "stem_pool", "fused_res2")),
+    ("bench_train", {"BENCH_MODE": "train"}, "train",
+     ("nms_keep_mask", "roi_window_pool", "roi_window_accum"),
+     ("nms_keep_mask", "roi_window_pool", "roi_window_pool_seg",
+      "roi_window_accum")))
+BENCH_TIMEOUT_S = 300
+
+
+def run_bench_twin(paths):
+    """Phase 31. Returns nothing; each run's launch counts go into paths."""
+    import torch
+
+    from detectron_tpu_torch.tools import bench
+
+    torch.cuda.empty_cache()
+    kind = torch.cuda.get_device_name(0)
+    base = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    for key, env, mode, need, can in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "detectron_tpu_torch.tools.bench"],
+            env=dict(base, **env), capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        err = proc.stderr.splitlines()
+        for line in err:
+            print("{}: {}".format(key, line))
+        lines = proc.stdout.splitlines()
+        if proc.returncode != 0 or len(lines) != 1:
+            raise AssertionError(
+                "{}: exit {}, {} stdout lines; stderr ends:\n{}".format(
+                    key, proc.returncode, len(lines), "\n".join(err[-20:])))
+        print("{}: {}".format(key, lines[0]))
+        rec = json.loads(lines[0])
+        metric = bench.TRAIN_METRIC if mode == "train" else bench.INFER_METRIC
+        nums = [rec.get(k) for k in ("value", "median", "mfu",
+                                     "tflops_per_image")]
+        if rec.get("metric") != metric or rec.get("unit") != \
+                "images/sec/chip" or rec.get("device") != kind or not all(
+                    isinstance(v, (int, float)) and np.isfinite(v) and v > 0
+                    for v in nums):
+            raise AssertionError("{}: bad record {}".format(key, rec))
+        run = bench.parse_stderr(proc.stderr)
+        paths[key] = {k: run["timed"][k] for k in can}
+        print("{}: {:.3f} s, launches over {} timed calls {}, per call "
+              "{}".format(key, wall, run["calls"], paths[key],
+                          run["per_call"]))
+        missing = [k for k in need if paths[key][k] == 0]
+        if missing:
+            raise AssertionError("{}: kernels not launched: {}".format(
+                key, ", ".join(missing)))
+
+
 def main():
     import torch
 
@@ -5295,6 +5288,9 @@ def main():
         run_measuring_tools(device, workdir, paths)
     print("phase 30: {:.3f} s".format(time.perf_counter() - t0))
     run_parallel_phases(paths)
+    t0 = time.perf_counter()
+    run_bench_twin(paths)
+    print("phase 31: {:.3f} s".format(time.perf_counter() - t0))
 
     meta = {
         "nms_keep_mask": ("detectron_tpu_torch/csrc/nms_keep_mask.cu",

@@ -15,3 +15,36 @@ DET_KERNELS = ("roi_reach_kernel", "roi_tile_scan_kernel",
 PORT_KERNELS = ("nms_iou_mask_kernel", "nms_scan", "roi_window_pool_kernel",
                 "roi_window_accum_kernel", "stem_pool",
                 "fused_res2") + DET_KERNELS
+
+
+def wrappers():
+    """{name: wrapper} of every kernel: K1-K6 and K4's deterministic
+    variant."""
+    from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
+    from detectron_tpu_torch.ops.cuda import nms_kernel
+    from detectron_tpu_torch.ops.cuda import roi_align_kernel as rk
+
+    return {"nms_keep_mask": nms_kernel.nms_keep_mask,
+            "roi_window_pool": rk.roi_window_pool,
+            "roi_window_pool_seg": rk.roi_window_pool_seg,
+            "roi_window_accum": rk.roi_window_accum,
+            "roi_window_accum_det": rk.roi_window_accum_det,
+            "stem_pool": fk.stem_pool, "fused_res2": fk.fused_res2}
+
+
+def reset_launches(names=None):
+    """Sets to 0 the launch counts of the wrappers named (an iterable of
+    wrappers() keys; every kernel's by default). Returns {name: wrapper}
+    of them."""
+    every = wrappers()
+    chosen = {k: every[k] for k in (every if names is None else names)}
+    for fn in chosen.values():
+        fn.launches = 0
+    return chosen
+
+
+def launch_counts(names=None):
+    """{name: launches} of the wrappers named (every kernel's by
+    default)."""
+    every = wrappers()
+    return {k: every[k].launches for k in (every if names is None else names)}
