@@ -201,8 +201,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      held against the plain stem within bf16 rounding), FPN.EXTRA_CONV_
      LEVELS with ZERO_INIT_LATERAL (RPN_MAX_LEVEL 7), and the v1up mask
      head with MRCNN.USE_FC_OUTPUT (class-agnostic: VARIANTS says why);
-     each after phase 3's small GPU-against-CPU inference check of its
-     cfg, and RoIPoolF and RoICrop alone on the card against the CPU.
+     the FPN RoIAlign routes (TPU.ROI_IMPL windowed and gather,
+     TPU.ROI_LADDER False, TPU.ROI_LADDER_NARROW True; each with the
+     device time of its RoI transforms in one profiled batch, and the
+     exact ones, all but ROI_LADDER False, with the default ladder's
+     detections on the same params and images in float32: 95% matched,
+     counts within 5%), each after phase 3's small GPU-against-CPU
+     inference check of its cfg, and RoIPoolF and RoICrop alone on the
+     card against the CPU.
   21. tools/infer_simple.main over demo/'s three JPEGs (480 x 640, 640 x
      480, 500 x 500 -> 800 on the short side), with configs/baselines/
      e2e_mask_rcnn_R-50-FPN_1x.yaml and phase 4's calibrated weights as a
@@ -264,7 +270,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      seeds differ, they log identical finite json_stats, only rank 0
      writes checkpoints, and a --resume from its model_step2 continues
      at step 2.
-  27. tools/test_net in 2 such processes on phase 7's 48 noise images,
+  27. tools/test_net in 2 such processes on phase 7's ENGINE_IMAGES noise
+     images,
      batch 8 (4 rows a rank), against the one-process engine on batches
      of 4 (each rank's rows): boxes and scores within 1e-3, identical
      RLEs and equal COCO AP lines; img/s from rank 0's log.
@@ -299,7 +306,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      median of 3 profiles; the kernels behind the gap are printed), K1
      attributed to
      ops/nms.py and K2 / K3 to ops/windowed_roi.py, K4 in the training
-     trace; stage_bench at batch 2 (3 iterations, calibrated); roi_bench
+     trace; stage_bench at batch 2 (2 iterations, calibrated); roi_bench
      at batch 2 with P = 7 / 1000 RoIs and P = 14 / 100 RoIs, the ladder
      and the level sweep within bf16_close's elementwise limit of the
      exact gather; golden_compare: a dump of phase 4's calibrated tree
@@ -312,10 +319,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      "stage_bench", "roi_bench_p7", "roi_bench_p14", "golden_compare",
      "golden_compare_pkl", "multiscale_bench").
   31. The twin of bench.py (detectron_tpu_torch/tools/bench.py, run last,
-     after phase 28) in fresh processes (sys.executable -m ...) with the
-     BENCH_* variables of this environment cleared: default inference,
+     after phase 28), its three runs one after another in one fresh
+     process (bench_twin_runs) with the BENCH_* variables of this
+     environment cleared and BENCH_WINDOWS 1: default inference,
      inference with BENCH_SET "TPU.FUSED_RES2 True", and BENCH_MODE=train
-     at its default batch. Each must exit 0 and print exactly one line on
+     at its default batch. Each must end without an exception and print
+     exactly one line on
      stdout, a JSON record with bench.py's metric name for its mode, unit
      "images/sec/chip", finite positive value, median, mfu and
      tflops_per_image, and device equal to this card's name; the line is
@@ -332,6 +341,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   Phase 2 also holds K1 at the C4 RPN's one-level lanes (2, 6000) and
   (2, 12000), K2 with the whole res4 map as its window (P = 14, N = 2000
   and 200, bf16), K4 at the C4 training shapes (N = 1024 and 256), and
+  the narrow ladder's shapes (TPU.ROI_LADDER_NARROW: K2 at its (32, 40)
+  base window, P = 7, N = 2000, K3 at its whole-top-level (32, 48) rung
+  over the RoIs that take it, K4 at both), and
   K4's deterministic variant at every FPN and C4 shape of K4 (two calls
   bit-equal, K4's tolerance, its time beside the atomic kernel's on the
   same inputs with their device times' ratio, its kernels' device times
@@ -346,7 +358,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   read them just after; every kernel of the path must have launched (in
   the trainers K1, K2 and K4, in 11-12, 15-16 and 18's inference K1 and
   K2, in 14 K4's deterministic variant, in 19 K1 and K2, in 20 K1, and K2
-  and K4 where the variant pools with RoIAlign, in 21-23 K1 and K2, and
+  and K4 where the variant pools with RoIAlign through a window (and K3
+  under TPU.ROI_LADDER_NARROW), in 21-23 K1 and K2, and
   in 22's epoch trainer K1, K2 and K4; K3 is reported).
 Prints a {"kernels": [...]} line (each kernel's launches on its own path:
 the inference main path for K1-K3, training for K4, phase 14 for K4's
@@ -372,7 +385,9 @@ and "f32_small"
 (phase 3's); K1, K2, K4
 and K4's deterministic variant carry their C4 shapes' measurements under
 "c4" (and K1's 12000-box lanes under "c4_train"), K1-K3 theirs at the
-TTA canvas under "tta" (and "tta_tail", "tta_mask"), the variant its
+TTA canvas under "tta" (and "tta_tail", "tta_mask"), K2-K4 theirs at the
+narrow ladder's base window and top rung under "narrow_base" and
+"narrow_top_rung", the variant its
 atomic twin's times as atomic_ms /
 atomic_device_ms, its device time over the atomic's as
 det_over_atomic_device, and its kernels' as <name>_device_ms with their
@@ -415,11 +430,11 @@ CANVAS = (832, 1344)
 # The wrappers of K1-K3, which every inference path of the main model runs.
 MAIN_WRAPPERS = ("nms_keep_mask", "roi_window_pool", "roi_window_pool_seg")
 IM_INFO = (800.0, 1333.0, 1.6)
-MAIN_RUNS = 3
+MAIN_RUNS = 2
 # Phase 7: the synthetic val set's size and the engine's batch.
-ENGINE_IMAGES = 48
+ENGINE_IMAGES = 24
 ENGINE_BATCH = 8
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 # Phase 29: the float32 warm-up step's loss with TPU.FUSED_RES2 on, relative
 # to the unfused path's. K6 moves res2 by at most 1e-5 of its max|ref|, but
 # the RPN's top-k and NMS and the RoI sampling turn that into whole proposal
@@ -428,12 +443,12 @@ LOSS_REL_F32 = 1e-2
 # Phase 8: the synthetic training set's size and train_net_step's steps.
 TRAIN_NET_IMAGES = 16
 TRAIN_NET_STEPS = 8
-# Phases 9 and 10: the synthetic person-keypoints sets (val: about 24
+# Phases 9 and 10: the synthetic person-keypoints sets (val: about 16
 # images, batch ENGINE_BATCH; train: 16 images, 8 steps).
-KPS_ENGINE_IMAGES = 24
+KPS_ENGINE_IMAGES = 16
 KPS_VAL = "keypoints_coco_2017_val"
 # Phase 12: the C4 engine's synthetic val set (batch ENGINE_BATCH).
-C4_ENGINE_IMAGES = 24
+C4_ENGINE_IMAGES = 16
 # Phases 15-18: the repository's X-152 and GN yamls, the X-152 engine's
 # synthetic val set, and train_net_step's steps for both.
 X152_YAML = "configs/baselines/e2e_mask_rcnn_X-152-32x8d-FPN-IN5k_1.44x.yaml"
@@ -445,7 +460,7 @@ MODEL_TRAIN_STEPS = 4
 # TTA_IMAGES synthetic images; the largest canvas is 1216 x 2016.
 TTA_SCALES = (400, 500, 600, 700, 900, 1000, 1100, 1200)
 TTA_MAX_SIZE = 2000
-TTA_IMAGES = 4
+TTA_IMAGES = 3
 # Phase 3's tiny ResNeXt and GN models on the mask_rcnn_r50_fpn preset:
 # ResNeXt-50 with the X-101-32x8d yamls' group plan, and the GN scratch
 # yaml's model (GN body with no stage frozen, GN FPN, the Xconv1fc_gn box
@@ -489,12 +504,47 @@ RES2_WEIGHTS = RES2_MACS      # one weight per multiply-add of a pixel
 RES2_BIASES = 3 * (64 + 64 + 256)
 
 
-def cuda_ms(fn, reps):
-    """Median milliseconds of fn() over reps runs, CUDA events, after one
-    warm-up run."""
+def cpu_quota():
+    """This process's cgroup CPU quota in whole cores (cgroup v2 cpu.max),
+    or None where there is none."""
+    try:
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            quota, period = f.read().split()
+        return None if quota == "max" else max(1, int(quota) // int(period))
+    except (OSError, ValueError):
+        return None
+
+
+@contextlib.contextmanager
+def phase_timer(label):
+    """Prints "<label>: <seconds> s" when the block ends."""
+    t0 = time.perf_counter()
+    yield
+    print("{}: {:.3f} s".format(label, time.perf_counter() - t0))
+
+
+def cuda_call_ms(fn):
+    """(milliseconds of one fn() call between two CUDA events, its
+    result)."""
     import torch
 
-    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def cuda_ms(fn, reps, warm=True):
+    """Median milliseconds of fn() over reps runs, CUDA events, after one
+    warm-up run (none without `warm`: the caller has just run fn)."""
+    import torch
+
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -711,10 +761,12 @@ def nms_lanes(rng, L, N, device, cut=True):
             torch.from_numpy(valid).to(device))
 
 
-def ladder_inputs(rng, n, pooled, window, device, dtype):
+def ladder_inputs(rng, n, pooled, window, device, dtype, rois=None):
     """A real-size canvas (B, 428, 432, 256) from a random pyramid of an
-    832 x 1344 image, and window origins/weights of n RoIs of detector-like
-    sizes at the given window shape (None: the ladder's base window)."""
+    832 x 1344 image (the narrow ladder's too: the same levels, padding
+    and size), and window origins/weights of n RoIs of detector-like sizes
+    (or of `rois`, (rois (n, 4), their images (n,))) at the given window
+    shape (None: the ladder's base window)."""
     import torch
 
     from detectron_tpu_torch.core.config import cfg
@@ -727,17 +779,72 @@ def ladder_inputs(rng, n, pooled, window, device, dtype):
     geom = win.ladder_geom(dims, tuple(tuple(r) for r in cfg.TPU.ROI_RUNGS))
     canvas = win.build_canvas(pyramid, geom)
     window = window or (geom["wy_base"], geom["wx_base"])
-    xy = rng.uniform(0, 1000, (n, 2))
-    wh = rng.lognormal(4.5, 0.8, (n, 2)).clip(4, 800)
-    rois = torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(
-        np.float32)).to(device)
+    if rois is None:
+        xy = rng.uniform(0, 1000, (n, 2))
+        wh = rng.lognormal(4.5, 0.8, (n, 2)).clip(4, 800)
+        rois = torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(
+            np.float32)).to(device)
+        img = torch.from_numpy(rng.randint(0, BATCH, n).astype(
+            np.int32)).to(device)
+    else:
+        rois, img = rois
     sy, sx, vy, vx, _ = win.window_params(
         rois, geom, (0.25, 0.125, 0.0625, 0.03125), pooled, 2, 2, 5, 224, 4,
         window[0], window[1], dtype)
-    img = torch.from_numpy(rng.randint(0, BATCH, n).astype(np.int32)).to(
-        device)
     return canvas, torch.stack([img, sy, sx], -1).contiguous(), vy, vx, \
         window
+
+
+def narrow_top_rung_rois(device, rng):
+    """The RoIs the narrow ladder (TPU.ROI_LADDER_NARROW) pools at its
+    whole-top-level rung, top-level RoIs its (32, 40) base window does not
+    cover: those among the box RoIs of phase 4's batch (its images and
+    calibrated weights, 1000 proposals an image), or, where that batch has
+    none, those among 400 large RoIs (900-1340 x 300-680 px from near the
+    canvas's left edge, on random images). Returns ((rois (n, 4), images
+    (n,) int32), phase 4's top-level RoIs, phase 4's RoIs at the rung)."""
+    import torch
+
+    from detectron_tpu_torch.core.config import cfg
+    from detectron_tpu_torch.models import model_builder as mb
+    from detectron_tpu_torch.ops import multilevel_roi as ml
+    from detectron_tpu_torch.ops import windowed_roi as win
+
+    dims = [(CANVAS[0] // s, CANVAS[1] // s) for s in (4, 8, 16, 32)]
+    geom = win.ladder_geom(dims, tuple(tuple(r) for r in cfg.TPU.ROI_RUNGS),
+                           narrow_base=True)
+    scales = (0.25, 0.125, 0.0625, 0.03125)
+
+    def at_rung(flat):
+        ok = win.window_params(flat, geom, scales, 7, 2, 2, 5, 224, 4,
+                               geom["wy_base"], geom["wx_base"],
+                               torch.float32)[-1]
+        covered, rid = win.rung_route(flat, geom, scales, 2, 5, 224, 4)
+        return ~ok & covered & (rid == 0)
+
+    params, images, im_info = main_inputs(device)
+    with torch.no_grad():
+        feats, _ = mb.forward_features(params, images)
+        rois, _, _ = mb.generate_proposals(mb.forward_rpn(params, feats),
+                                           feats, im_info, False)
+    flat = rois.reshape(-1, 4).float()
+    img = torch.arange(BATCH, dtype=torch.int32,
+                       device=device).repeat_interleave(rois.shape[1])
+    top = int((ml.roi_levels(flat, 2, 5, 224, 4) == 5).sum())
+    sel = at_rung(flat)
+    n_main = int(sel.sum())
+    del params, images, feats
+    if n_main == 0:
+        n = 400
+        xy = rng.uniform(0, 300, (n, 2)) * [1.0, 0.5]
+        wh = np.stack([rng.uniform(900, 1340, n), rng.uniform(300, 680, n)],
+                      -1)
+        flat = torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(
+            np.float32)).to(device)
+        img = torch.from_numpy(rng.randint(0, BATCH, n).astype(
+            np.int32)).to(device)
+        sel = at_rung(flat)
+    return (flat[sel].contiguous(), img[sel].contiguous()), top, n_main
 
 
 def check_kernels(device):
@@ -753,14 +860,19 @@ def check_kernels(device):
 
     def record(name, shape, err, fn, plain, bnd, primary, tag=None, **more):
         """Times the kernel's wrapper fn (CUDA events per call, and device
-        time alone) and its plain version, and prints and keeps them (with
-        the fields `more`): as the kernel's entry at its primary shape, and
-        under entry[tag] (the C4 paths' shapes: "c4")."""
-        ms, dev, plain_ms = cuda_ms(fn, 20), device_ms(fn), cuda_ms(plain, 3)
+        time alone) and its plain version (a callable, timed once: the
+        reference call just made is its warm-up; or its milliseconds),
+        and prints and keeps them (with the fields `more`): as the
+        kernel's entry at its primary shape, and under entry[tag] (the C4
+        paths' shapes: "c4")."""
+        ms, dev = cuda_ms(fn, 20), device_ms(fn)
+        plain_ms = plain if isinstance(plain, float) else \
+            cuda_ms(plain, 1, warm=False)
         print("check {} {}: max_abs_err={} kernel_ms={:.4f} device_ms={:.4f} "
-              "plain_ms={:.4f} bound_ms={:.4f} ({}){}".format(
-                  name, shape, err, ms, dev, plain_ms, *bnd, "".join(
-                      " {}={:.4f}".format(k, v) for k, v in more.items())))
+              "plain_ms={:.4f} bound_ms={:.4f} ({}) share={:.3f}{}".format(
+                  name, shape, err, ms, dev, plain_ms, *bnd, bnd[0] / dev,
+                  "".join(" {}={:.4f}".format(k, v)
+                          for k, v in more.items())))
         e = entries.setdefault(name, {"max_abs_err": 0.0})
         e["max_abs_err"] = max(e["max_abs_err"], float(err))
         fields = dict(shape=shape, ms=ms, device_ms=dev, plain_ms=plain_ms,
@@ -799,8 +911,8 @@ def check_kernels(device):
         for i, n in enumerate(levels or ()):
             valid[i * BATCH:(i + 1) * BATCH, n:] = False
         got = nms_kernel.nms_keep_mask(boxes, valid, thr)
-        ref = nms_kernel.nms_keep_mask_plain(boxes, valid, thr)
-        torch.cuda.synchronize()
+        plain_ms, ref = cuda_call_ms(
+            lambda: nms_kernel.nms_keep_mask_plain(boxes, valid, thr))
         err = int((got != ref).sum())
         shape = "L={} N={}".format(L, N)
         if levels and len(levels) == 5:
@@ -816,8 +928,7 @@ def check_kernels(device):
                                                                       err))
         record("nms_keep_mask", shape, err,
                lambda: nms_kernel.nms_keep_mask(boxes, valid, thr),
-               lambda: nms_kernel.nms_keep_mask_plain(boxes, valid, thr),
-               nms_bound(boxes, valid, ref),
+               plain_ms, nms_bound(boxes, valid, ref),
                primary=(levels is not None and N == 1000),
                tag={(BATCH, 6000): "c4", (BATCH, 12000): "c4_train"}.get(
                    (L, N)))
@@ -982,10 +1093,74 @@ def check_kernels(device):
                 (pooled, r) == (7, None), lists=(pooled, r) == (7, None))
         del canvas, zero, got, ref
 
+    check_narrow_window_kernels(device, rng, pool_check, record)
     check_c4_window_kernels(device, pool_check, record, det_accum_check)
     check_fused_kernels(device, rng, record)
     check_tta_canvas_kernels(device, pool_check, record)
     return entries
+
+
+def check_narrow_window_kernels(device, rng, pool_check, record):
+    """Phase 2, continued: the narrow ladder's kernel shapes
+    (TPU.ROI_LADDER_NARROW) at 832 x 1344. K2 at its (32, 40) base window
+    (P = 7, N = B * 1000, bf16), K3 at its whole-top-level (32, 48) rung
+    over the RoIs that take it (narrow_top_rung_rois: phase 4's batch's,
+    or large ones where that batch has none),
+    and K4 at both (the training box count, N = B * 512, at the base; the
+    same top-level rows at the rung), each against its plain version at
+    its tolerance; entries "narrow_base" and "narrow_top_rung"."""
+    import torch
+
+    from detectron_tpu_torch.ops.cuda import roi_align_kernel as rk
+
+    top, n_top, n_main = narrow_top_rung_rois(device, rng)
+    count = int(top[0].shape[0])
+    print("narrow ladder on phase 4's batch: {} top-level box RoIs, {} of "
+          "them at the whole-top-level rung; the rung's check takes {} "
+          "rows{}".format(n_top, n_main, count, "" if n_main else
+                          " of 400 large RoIs (narrow_top_rung_rois)"))
+    if count == 0:
+        raise AssertionError("no RoI at the narrow ladder's top rung")
+    cases = (("narrow_base", BATCH * 1000, BATCH * 512, (32, 40), None),
+             ("narrow_top_rung", count, count, (32, 48), top))
+    for tag, n_pool, n_accum, window, rois in cases:
+        seg = tag == "narrow_top_rung"
+        canvas, starts, vy, vx, _ = ladder_inputs(
+            rng, n_pool, 7, window, device, torch.bfloat16, rois)
+        rows = (0, n_pool)
+        pool = (lambda *a: rk.roi_window_pool_seg(*a, rows)) if seg else \
+            rk.roi_window_pool
+        pool_check("roi_window_pool_seg" if seg else "roi_window_pool", pool,
+                   lambda *a: rk.roi_window_pool_plain(*a, rows=rows),
+                   (canvas, starts, vy, vx), rows,
+                   "narrow ladder P=7 N={} window={} canvas={}".format(
+                       n_pool, window, tuple(canvas.shape)),
+                   window_bound(canvas.shape, 2, starts, vy, vx, False),
+                   False, tag)
+        canvas, starts, vy, vx, _ = ladder_inputs(
+            rng, n_accum, 7, window, device, torch.float32, rois)
+        ct = torch.randn((n_accum, 7, 7, canvas.shape[-1]), device=device,
+                         generator=torch.Generator(device).manual_seed(
+                             n_accum))
+        zero = torch.zeros_like(canvas)
+        got = rk.roi_window_accum(zero.clone(), starts, ct, vy, vx)
+        ref = rk.roi_window_accum_plain(zero.clone(), starts, ct, vy, vx)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tol = 1e-5 * float(ref.abs().max()) + 1e-6
+        shape = "narrow ladder P=7 N={} window={} canvas={}".format(
+            n_accum, window, tuple(canvas.shape))
+        if not bool(torch.isfinite(got).all()) or err > tol or \
+                float(ref.abs().max()) == 0.0:
+            raise AssertionError("K4 roi_window_accum disagrees with its "
+                                 "plain version at {}: max_abs_err {} > {}"
+                                 .format(shape, err, tol))
+        record("roi_window_accum", shape, err,
+               lambda: rk.roi_window_accum(got, starts, ct, vy, vx),
+               lambda: rk.roi_window_accum_plain(ref, starts, ct, vy, vx),
+               window_bound(canvas.shape, 4, starts, vy, vx, True), False,
+               tag)
+        del canvas, zero, got, ref
 
 
 def c4_roi_inputs(rng, n, device, dtype):
@@ -3214,8 +3389,8 @@ def check_tta_canvas_kernels(device, pool_check, record):
                 if c.get("roi_window_pool_seg")), (None, ()))
     for i, (boxes, valid, thr) in enumerate(calls.get("nms_keep_mask", ())):
         got = nms_kernel.nms_keep_mask(boxes, valid, thr)
-        ref = nms_kernel.nms_keep_mask_plain(boxes, valid, thr)
-        torch.cuda.synchronize()
+        plain_ms, ref = cuda_call_ms(
+            lambda: nms_kernel.nms_keep_mask_plain(boxes, valid, thr))
         err = int((got != ref).sum())
         L, N = valid.shape
         shape = "{}: L={} N={} ({})".format(
@@ -3227,8 +3402,7 @@ def check_tta_canvas_kernels(device, pool_check, record):
                                      shape, err))
         record("nms_keep_mask", shape, err,
                lambda: nms_kernel.nms_keep_mask(boxes, valid, thr),
-               lambda: nms_kernel.nms_keep_mask_plain(boxes, valid, thr),
-               nms_bound(boxes, valid, ref), False,
+               plain_ms, nms_bound(boxes, valid, ref), False,
                ("tta", "tta_tail")[i] if i < 2 else None)
     for i, args in enumerate(calls.get("roi_window_pool", ())):
         n, P = args[2].shape[:2]
@@ -3448,7 +3622,8 @@ def blob_canvas(scale, max_size):
 
 # (key, label, set_cfg's model arguments, cfg keys, the tree it shares,
 # kernels its inference must launch). The trees: the FPN preset's for
-# RoICrop and the s2d stems (their params are the plain model's), the C4
+# RoICrop, the s2d stems and the FPN RoIAlign routes (their params are the
+# plain model's), the C4
 # preset's for RoIPoolF and the dilated res5, and one each for the extra
 # levels and the FC mask output. The FC output runs class-agnostic: at
 # MRCNN.RESOLUTION 28 with 81 class-specific masks its FC would be
@@ -3468,6 +3643,17 @@ VARIANTS = (
      ("nms_keep_mask", "roi_window_pool")),
     ("s2d_input", "TPU.S2D_INPUT", {}, ["TPU.S2D_INPUT", "True"], "fpn",
      ("nms_keep_mask", "roi_window_pool")),
+    ("roi_windowed", "TPU.ROI_IMPL windowed", {},
+     ["TPU.ROI_IMPL", "windowed"], "fpn",
+     ("nms_keep_mask", "roi_window_pool")),
+    ("roi_gather", "TPU.ROI_IMPL gather", {}, ["TPU.ROI_IMPL", "gather"],
+     "fpn", ("nms_keep_mask",)),
+    ("roi_single_window", "TPU.ROI_LADDER False", {},
+     ["TPU.ROI_LADDER", "False"], "fpn",
+     ("nms_keep_mask", "roi_window_pool")),
+    ("roi_narrow", "TPU.ROI_LADDER_NARROW True", {},
+     ["TPU.ROI_LADDER_NARROW", "True"], "fpn",
+     ("nms_keep_mask", "roi_window_pool", "roi_window_pool_seg")),
     ("extra_levels", "FPN EXTRA_CONV_LEVELS + ZERO_INIT_LATERAL", {},
      ["FPN.EXTRA_CONV_LEVELS", "True", "FPN.ZERO_INIT_LATERAL", "True",
       "FPN.RPN_MAX_LEVEL", "7"], "extra", ("nms_keep_mask",
@@ -3477,6 +3663,47 @@ VARIANTS = (
       "MRCNN.USE_FC_OUTPUT", "True", "MRCNN.CLS_SPECIFIC_MASK", "False"],
      "fc", ("nms_keep_mask", "roi_window_pool")),
 )
+
+
+# The FPN RoIAlign routes of phase 20 (TPU.ROI_IMPL 'windowed' and
+# 'gather', TPU.ROI_LADDER False, TPU.ROI_LADDER_NARROW): their RoI
+# transform's device time is read from a profiled batch, and those that
+# compute exact RoIAlign must give the default ladder's detections.
+ROI_ROUTES = ("roi_windowed", "roi_gather", "roi_single_window",
+              "roi_narrow")
+EXACT_ROUTES = ("roi_windowed", "roi_gather", "roi_narrow")
+
+
+def roi_transform_device_ms(fn):
+    """Device milliseconds of the RoI transforms of one fn() call (a
+    batch): the kernels launched inside model_builder.roi_feature_transform
+    (box and mask heads), from torch.profiler's events under a
+    record_function range around each of its calls. Returns (ms, calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from detectron_tpu_torch.models import model_builder as mb
+
+    real = mb.roi_feature_transform
+    label = "chip_smoke.roi_feature_transform"
+
+    def ranged(*args, **kwargs):
+        with record_function(label):
+            return real(*args, **kwargs)
+
+    mb.roi_feature_transform = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        mb.roi_feature_transform = real
+    ranges = [e for e in prof.events()
+              if e.name == label and e.device_type == DeviceType.CPU]
+    return sum(e.device_time_total for e in ranges) / 1e3, len(ranges)
 
 
 def check_roi_ops_on_the_card(device):
@@ -3542,12 +3769,60 @@ def check_s2d_stem(device, params, images):
         raise AssertionError("the s2d stem disagrees with the plain stem")
 
 
-def run_variant(device, spec, base):
+def compare_with_ladder(device, label, keys, model, tree, params, out,
+                        ladder_ref):
+    """An exact FPN RoIAlign route's detections against the default
+    ladder's on phase 4's images and calibrated weights, by phase 3's
+    criterion (95% matched, counts within 5%), in float32: the gather route
+    multiplies and adds in the features' dtype, as the JAX package's does,
+    so in bfloat16 its scores move past match_detections' 1e-3 (10% matched
+    on an H100) while the windowed slices and the ladder's kernels sum in
+    float32. The bfloat16 batch's match (out, params: the route's) is
+    printed beside it. ladder_ref keeps the ladder's detections from one
+    route to the next. Returns the text to print."""
+    import torch
+
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.models import bridge
+
+    def as_float(d):
+        return {k: v.float() if v.is_floating_point() else v
+                for k, v in d.items()}
+
+    _, images, im_info = main_inputs(device, params=False)
+    if "bf16" not in ladder_ref:
+        set_cfg(tiny=False, dtype="bfloat16", **model)
+        ladder_ref["bf16"] = as_float(det.detect_graph(params, images,
+                                                       im_info))
+    frac16 = match_detections(as_float(out), ladder_ref["bf16"])
+    params32 = bridge.to_torch(tree, device, torch.float32)
+    _, images, _ = main_inputs(device, params=False, dtype=torch.float32)
+    if "f32" not in ladder_ref:
+        set_cfg(tiny=False, dtype="float32", **model)
+        ladder_ref["f32"] = det.detect_graph(params32, images, im_info)
+    set_cfg(tiny=False, dtype="float32", extra=keys, **model)
+    got = det.detect_graph(params32, images, im_info)
+    ref = ladder_ref["f32"]
+    frac = match_detections(got, ref)
+    n_ref, n_got = int(ref["valid"].sum()), int(got["valid"].sum())
+    text = (", against the default ladder's detections: float32 valid "
+            "ladder={} route={} matched={:.4f}; bf16 matched={:.4f}".format(
+                n_ref, n_got, frac, frac16))
+    if n_ref == 0 or frac < 0.95 or abs(n_ref - n_got) > 0.05 * n_ref:
+        raise AssertionError("variant {}: the detections differ from the "
+                             "default ladder's{}".format(label, text))
+    return text
+
+
+def run_variant(device, spec, base, ladder_ref=None):
     """One variant at full width: one inference batch (after a warm-up
     batch) and one training step (bf16 compute, f32 params) on phase 4's
     and phase 5's inputs; for RoIPoolF / RoICrop the transform alone on
-    the batch's features and proposals, timed, with its peak memory.
-    Returns the launches of each run."""
+    the batch's features and proposals, timed, with its peak memory; for
+    the FPN RoIAlign routes (ROI_ROUTES) the device time of the batch's
+    RoI transforms in one profiled batch, and for the exact ones
+    (EXACT_ROUTES) the detections against the default ladder's
+    (compare_with_ladder). Returns the launches of each run."""
     import torch
 
     from detectron_tpu_torch.core import test as det
@@ -3601,6 +3876,14 @@ def run_variant(device, spec, base):
                               str(tuple(f.shape)) for f in feats), ms, peak,
                           pooled.numel() * pooled.element_size() / 2 ** 30))
         del feats, pooled
+    if key in ROI_ROUTES:
+        roi_ms, calls = roi_transform_device_ms(
+            lambda: det.detect_graph(params, images, im_info))
+        extra_info = (", RoI transforms' device time in one profiled "
+                      "batch {:.4f} ms ({} calls)".format(roi_ms, calls))
+    if key in EXACT_ROUTES:
+        extra_info += compare_with_ladder(device, label, keys, model, tree,
+                                          params, out, ladder_ref)
     print("variant {} inference (bf16, {} x {} x {}): {:.3f} ms for one "
           "batch after a warm-up, valid detections per image {}, launches "
           "{}{}".format(label, BATCH, *CANVAS, dt * 1e3, per_image, infer,
@@ -3655,7 +3938,7 @@ def run_variant_paths(device):
     RoICrop also alone on the card against the CPU. Returns the launches
     of every run, by path name."""
     check_roi_ops_on_the_card(device)
-    paths, trees = {}, {}
+    paths, trees, ladder_ref = {}, {}, {}
     for spec in VARIANTS:
         key, label, model, keys, tree_key, _ = spec
         t0 = time.perf_counter()
@@ -3664,11 +3947,12 @@ def run_variant_paths(device):
         check_small_input(device, small, c4=bool(model.get("c4")))
         if tree_key not in trees:
             trees.clear()
+            ladder_ref.clear()
             set_cfg(tiny=False, dtype="bfloat16", extra=keys, **model)
             trees[tree_key] = make_tree()
         paths["variant_{}_infer".format(key)], \
             paths["variant_{}_train".format(key)] = run_variant(
-                device, spec, trees[tree_key])
+                device, spec, trees[tree_key], ladder_ref)
         print("variant {}: {:.3f} s with its checks".format(
             label, time.perf_counter() - t0))
     return paths
@@ -4535,14 +4819,14 @@ def run_measuring_tools(device, workdir, paths):
 
     set_cfg(tiny=False, dtype="bfloat16")
     _tool_run(paths, "stage_bench", lambda: stage_bench.main([
-        "--batch_size", str(BATCH), "--iters", "3", "--calibrate"]))
+        "--batch_size", str(BATCH), "--iters", "2", "--calibrate"]))
 
     for P, R in ((7, 1000), (14, 100)):
         set_cfg(tiny=False, dtype="bfloat16")
         res = _tool_run(paths, "roi_bench_p{}".format(P),
                         lambda: roi_bench.main([
                             "--batch", str(BATCH), "--rois", str(R),
-                            "--pooled", str(P), "--iters", "3"]))
+                            "--pooled", str(P), "--iters", "2"]))
         ref = res["gather (exact, plain)"]["out"]
         for name in ("ladder (K2 + K3 rungs + gather)",
                      "level sweep (K2 a level)"):
@@ -4615,7 +4899,7 @@ PAR_LOSS_RTOL = 1e-4
 PAR_PARAM_REL = 1e-4
 # Phase 25 and 26's world: 2 ranks, one image each.
 PAR_RANKS = 2
-PAR_STEPS = 3
+PAR_STEPS = 2
 PAR_TIMEOUT_S = 600
 # The card the ranks of phases 25-28 share, and the sizes phase 26 trains
 # at (phase 8's).
@@ -5105,7 +5389,9 @@ def run_parallel_phases(paths):
 # ---------------------------------------------------------------------------
 
 # (launches_by_path key, environment, the metric, the kernels that must
-# launch, the kernels the path can launch).
+# launch, the kernels the path can launch). Each run takes one timed
+# window (BENCH_WINDOWS 1: 12 batches of 64, or 10 training steps after
+# the twin's 50 warm-up steps).
 BENCH_RUNS = (
     ("bench_infer", {}, "inference",
      ("nms_keep_mask", "roi_window_pool"),
@@ -5119,35 +5405,81 @@ BENCH_RUNS = (
      ("nms_keep_mask", "roi_window_pool", "roi_window_accum"),
      ("nms_keep_mask", "roi_window_pool", "roi_window_pool_seg",
       "roi_window_accum")))
-BENCH_TIMEOUT_S = 300
+BENCH_WINDOWS = "1"
+BENCH_TIMEOUT_S = 600
+
+
+def bench_twin_runs(keys):
+    """Phase 31's fresh process: `python -c "import chip_smoke, sys;
+    chip_smoke.bench_twin_runs(sys.argv[1:])" KEY...` runs the twin
+    (tools/bench.main) for each BENCH_RUNS key in turn, with that run's
+    environment, and writes each line it prints as "KEY\tout\tLINE" or
+    "KEY\terr\tLINE" on stdout, then "KEY\trc\t0" (1, with the traceback
+    among its err lines, where the run raised)."""
+    import contextlib
+    import io
+    import traceback
+
+    from detectron_tpu_torch.tools import bench
+
+    runs = {key: env for key, env, *_ in BENCH_RUNS}
+    base = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    for key in keys:
+        os.environ.clear()
+        os.environ.update(base, BENCH_WINDOWS=BENCH_WINDOWS, **runs[key])
+        out, err = io.StringIO(), io.StringIO()
+        rc = 0
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                bench.main([])
+            except Exception:
+                traceback.print_exc()
+                rc = 1
+        for stream, text in (("out", out), ("err", err)):
+            for line in text.getvalue().splitlines():
+                print("{}\t{}\t{}".format(key, stream, line))
+        print("{}\trc\t{}".format(key, rc), flush=True)
+        if rc:
+            break
 
 
 def run_bench_twin(paths):
-    """Phase 31. Returns nothing; each run's launch counts go into paths."""
+    """Phase 31: the twin's runs (BENCH_RUNS), one after another, in one
+    fresh process (bench_twin_runs). Returns nothing; each run's launch
+    counts go into paths."""
     import torch
 
     from detectron_tpu_torch.tools import bench
 
     torch.cuda.empty_cache()
     kind = torch.cuda.get_device_name(0)
-    base = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke, sys; "
+         "chip_smoke.bench_twin_runs(sys.argv[1:])"]
+        + [key for key, *_ in BENCH_RUNS],
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    print("twin: {} runs in one fresh process, {:.3f} s".format(
+        len(BENCH_RUNS), time.perf_counter() - t0))
+    lines = {}
+    for line in proc.stdout.splitlines():
+        key, stream, text = (line.split("\t", 2) + ["", ""])[:3]
+        lines.setdefault(key, {}).setdefault(stream, []).append(text)
     for key, env, mode, need, can in BENCH_RUNS:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "detectron_tpu_torch.tools.bench"],
-            env=dict(base, **env), capture_output=True, text=True,
-            timeout=BENCH_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        err = proc.stderr.splitlines()
+        got = lines.get(key, {})
+        err = got.get("err", [])
         for line in err:
             print("{}: {}".format(key, line))
-        lines = proc.stdout.splitlines()
-        if proc.returncode != 0 or len(lines) != 1:
+        out = got.get("out", [])
+        if proc.returncode != 0 or got.get("rc") != ["0"] or len(out) != 1:
             raise AssertionError(
-                "{}: exit {}, {} stdout lines; stderr ends:\n{}".format(
-                    key, proc.returncode, len(lines), "\n".join(err[-20:])))
-        print("{}: {}".format(key, lines[0]))
-        rec = json.loads(lines[0])
+                "{}: exit {}, run status {}, {} stdout lines; stderr "
+                "ends:\n{}".format(key, proc.returncode, got.get("rc"),
+                                    len(out), "\n".join(
+                                        (err or proc.stderr.splitlines())
+                                        [-20:])))
+        print("{}: {}".format(key, out[0]))
+        rec = json.loads(out[0])
         metric = bench.TRAIN_METRIC if mode == "train" else bench.INFER_METRIC
         nums = [rec.get(k) for k in ("value", "median", "mfu",
                                      "tflops_per_image")]
@@ -5156,11 +5488,10 @@ def run_bench_twin(paths):
                     isinstance(v, (int, float)) and np.isfinite(v) and v > 0
                     for v in nums):
             raise AssertionError("{}: bad record {}".format(key, rec))
-        run = bench.parse_stderr(proc.stderr)
+        run = bench.parse_stderr("\n".join(err))
         paths[key] = {k: run["timed"][k] for k in can}
-        print("{}: {:.3f} s, launches over {} timed calls {}, per call "
-              "{}".format(key, wall, run["calls"], paths[key],
-                          run["per_call"]))
+        print("{}: launches over {} timed calls {}, per call {}".format(
+            key, run["calls"], paths[key], run["per_call"]))
         missing = [k for k in need if paths[key][k] == 0]
         if missing:
             raise AssertionError("{}: kernels not launched: {}".format(
@@ -5190,76 +5521,91 @@ def main():
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     device = "cuda"
 
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
-    print("env: python {} torch {} cuda {}".format(
-        sys.version.split()[0], torch.__version__, torch.version.cuda))
-    t0 = time.perf_counter()
-    libs = build.build_all()
-    print("build: {} kernels in {:.1f} s ({})".format(
-        len(libs), time.perf_counter() - t0,
-        ", ".join(p.name for p in libs.values())))
-    for source, log in build.LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("ptxas {}: {}".format(source, line.strip()))
-    sass = build.sass_counts("fused_res2.cu", "fused_res2_f32_kernel",
-                             ("HMMA.1688.F32.TF32", "FFMA"))
-    print("sass fused_res2_f32_kernel: {}".format(sass))
-    if sass["HMMA.1688.F32.TF32"] == 0:
-        raise AssertionError("K6's float32 route has no TF32 tensor-core "
-                             "product in its SASS")
+    # The CPU-bound phases (3's plain paths, the parallel ranks) vary most
+    # between hosts: print what the process may use.
+    print("env: python {} torch {} cuda {}; CPU threads {}, os.cpu_count "
+          "{}, affinity {}, cgroup quota {}".format(
+              sys.version.split()[0], torch.__version__, torch.version.cuda,
+              torch.get_num_threads(), os.cpu_count(),
+              len(os.sched_getaffinity(0)), cpu_quota()))
+    with phase_timer("phase 1"):
+        t0 = time.perf_counter()
+        libs = build.build_all()
+        print("build: {} kernels in {:.1f} s ({})".format(
+            len(libs), time.perf_counter() - t0,
+            ", ".join(p.name for p in libs.values())))
+        for source, log in build.LOGS.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print("ptxas {}: {}".format(source, line.strip()))
+        sass = build.sass_counts("fused_res2.cu", "fused_res2_f32_kernel",
+                                 ("HMMA.1688.F32.TF32", "FFMA"))
+        print("sass fused_res2_f32_kernel: {}".format(sass))
+        if sass["HMMA.1688.F32.TF32"] == 0:
+            raise AssertionError("K6's float32 route has no TF32 "
+                                 "tensor-core product in its SASS")
 
     set_cfg(tiny=False, dtype="bfloat16")
-    entries = check_kernels(device)
-    check_ladder_grad(device)
-    check_small_input(device)
-    check_small_input(device, FUSED_RES2)
-    check_small_train(device)
-    check_small_input(device, keypoints=True)
-    check_small_train(device, keypoints=True)
-    check_small_input(device, c4=True)
-    check_small_train(device, c4=True)
-    check_small_input(device, RESNEXT_TINY, pixel_scale=20.0, cls_scale=30.0)
-    check_small_train(device, extra=RESNEXT_TINY)
-    check_small_input(device, GN_TINY, pixel_scale=20.0, cls_scale=100.0)
-    check_small_train(device, extra=GN_TINY)
-    paths = {"inference": run_main_path(device),
-             "training": run_train_path(device, args.profile_train,
-                                        args.clip_gradients),
-             "inference_fused_res2": run_main_path(device, FUSED_RES2)}
-    compare_fused_inference(device)
-    t0 = time.perf_counter()
-    paths.update(run_fused_f32_paths(device, args.clip_gradients))
-    print("phase 29: {:.3f} s".format(time.perf_counter() - t0))
-    with tempfile.TemporaryDirectory() as workdir:
+    with phase_timer("phase 2"):
+        entries = check_kernels(device)
+    with phase_timer("phase 3"):
+        check_ladder_grad(device)
+        check_small_input(device)
+        check_small_input(device, FUSED_RES2)
+        check_small_train(device)
+        check_small_input(device, keypoints=True)
+        check_small_train(device, keypoints=True)
+        check_small_input(device, c4=True)
+        check_small_train(device, c4=True)
+        check_small_input(device, RESNEXT_TINY, pixel_scale=20.0,
+                          cls_scale=30.0)
+        check_small_train(device, extra=RESNEXT_TINY)
+        check_small_input(device, GN_TINY, pixel_scale=20.0,
+                          cls_scale=100.0)
+        check_small_train(device, extra=GN_TINY)
+    with phase_timer("phase 4"):
+        paths = {"inference": run_main_path(device)}
+    with phase_timer("phase 5"):
+        paths["training"] = run_train_path(device, args.profile_train,
+                                           args.clip_gradients)
+    with phase_timer("phase 6"):
+        paths["inference_fused_res2"] = run_main_path(device, FUSED_RES2)
+        compare_fused_inference(device)
+    with phase_timer("phase 29"):
+        paths.update(run_fused_f32_paths(device, args.clip_gradients))
+    with phase_timer("phase 7"), tempfile.TemporaryDirectory() as workdir:
         paths["test_net"] = run_engine_path(device, workdir)
-    with tempfile.TemporaryDirectory() as workdir:
+    with phase_timer("phase 8"), tempfile.TemporaryDirectory() as workdir:
         paths["train_net"] = run_train_net_path(device, workdir)
-    with tempfile.TemporaryDirectory() as workdir:
+    with phase_timer("phase 9"), tempfile.TemporaryDirectory() as workdir:
         paths["keypoint_infer"], paths["keypoint_test_net"] = \
             run_keypoint_infer_path(device, workdir)
-    with tempfile.TemporaryDirectory() as workdir:
+    with phase_timer("phase 10"), tempfile.TemporaryDirectory() as workdir:
         paths["keypoint_train"] = run_keypoint_train_net_path(device,
                                                               workdir)
-    for model, key, engine in ((C4_MODEL, "c4", True),
-                               (X152_MODEL, "x152", True),
-                               (GN_MODEL, "gn", False)):
+    for model, key, engine, phases in ((C4_MODEL, "c4", True, "11-13"),
+                                       (X152_MODEL, "x152", True, "15-17"),
+                                       (GN_MODEL, "gn", False, "18")):
         if key == "x152":
-            paths["deterministic_train"] = run_det_train_check(device)
-            paths["deterministic_c4_train"] = run_det_train_check(
-                device, "Mask R-CNN R-50-C4", c4=True)
-            with tempfile.TemporaryDirectory() as workdir:
-                paths["deterministic_resume"] = run_det_resume_check(
-                    device, workdir)
-        t0 = time.perf_counter()
+            with phase_timer("phase 14"):
+                paths["deterministic_train"] = run_det_train_check(device)
+                paths["deterministic_c4_train"] = run_det_train_check(
+                    device, "Mask R-CNN R-50-C4", c4=True)
+                with tempfile.TemporaryDirectory() as workdir:
+                    paths["deterministic_resume"] = run_det_resume_check(
+                        device, workdir)
+        t_model = time.perf_counter()
         set_cfg(tiny=False, dtype="bfloat16", **model["cfg"])
         base = make_tree()
         print("{} set-up: init_model and calibrate_detector_params in "
-              "{:.3f} s".format(model["label"], time.perf_counter() - t0))
+              "{:.3f} s".format(model["label"],
+                                time.perf_counter() - t_model))
         paths[key + "_infer"] = run_model_infer_path(device, model, base)
         if engine:
             with tempfile.TemporaryDirectory() as workdir:
@@ -5268,29 +5614,24 @@ def main():
         with tempfile.TemporaryDirectory() as workdir:
             paths[key + "_train"] = run_model_train_net_path(
                 device, workdir, model, base)
+        print("phase {}: {:.3f} s".format(phases,
+                                          time.perf_counter() - t_model))
         if key == "x152":
-            t0 = time.perf_counter()
-            run_multiscale_bench(device, base, paths)
-            print("phase 30, multiscale_bench: {:.3f} s".format(
-                time.perf_counter() - t0))
+            with phase_timer("phase 30, multiscale_bench"):
+                run_multiscale_bench(device, base, paths)
         del base
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as workdir:
+    with phase_timer("phase 19"), tempfile.TemporaryDirectory() as workdir:
         paths["tta_test_net"], paths["tta_keypoint_test_net"] = \
             run_tta_path(device, workdir)
-    print("phase 19: {:.3f} s".format(time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    paths.update(run_variant_paths(device))
-    print("phase 20: {:.3f} s".format(time.perf_counter() - t0))
+    with phase_timer("phase 20"):
+        paths.update(run_variant_paths(device))
     run_new_phases(device, paths)
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as workdir:
+    with phase_timer("phase 30"), tempfile.TemporaryDirectory() as workdir:
         run_measuring_tools(device, workdir, paths)
-    print("phase 30: {:.3f} s".format(time.perf_counter() - t0))
     run_parallel_phases(paths)
-    t0 = time.perf_counter()
-    run_bench_twin(paths)
-    print("phase 31: {:.3f} s".format(time.perf_counter() - t0))
+    with phase_timer("phase 31"):
+        run_bench_twin(paths)
+    print("chip_smoke: {:.3f} s".format(time.perf_counter() - t_start))
 
     meta = {
         "nms_keep_mask": ("detectron_tpu_torch/csrc/nms_keep_mask.cu",
@@ -5337,7 +5678,7 @@ def main():
                 "atomic_", "det_over_atomic", "other_") + tuple(
                     d + "_" for d in DET_KERNELS))},
             **{k: dict(v, library_ms=None) for k, v in e.items()
-               if k.startswith(("c4", "tta", "f32"))}})
+               if k.startswith(("c4", "tta", "f32", "narrow"))}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,16 @@
 """Generalized R-CNN forward pieces (port of detectron_tpu/models/
 model_builder.py: forward_features :120-139, forward_rpn :142-144,
-generate_proposals :147-235, roi_feature_transform :238-320 on its
-RoIPoolF, RoICrop, single-level and FPN / pallas / ladder branches,
-_c4_crop_and_head :364-383, forward_box_outputs :386-420), for FPN bodies
-(ResNet-50/101/152 and ResNeXt, AffineChannel or GroupNorm, conv5 or
-conv4) with a multilevel RPN, the C4 bodies with a single-level RPN, any
-box head of models/registry.py, and the keypoint branch (the JAX
+generate_proposals :147-235, roi_feature_transform :238-361 on all its
+branches, _c4_crop_and_head :364-383, forward_box_outputs :386-420), for
+FPN bodies (ResNet-50/101/152 and ResNeXt, AffineChannel or GroupNorm,
+conv5 or conv4) with a multilevel RPN, the C4 bodies with a single-level
+RPN, any box head of models/registry.py, and the keypoint branch (the JAX
 package builds it at :105-112 and runs it in core/test.py:254-266 and
 models/train_graph.py:153-170). Every piece serves inference and
-training: the RoI transforms (the FPN's window-rung ladder and the C4
-single-level ops/roi_align.py, with kernel K4 in their backward;
-ops/roi_pool.py, ops/roi_crop.py) are differentiable w.r.t. the
-features, and proposals are detached.
+training: the RoI transforms (the FPN routes of ops/windowed_roi.py and
+the C4 single-level ops/roi_align.py, with kernel K4 in the backward of
+their windows; ops/multilevel_roi.py, ops/roi_pool.py, ops/roi_crop.py)
+are differentiable w.r.t. the features, and proposals are detached.
 
 One repair of the reference: the JAX package's C4 box head pools with
 RoIAlign whatever FAST_RCNN.ROI_XFORM_METHOD says (_c4_crop_and_head
@@ -130,8 +129,13 @@ def roi_feature_transform(features, scales, rois, resolution,
     rois (B, R, 4). Returns (B, R, P, P, C) in (p, q) order.
 
     - RoIAlign: on one feature map (a C4 model's res4) single-level
-      RoIAlign (ops/roi_align.py, K2 / K4), on an FPN's levels the
-      window-rung ladder.
+      RoIAlign (ops/roi_align.py, K2 / K4). On an FPN's levels the route
+      of TPU.ROI_IMPL (ops/windowed_roi.py; JAX model_builder.py:289-361):
+      'pallas' takes the window-rung ladder (narrowed under
+      TPU.ROI_LADDER_NARROW) where TPU.ROI_LADDER is on and more than one
+      level pools, else the single window of TPU.ROI_WINDOW;
+      'windowed' the windowed hybrid, image by image; any other value the
+      exact gather (ops/multilevel_roi.py), image by image.
     - RoIPoolF (one feature map): ops/roi_pool.py.
     - RoICrop: ops/roi_crop.py at 2P then a 2 x 2 max pool under
       CROP_RESIZE_WITH_MAX_POOL; on an FPN every RoI is cropped from every
@@ -165,20 +169,29 @@ def roi_feature_transform(features, scales, rois, resolution,
     if len(features) == 1:
         return ra_ops.roi_align_batched(features[0], rois, scales[0],
                                         resolution, sampling_ratio)
-    if cfg.TPU.ROI_IMPL != "pallas" or not cfg.TPU.ROI_LADDER or \
-            cfg.TPU.ROI_LADDER_NARROW:
-        raise NotImplementedError(
-            "TPU.ROI_IMPL / ROI_LADDER / ROI_LADDER_NARROW choose TPU "
-            "layouts of the same FPN RoIAlign; the port runs the windowed "
-            "ladder alone (TPU.ROI_IMPL 'pallas', ROI_LADDER on, "
-            "ROI_LADDER_NARROW off), and leaves the others out on purpose "
-            "(ROADMAP Queue A)")
-    return win_ops.multilevel_roi_align_ladder_trainable(
-        list(features[k_min - lo:k_max - lo + 1]),
-        tuple(scales[k_min - lo:k_max - lo + 1]), rois, resolution,
-        sampling_ratio, k_min, k_max, cfg.FPN.ROI_CANONICAL_SCALE,
-        cfg.FPN.ROI_CANONICAL_LEVEL,
-        tuple(tuple(r) for r in cfg.TPU.ROI_RUNGS))
+    feats = list(features[k_min - lo:k_max - lo + 1])
+    feat_scales = tuple(scales[k_min - lo:k_max - lo + 1])
+    args = (resolution, sampling_ratio, k_min, k_max,
+            cfg.FPN.ROI_CANONICAL_SCALE, cfg.FPN.ROI_CANONICAL_LEVEL)
+    if cfg.TPU.ROI_IMPL == "pallas":
+        if cfg.TPU.ROI_LADDER and len(feats) > 1:
+            return win_ops.multilevel_roi_align_ladder_trainable(
+                feats, feat_scales, rois, *args,
+                tuple(tuple(r) for r in cfg.TPU.ROI_RUNGS),
+                cfg.TPU.ROI_LADDER_NARROW)
+        return win_ops.multilevel_roi_align_single_window_hybrid(
+            feats, feat_scales, rois, *args, window=cfg.TPU.ROI_WINDOW)
+    rois = rois.detach()
+    if cfg.TPU.ROI_IMPL == "windowed":
+        def one_image(f, r):
+            return win_ops.multilevel_roi_align_hybrid(
+                f, feat_scales, r, *args, window=cfg.TPU.ROI_WINDOW,
+                chunk=cfg.TPU.ROI_CHUNK)
+    else:
+        def one_image(f, r):
+            return ml_ops.multilevel_roi_align(f, feat_scales, r, *args)
+    return torch.stack([one_image([f[b] for f in feats], rois[b])
+                        for b in range(rois.shape[0])])
 
 
 def forward_box_outputs(params, features, scales, rois, model_group=None):

@@ -7,10 +7,11 @@ twin of tools/roi_bench.py).
 
 The inputs are the JAX tool's: the P2-P5 pyramid of the canvas, 256
 channels, made on the device from a seeded torch.Generator, and RoIs with
-areas log-uniform in [32^2, 800^2] and aspect ratios in [0.5, 2]. The JAX
-tool's variants (rois_per_step, hybrid, XLA windowed) are TPU layouts,
-which the port refuses on purpose (models/model_builder.py); it times
-instead:
+areas log-uniform in [32^2, 800^2] and aspect ratios in [0.5, 2]. Of the
+JAX tool's variants, rois_per_step is a TPU layout, and the single-window
+hybrid and the XLA windowed route are cfg routes of the port
+(TPU.ROI_LADDER False, TPU.ROI_IMPL 'windowed'; chip_smoke phase 20 runs
+them in the model); it times instead:
 
   (a) ladder: ops/windowed_roi.py::multilevel_roi_align_ladder, the
       production path (K2 over the base windows, K3 per fix-up rung, the

@@ -1,6 +1,7 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions, on
 the card: K1 keep masks exactly, K2/K3 to 1e-5 relative in float32 and 2
-bf16 ulps in bfloat16 (both sum in f32, in different orders), K4 within
+bf16 ulps in bfloat16 (both sum in f32, in different orders; also at the
+narrow ladder's base window and whole-top-level rung), K4 within
 1e-5 max|ref| + 1e-6 (its atomic adds sum overlapping windows in an order
 that changes from run to run), K5 exactly, K6 to 1e-5 of max|ref| in
 float32 and, in bfloat16, to 2^-7 |ref| + 2^-6 max|ref| (an ulp of the
@@ -356,6 +357,67 @@ def test_roi_window_accum_clips_at_the_canvas_edge(device, P, WY, WX, C):
     ct = torch.randn((12, P, P, C), device=device,
                      generator=torch.Generator(device).manual_seed(WY))
     _accum_check(canvas, starts, ct, vy, vx)
+
+
+def _narrow_inputs(seed, kind, dtype, device, C=64):
+    """The narrow ladder's (TPU.ROI_LADDER_NARROW) kernel inputs at the
+    832 x 1344 canvas: a 2-image canvas from a random P2-P5 pyramid in its
+    geometry, and window_params at its (32, 40) base window of 300 RoIs of
+    detector-like sizes ("base"), or at its whole-top-level (32, 48) rung
+    of the top-level RoIs among 200 large ones that rung_route sends there
+    ("top_rung")."""
+    rng = np.random.RandomState(seed)
+    dims = [(832 // s, 1344 // s) for s in (4, 8, 16, 32)]
+    scales = (0.25, 0.125, 0.0625, 0.03125)
+    pyramid = [torch.tensor(rng.randn(2, h, w, C), dtype=dtype,
+                            device=device) for h, w in dims]
+    geom = win.ladder_geom(dims, ((32, 40), (64, 48), (16, 96), (32, 96)),
+                           narrow_base=True)
+    assert (geom["wx_base"], geom["fix_rungs"][0]) == (40, (32, 48))
+    canvas = win.build_canvas(pyramid, geom)
+    if kind == "base":
+        xy = rng.uniform(0, 1000, (300, 2))
+        wh = rng.lognormal(4.5, 0.8, (300, 2)).clip(4, 800)
+    else:
+        xy = rng.uniform(0, 300, (200, 2)) * [1.0, 0.5]
+        wh = np.stack([rng.uniform(900, 1340, 200),
+                       rng.uniform(300, 680, 200)], -1)
+    rois = torch.tensor(np.concatenate([xy, xy + wh], 1),
+                        dtype=torch.float32, device=device)
+    window = (geom["wy_base"], geom["wx_base"])
+    if kind == "top_rung":
+        ok = win.window_params(rois, geom, scales, 7, 2, 2, 5, 224, 4,
+                               *window, torch.float32)[-1]
+        covered, rid = win.rung_route(rois, geom, scales, 2, 5, 224, 4)
+        rois = rois[~ok & covered & (rid == 0)]
+        assert 20 <= rois.shape[0]
+        window = geom["fix_rungs"][0]
+    sy, sx, vy, vx, _ = win.window_params(rois, geom, scales, 7, 2, 2, 5,
+                                          224, 4, *window, dtype)
+    img = torch.tensor(rng.randint(0, 2, rois.shape[0]), dtype=torch.int32,
+                       device=device)
+    return canvas, torch.stack([img, sy, sx], -1).contiguous(), vy, vx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["base", "top_rung"])
+def test_narrow_ladder_shapes_match_plain(device, kind, dtype):
+    """K2 at the narrow ladder's (32, 40) base window and K3 at its (32, 48)
+    whole-top-level rung, against the plain version; K4 (float32) at both,
+    within 1e-5 max|ref| + 1e-6."""
+    canvas, starts, vy, vx = _narrow_inputs(len(kind), kind, dtype, device)
+    n = vy.shape[0]
+    if kind == "base":
+        got = rk.roi_window_pool(canvas, starts, vy, vx)
+    else:
+        got = rk.roi_window_pool_seg(canvas, starts, vy, vx, (0, n))
+    _close(got, rk.roi_window_pool_plain(canvas, starts, vy, vx), dtype)
+    assert got.any()
+    if dtype == torch.float32:
+        ct = torch.randn((n, 7, 7, canvas.shape[-1]), device=device,
+                         generator=torch.Generator(device).manual_seed(n))
+        assert float(_accum_check(canvas, starts, ct, vy, vx).abs().max()) \
+            > 0
 
 
 def test_wrappers_raise_instead_of_falling_back(device):

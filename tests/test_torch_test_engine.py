@@ -1,7 +1,8 @@
 """The port's dataset inference engine against the JAX package's, on a
 4-image PPM dataset (96 x 128 and 128 x 96, both orientation buckets) with
 tests/test_e2e_inference.py::_tiny_infer_cfg's keys on the RoIAlign ladder
-(TPU.ROI_IMPL 'pallas', the port's only RoI path), and the same weights:
+(TPU.ROI_IMPL 'pallas', the default route; tests/test_torch_roi_routes.py
+holds the 'windowed' route of that cfg), and the same weights:
 the port's numpy init (models/init.py: the JAX package's tree, keys,
 shapes and fills, from a numpy RandomState; the JAX init takes ~20 s
 here), calibrated by calibrate_detector_params, written once with the
@@ -57,8 +58,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZES = [(96, 128), (128, 96), (96, 128), (128, 96)]
 
 # tests/test_e2e_inference.py::_tiny_infer_cfg's keys, less its
-# TPU.ROI_IMPL 'windowed' / ROI_WINDOW / ROI_CHUNK (the port runs the
-# ladder only).
+# TPU.ROI_IMPL 'windowed' / ROI_WINDOW / ROI_CHUNK (this file runs the
+# default ladder).
 TINY_INFER_KEYS = [
     "MODEL.CONV_BODY", "FPN.fpn_ResNet50_conv5_body",
     "MODEL.FASTER_RCNN", "True",

@@ -6,8 +6,9 @@ multiscale_bench) on the CPU at tiny shapes.
   (tools/golden_compare.py) on the same seeded params and image, diffed
   with the port's diff_dumps, at tests/test_golden_compare.py's tiny cfg
   (float32; both cfgs set from one list of keys, the JAX side on its
-  plain gather RoIAlign and XLA NMS instead of the TPU layout
-  TPU.ROI_IMPL 'windowed', which the port refuses). Tolerance, diff_dumps'
+  plain gather RoIAlign and XLA NMS instead of that cfg's TPU.ROI_IMPL
+  'windowed', whose route tests/test_torch_roi_routes.py holds on its
+  own; the port runs its default ladder). Tolerance, diff_dumps'
   own rel (max abs difference over max |JAX value|): 1e-4 on every stage,
   1e-3 on the mask probabilities, as tests/test_torch_detect.py holds
   them on its low-contrast (x0.3) images. The image here is low-contrast
