@@ -1,0 +1,12 @@
+"""Device milliseconds an image that the trace's stage attribution
+(trace.py, STAGES) puts in the 'roi_xform' stage, over the batches traced
+with stacks."""
+
+STAGE = "roi_xform"
+
+
+def read(ctx):
+    seconds = ctx.stage_s.get(STAGE)
+    if not seconds or not ctx.stage_images:
+        return None
+    return 1e3 * seconds / ctx.stage_images
