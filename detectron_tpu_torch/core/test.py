@@ -27,15 +27,18 @@ from detectron_tpu_torch.ops import box_ops
 from detectron_tpu_torch.ops import nms as nms_ops
 from detectron_tpu_torch.ops.topk import top_k
 from detectron_tpu_torch.utils import boxes as box_utils
+from detectron_tpu_torch.utils import tracing
 
 
 @torch.no_grad()
+@tracing.spanned("detect_graph")
 def detect_graph(params, images, im_info):
     """images (B, H, W, 3), im_info (B, 3) [h, w, scale]. Returns a dict:
       boxes (B, D, 4) scaled-image coords, scores (B, D), classes (B, D)
       int32 (1..C-1), valid (B, D) bool, with MASK_ON mask_probs
       (B, D, M, M), and with KEYPOINTS_ON kps_heatmaps (B, D, S, S, K)
       float32 logits; D = TEST.DETECTIONS_PER_IM."""
+    tracing.count("call.detect_graph")
     features, scales = mb.forward_features(params, images)
     rpn_outs = mb.forward_rpn(params, features)
     rois, _, roi_valid = mb.generate_proposals(rpn_outs, features, im_info,
@@ -44,6 +47,7 @@ def detect_graph(params, images, im_info):
 
 
 @torch.no_grad()
+@tracing.spanned("detect_graph_with_proposals")
 def detect_graph_with_proposals(params, images, im_info, proposals,
                                 prop_valid):
     """Fast R-CNN mode (cfg.TEST.PRECOMPUTED_PROPOSALS): detect_graph on
@@ -56,6 +60,7 @@ def detect_graph_with_proposals(params, images, im_info, proposals,
 
 
 @torch.no_grad()
+@tracing.spanned("tail")
 def _detect_tail(params, features, scales, rois, roi_valid, im_info):
     """Box head + decode + per-class NMS + top-D limit + mask and keypoint
     heads."""
@@ -128,8 +133,10 @@ def nms_and_limit_graph(boxes_c, scores_c, D):
     # Pre-top-K per class: exact unless a class has more than K boxes over
     # the threshold, and then the tail re-runs untruncated.
     K = min(R, max(4 * D, 128))
-    if K < R and bool((torch.isfinite(scores_c).sum(-1) > K).any()):
-        K = R
+    if K < R:
+        tracing.sync("test.class_overflow")
+        if bool((torch.isfinite(scores_c).sum(-1) > K).any()):
+            K = R
     top_scores, out_boxes, out_classes = nms_limit_tail(K)
     out_valid = torch.isfinite(top_scores)
     out_scores = torch.where(out_valid, top_scores, 0.0)
@@ -138,6 +145,7 @@ def nms_and_limit_graph(boxes_c, scores_c, D):
 
 
 @torch.no_grad()
+@tracing.spanned("detect_raw")
 def detect_raw(params, images, im_info):
     """Pre-NMS detection outputs of the whole batch (the reference's
     im_detect_bbox surface): softmax scores (B, R, C), decoded and clipped
@@ -172,10 +180,12 @@ def _mask_logits(params, features, scales, det_boxes):
     roi_feat = mb.roi_feature_transform(
         features, scales, det_boxes, cfg.MRCNN.ROI_XFORM_RESOLUTION,
         cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO, cfg.MRCNN.ROI_XFORM_METHOD)
-    h = mask_rcnn_heads.apply_mask_head(
-        params["mask_head"], roi_feat.reshape((B * D,) + roi_feat.shape[2:]),
-        shared_res5_params=mask_rcnn_heads.shared_res5(params))
-    return mask_rcnn_heads.apply_mask_outputs(params["mask_outs"], h)
+    with tracing.span("mask_head"):
+        h = mask_rcnn_heads.apply_mask_head(
+            params["mask_head"],
+            roi_feat.reshape((B * D,) + roi_feat.shape[2:]),
+            shared_res5_params=mask_rcnn_heads.shared_res5(params))
+        return mask_rcnn_heads.apply_mask_outputs(params["mask_outs"], h)
 
 
 @torch.no_grad()

@@ -11,6 +11,7 @@ from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.models import init
 from detectron_tpu_torch.models import layers as L
 from detectron_tpu_torch.models import registry
+from detectron_tpu_torch.utils import tracing
 
 
 def apply_pose_head(p, roi_feat):
@@ -55,6 +56,7 @@ def apply_keypoint_outputs(p, x):
     if f > 1:
         nk = x.shape[-1]
         # (k, k, 1, K) -> F.conv_transpose2d's (K, 1, k, k) with groups K.
+        tracing.sync("keypoint_rcnn_heads.upsample_kernel")
         kern = torch.from_numpy(
             init.bilinear_upsample_kernel(f, nk).transpose(3, 2, 0, 1)).to(
                 device=x.device, dtype=x.dtype)

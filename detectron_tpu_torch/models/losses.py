@@ -20,6 +20,7 @@ import torch
 
 from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.parallel import comm
+from detectron_tpu_torch.utils import tracing
 
 
 def smooth_l1(x, beta):
@@ -129,6 +130,7 @@ def keypoint_losses(kps_logits, kps_targets, kps_weights, group=None):
     else:
         count = N * K
         if group is not None:
+            tracing.sync("losses.keypoint_count")
             count = comm.global_sum(torch.tensor(float(count),
                                                  device=w.device), group)
         loss = loss / count

@@ -37,6 +37,7 @@ from detectron_tpu_torch.ops import roi_align as ra_ops
 from detectron_tpu_torch.ops import roi_crop as rc_ops
 from detectron_tpu_torch.ops import roi_pool as rp_ops
 from detectron_tpu_torch.ops import windowed_roi as win_ops
+from detectron_tpu_torch.utils import tracing
 
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -61,18 +62,23 @@ def forward_features(params, images):
         body_p = L.stop_gradient(body_p)
         if fpn_p is not None:
             fpn_p = L.stop_gradient(fpn_p)
-    outs = resnet.apply_body(body_p, images.to(compute_dtype()), num_stages)
+    with tracing.span("body"):
+        outs = resnet.apply_body(body_p, images.to(compute_dtype()),
+                                 num_stages)
     if cfg.FPN.FPN_ON:
-        return fpn_mod.apply_fpn(fpn_p, outs)
+        with tracing.span("fpn"):
+            return fpn_mod.apply_fpn(fpn_p, outs)
     return [outs[-1]], [1.0 / 16.0]
 
 
+@tracing.spanned("rpn")
 def forward_rpn(params, features):
     """Per-level (cls_logits, bbox_pred), the RPN head shared by levels."""
     return [rpn_mod.apply_rpn_head(params["rpn"], f) for f in features]
 
 
 @torch.no_grad()
+@tracing.spanned("proposals")
 def generate_proposals(rpn_outs, features, im_info, training):
     """Proposals for the whole batch, from the TRAIN.RPN_* settings when
     `training`, else the TEST.RPN_* ones. Returns (rois (B, R, 4),
@@ -123,6 +129,7 @@ def generate_proposals(rpn_outs, features, im_info, training):
                                      post_n)
 
 
+@tracing.spanned("roi_xform")
 def roi_feature_transform(features, scales, rois, resolution,
                           sampling_ratio, method="RoIAlign"):
     """The RoI transform `method`, differentiable w.r.t. the features.
@@ -213,13 +220,14 @@ def forward_box_outputs(params, features, scales, rois, model_group=None):
         cfg.FAST_RCNN.ROI_XFORM_METHOD)
     head = registry.get_func(init_mod.box_head_name())
     roi_feat = roi_feat.reshape((B * R,) + roi_feat.shape[2:])
-    if model_group is None or "fc6" not in params["box_head"]:
-        feat = head.apply(params["box_head"], roi_feat)
-    else:
-        feat = head.apply(params["box_head"], roi_feat,
-                          model_group=model_group)
-    cls_logits, bbox_pred = fast_rcnn_heads.apply_fast_rcnn_outputs(
-        params["box_outs"], feat)
+    with tracing.span("box_head"):
+        if model_group is None or "fc6" not in params["box_head"]:
+            feat = head.apply(params["box_head"], roi_feat)
+        else:
+            feat = head.apply(params["box_head"], roi_feat,
+                              model_group=model_group)
+        cls_logits, bbox_pred = fast_rcnn_heads.apply_fast_rcnn_outputs(
+            params["box_outs"], feat)
     return cls_logits.reshape(B, R, -1), bbox_pred.reshape(B, R, -1), feat
 
 
@@ -233,6 +241,9 @@ def forward_keypoint_outputs(params, features, scales, rois):
     roi_feat = roi_feature_transform(
         features, scales, rois, cfg.KRCNN.ROI_XFORM_RESOLUTION,
         cfg.KRCNN.ROI_XFORM_SAMPLING_RATIO, cfg.KRCNN.ROI_XFORM_METHOD)
-    h = keypoint_rcnn_heads.apply_pose_head(
-        params["kps_head"], roi_feat.reshape((B * R,) + roi_feat.shape[2:]))
-    return keypoint_rcnn_heads.apply_keypoint_outputs(params["kps_outs"], h)
+    with tracing.span("kps_head"):
+        h = keypoint_rcnn_heads.apply_pose_head(
+            params["kps_head"],
+            roi_feat.reshape((B * R,) + roi_feat.shape[2:]))
+        return keypoint_rcnn_heads.apply_keypoint_outputs(
+            params["kps_outs"], h)

@@ -14,6 +14,7 @@ from detectron_tpu_torch.models import layers as L
 from detectron_tpu_torch.ops import anchors as anchor_ops
 from detectron_tpu_torch.ops import box_ops
 from detectron_tpu_torch.ops import topk as topk_ops
+from detectron_tpu_torch.utils import tracing
 
 
 def apply_rpn_head(p, feat):
@@ -26,6 +27,7 @@ def apply_rpn_head(p, feat):
 
 def level_anchors(stride, sizes, aspect_ratios, feat_h, feat_w, device):
     """The (H*W*A, 4) anchor field of one level (ops/anchors.py)."""
+    tracing.sync("rpn.anchors")  # a blocking copy from pageable memory
     return torch.from_numpy(anchor_ops.anchor_field(
         stride, sizes, aspect_ratios, feat_h, feat_w)).to(device)
 

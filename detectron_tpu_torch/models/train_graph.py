@@ -35,6 +35,7 @@ from detectron_tpu_torch.models import mask_rcnn_heads
 from detectron_tpu_torch.models import model_builder as mb
 from detectron_tpu_torch.models import rpn as rpn_mod
 from detectron_tpu_torch.models import targets as T
+from detectron_tpu_torch.utils import tracing
 
 
 def _check_supported():
@@ -185,11 +186,13 @@ def training_losses(params, batch, draws, mesh=None):
         roi_feat = mb.roi_feature_transform(
             features, scales, mask_rois, cfg.MRCNN.ROI_XFORM_RESOLUTION,
             cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO, cfg.MRCNN.ROI_XFORM_METHOD)
-        mh = mask_rcnn_heads.apply_mask_head(
-            params["mask_head"],
-            roi_feat.reshape((B * fg_cap,) + roi_feat.shape[2:]),
-            shared_res5_params=mask_rcnn_heads.shared_res5(params))
-        mlogits = mask_rcnn_heads.apply_mask_outputs(params["mask_outs"], mh)
+        with tracing.span("mask_head"):
+            mh = mask_rcnn_heads.apply_mask_head(
+                params["mask_head"],
+                roi_feat.reshape((B * fg_cap,) + roi_feat.shape[2:]),
+                shared_res5_params=mask_rcnn_heads.shared_res5(params))
+            mlogits = mask_rcnn_heads.apply_mask_outputs(
+                params["mask_outs"], mh)
         res = cfg.MRCNN.RESOLUTION
         mtgt, mw = T.mask_targets(mask_rois, sampled["fg"][:, :fg_cap],
                                   sampled["gt_idx"][:, :fg_cap],

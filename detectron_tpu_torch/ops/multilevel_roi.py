@@ -12,6 +12,8 @@ fix-up for slivers no window rung covers.
 
 import torch
 
+from detectron_tpu_torch.utils import tracing
+
 # RoIs per gather chunk: bounds the (chunk, S, S, C) sample tensor.
 _CHUNK = 128
 
@@ -99,6 +101,8 @@ def multilevel_roi_align(pyramid, scales, rois, pooled, sampling_ratio,
     assert len(pyramid) == k_max - k_min + 1
     dev = rois.device
     C = pyramid[0].shape[-1]
+    # Four host lists copied to the device, each a blocking copy.
+    tracing.sync("multilevel_roi.geometry", 4)
     heights = torch.tensor([f.shape[0] for f in pyramid], device=dev)
     widths = torch.tensor([f.shape[1] for f in pyramid], device=dev)
     sizes = [f.shape[0] * f.shape[1] for f in pyramid]
@@ -126,6 +130,7 @@ def multilevel_roi_align_canvas_flat(canvas, level_dims, row_off, col_off,
     assert len(level_dims) == k_max - k_min + 1
     B, Hc, Wc, C = canvas.shape
     dev = canvas.device
+    tracing.sync("multilevel_roi.geometry", 5)
     heights = torch.tensor([d[0] for d in level_dims], device=dev)
     widths = torch.tensor([d[1] for d in level_dims], device=dev)
     row_off = torch.tensor(row_off, device=dev)

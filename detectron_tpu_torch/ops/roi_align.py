@@ -35,6 +35,7 @@ import torch
 
 from detectron_tpu_torch.ops.cuda.roi_align_kernel import (
     MAX_WINDOW, roi_window_accum, roi_window_pool)
+from detectron_tpu_torch.utils import tracing
 
 
 def axis_weights(starts, bin_sizes, grid_counts, pooled, grid_cap, size):
@@ -96,6 +97,7 @@ def _window(v, size):
     nz = v.ne(0).any(1)
     lo = torch.where(nz, idx, size).amin(1)
     hi = torch.where(nz, idx, -1).amax(1)
+    tracing.sync("roi_align.window", 1 if R else 0)
     reach = int((hi - lo + 1).clamp(min=1).max()) if R else 1
     if reach > MAX_WINDOW:
         raise ValueError(

@@ -20,6 +20,8 @@ between ties, as JAX's reduce_max does).
 
 import torch
 
+from detectron_tpu_torch.utils import tracing
+
 # Bytes of a chunk's float32 intermediate.
 CHUNK_BYTES = 1 << 28
 
@@ -31,6 +33,7 @@ def crop_axis_weights(starts, ends, pooled, size):
     float32(1 / max(pooled - 1, 1)), as the JAX package's compiled graph
     computes it (ops/roi_pool.py says why it matters)."""
     p = torch.arange(pooled, dtype=torch.float32, device=starts.device)
+    tracing.sync("roi_crop.weights")
     inv = 1.0 / p.new_tensor(float(max(pooled - 1, 1)))
     coords = starts[:, None] + (ends - starts)[:, None] * p[None, :] * inv
     in_bounds = (coords >= 0.0) & (coords <= size - 1.0)

@@ -26,6 +26,8 @@ accumulate, deterministic under torch's switch).
 
 import torch
 
+from detectron_tpu_torch.utils import tracing
+
 # Bytes of a chunk's intermediates in the forward.
 CHUNK_BYTES = 1 << 28
 
@@ -33,6 +35,7 @@ CHUNK_BYTES = 1 << 28
 def _bins(lo, extent, pooled, size):
     """[start, end) cell ranges (R, pooled) int64 of one axis's bins."""
     p = torch.arange(pooled, dtype=torch.float32, device=lo.device)
+    tracing.sync("roi_pool.bins")
     b = extent * (1.0 / p.new_tensor(float(pooled)))
     start = torch.floor(p[None] * b[:, None]) + lo[:, None]
     end = torch.ceil((p[None] + 1) * b[:, None]) + lo[:, None]
@@ -49,6 +52,7 @@ def _pool_chunk(feats, bidx, hs, he, ws, we, want_cell):
     r, Ph = hs.shape
     Pw = ws.shape[1]
     dev = feats.device
+    tracing.sync("roi_pool.chunk_reach", 2)
     Lh = max(int((he - hs).max()), 1)
     Lw = max(int((we - ws).max()), 1)
     rows = hs[..., None] + torch.arange(Lh, device=dev)
@@ -89,6 +93,7 @@ class _RoIPool(torch.autograd.Function):
                        torch.clamp(sr[:, 2] - sr[:, 0] + 1, min=1.0),
                        pooled, W)
         isz = feats.element_size()
+        tracing.sync("roi_pool.reach", 2 if B * R else 0)
         lh = max(int((he - hs).max()), 1) if B * R else 1
         lw = max(int((we - ws).max()), 1) if B * R else 1
         per_roi = pooled * C * (W * (lh * isz + isz + 8)

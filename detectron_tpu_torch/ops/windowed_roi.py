@@ -51,6 +51,7 @@ from detectron_tpu_torch.ops import multilevel_roi as ml
 from detectron_tpu_torch.ops import roi_align as ra
 from detectron_tpu_torch.ops.cuda.roi_align_kernel import (
     MAX_WINDOW, roi_window_accum, roi_window_pool, roi_window_pool_seg)
+from detectron_tpu_torch.utils import tracing
 
 log = logging.getLogger(__name__)
 
@@ -87,6 +88,8 @@ def window_params(rois, geom, scales, pooled, sampling_ratio, k_min, k_max,
     dev = rois.device
     lvl = ml.roi_levels(rois, k_min, k_max, canonical_scale,
                         canonical_level) - k_min
+    # Five host tensors copied to the device, each a blocking copy.
+    tracing.sync("windowed_roi.geometry", 5)
     lvl_scale = torch.tensor(scales, dtype=torch.float32, device=dev)[lvl]
     Hl = geom["heights"].to(dev)[lvl]
     Wl = geom["widths"].to(dev)[lvl]
@@ -214,6 +217,7 @@ def rung_route(rois, geom, scales, k_min, k_max, canonical_scale,
     dev = rois.device
     lvl = ml.roi_levels(rois, k_min, k_max, canonical_scale,
                         canonical_level) - k_min
+    tracing.sync("windowed_roi.geometry", 3)
     sc = torch.tensor(scales, dtype=torch.float32, device=dev)[lvl]
     Hl = geom["heights"].to(dev)[lvl]
     Wl = geom["widths"].to(dev)[lvl]
@@ -265,6 +269,7 @@ def _windows_pool(pyramid, geom, scales, rois, pooled, sampling_ratio,
     covered, rid = rung_route(rois_flat, geom, scales, k_min, k_max,
                               canonical_scale, canonical_level)
     for r, (wy_r, wx_r) in enumerate(geom["fix_rungs"]):
+        tracing.sync("windowed_roi.fixup")
         idx = torch.nonzero(need & covered & (rid == r)).flatten()
         if idx.numel() == 0:
             continue
@@ -273,6 +278,7 @@ def _windows_pool(pyramid, geom, scales, rois, pooled, sampling_ratio,
             canvas, starts_of(img_idx[idx], fsy, fsx), fvy, fvx,
             (0, idx.numel()))
 
+    tracing.sync("windowed_roi.gather")
     idx = torch.nonzero(need & ~covered).flatten()
     if idx.numel():
         out[idx] = ml.multilevel_roi_align_canvas_flat(
@@ -337,12 +343,14 @@ def _windows_backward(ct, rois, dims, geom, scales, pooled, sampling_ratio,
         covered, rid = rung_route(rois_flat, geom, scales, k_min, k_max,
                                   canonical_scale, canonical_level)
         for r, (wy_r, wx_r) in enumerate(geom["fix_rungs"]):
+            tracing.sync("windowed_roi.fixup_backward")
             idx = torch.nonzero(need & covered & (rid == r)).flatten()
             if idx.numel() == 0:
                 continue
             fsy, fsx, fvy, fvx, _ = params(rois_flat[idx], wy_r, wx_r)
             roi_window_accum(canvas, starts_of(img_idx[idx], fsy, fsx),
                              ct_flat[idx].contiguous(), fvy, fvx)
+        tracing.sync("windowed_roi.gather_backward")
         idx = torch.nonzero(need & ~covered).flatten()
         if idx.numel():
             with torch.enable_grad():
@@ -563,6 +571,7 @@ def multilevel_roi_align_hybrid(pyramid, scales, rois, pooled,
     is_top = ml.roi_levels(rois.to(torch.float32), k_min, k_max,
                            canonical_scale, canonical_level) == k_max
     out = torch.where(is_top[:, None, None, None], out_top, out_win)
+    tracing.sync("windowed_roi.hybrid_gather")
     idx = torch.nonzero(~win_ok & ~is_top).flatten()
     if idx.numel() == 0:
         return out

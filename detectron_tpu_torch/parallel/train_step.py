@@ -29,6 +29,7 @@ import torch
 from detectron_tpu_torch.models import train_graph
 from detectron_tpu_torch.parallel import comm
 from detectron_tpu_torch.parallel import optimizer as opt
+from detectron_tpu_torch.utils import tracing
 
 
 def grad_leaves(params):
@@ -62,7 +63,8 @@ def loss_and_grads(params, batch, draws, scale=1.0, mesh=None):
     shares, before any sum over the data group."""
     p, leaves = grad_leaves(params)
     total, parts = train_graph.training_losses(p, batch, draws, mesh)
-    grads = grads_of(total * scale, p, leaves)
+    with tracing.span("backward"):
+        grads = grads_of(total * scale, p, leaves)
     return total.detach(), {k: v.detach() for k, v in parts.items()}, grads
 
 
@@ -78,6 +80,7 @@ def sum_over_data(grads, stats, mesh):
     return comm.all_reduce_stats(stats, mesh.data_group)
 
 
+@tracing.spanned("train_step")
 def train_step(params, opt_state, batch, draws, mesh=None):
     """Returns (new_params, new_opt_state, stats): stats holds the losses,
     accuracy_cls, the total "loss" and the "lr" of this step. `draws` is
@@ -87,12 +90,14 @@ def train_step(params, opt_state, batch, draws, mesh=None):
     stats = dict(parts)
     stats["loss"] = total
     stats = sum_over_data(grads, stats, mesh)
-    new_params, new_opt_state, lr = opt.apply_updates(params, grads,
-                                                      opt_state, mesh)
+    with tracing.span("optimizer"):
+        new_params, new_opt_state, lr = opt.apply_updates(params, grads,
+                                                          opt_state, mesh)
     stats["lr"] = lr
     return new_params, new_opt_state, stats
 
 
+@tracing.spanned("train_step")
 def train_step_accum(params, opt_state, batches, draws, mesh=None):
     """The reference's --iter_size: one update from the gradients of
     len(batches) microbatches, each loss divided by their count (so the
@@ -113,7 +118,8 @@ def train_step_accum(params, opt_state, batches, draws, mesh=None):
     stats = dict(parts)
     stats["loss"] = loss
     stats = sum_over_data(grads, stats, mesh)
-    new_params, new_opt_state, lr = opt.apply_updates(params, grads,
-                                                      opt_state, mesh)
+    with tracing.span("optimizer"):
+        new_params, new_opt_state, lr = opt.apply_updates(params, grads,
+                                                          opt_state, mesh)
     stats["lr"] = lr
     return new_params, new_opt_state, stats

@@ -3,15 +3,18 @@ twin of tools/profile_net.py).
 
     python -m detectron_tpu_torch.tools.profile_net [--cfg YAML] \\
         [--mode infer|train] [--batch_size 8] [--steps 3] [--calibrate] \\
-        [--out DIR] [--canvas 832 1344] [--device cuda|cpu] \\
+        [--out DIR] [--canvas 832 1344] [--device cuda|cpu] [--no_stack] \\
         [--set KEY VALUE ...]
 
 Runs core/test.py::detect_graph (or, with --mode train, parallel/
 train_step.py::train_step on utils/synthetic.synthetic_train_batch) on the
 mask_rcnn_r50_fpn preset (or --cfg) in bf16 at the 832 x 1344 canvas, a
 warm-up step, --steps unprofiled steps, then --steps steps under
-torch.profiler with CPU and CUDA activities, stacks, shapes and FLOPs.
-Each profiled step is a "profile_net step" span in the trace. The trace
+torch.profiler with CPU and CUDA activities, stacks, shapes and FLOPs
+(--no_stack: no stacks, so the host runs as fast as unprofiled but for
+the profiler's own cost; tools/trace_summary.py then ties the kernels to
+the program's spans alone). Each profiled step is a "profile_net step"
+span in the trace. The trace
 is Chrome-trace JSON, gzipped, at <out>/profile_net_<mode>.trace.json.gz
 (view it in chrome://tracing or Perfetto; summarize it with
 tools/trace_summary.py); <out>/profile_net_<mode>.walls.json keeps both
@@ -52,6 +55,9 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--out", default=str(DEFAULT_OUT))
+    p.add_argument("--no_stack", action="store_true",
+                   help="record no Python stacks (trace_summary's table "
+                        "by span needs none; its table by stage does)")
     p.add_argument("--calibrate", action="store_true",
                    help="apply the trained-detector weight calibration "
                         "(utils/synthetic.py) so the profile sees the "
@@ -149,8 +155,8 @@ def main(argv=None):
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, record_shapes=True, with_stack=True,
-                 with_flops=True) as prof:
+    with profile(activities=activities, record_shapes=True,
+                 with_stack=not args.no_stack, with_flops=True) as prof:
         profiled = _walls(step, args.steps, device)
     device_ms, by_name = session_device_time(prof)
     os.makedirs(args.out, exist_ok=True)
@@ -163,13 +169,13 @@ def main(argv=None):
     walls = {"mode": args.mode, "batch_size": args.batch_size,
              "canvas": list(args.canvas), "steps": args.steps,
              "card": card, "unprofiled_ms": plain, "profiled_ms": profiled,
-             "session_device_ms": device_ms}
+             "stacks": not args.no_stack, "session_device_ms": device_ms}
     with open(stem + ".walls.json", "w") as f:
         json.dump(walls, f)
     print("{} x {}, batch {}: unprofiled step wall {} ms, profiled (stacks "
-          "on) {} ms".format(args.mode, "x".join(map(str, args.canvas)),
-                             args.batch_size,
-                             [round(w, 3) for w in plain],
+          "{}) {} ms".format(args.mode, "x".join(map(str, args.canvas)),
+                             args.batch_size, [round(w, 3) for w in plain],
+                             "off" if args.no_stack else "on",
                              [round(w, 3) for w in profiled]))
     print("profiler session's device self time (key_averages): {:.3f} ms "
           "over {} steps".format(device_ms, args.steps))

@@ -24,8 +24,16 @@ file given) and prints, in ms per step:
      time inside a stage's frames and not inside a deeper stage's; a
      host sync is a
      cudaStreamSynchronize / cudaDeviceSynchronize / cudaEventSynchronize
-     under the stage (the ladder's torch.nonzero shows up this way);
-  3. the top kernels, merged across steps, with TF/s where the trace
+     under the stage (the ladder's torch.nonzero shows up this way).
+     This table needs a trace with stacks (profile_net's default);
+  3. by SPAN, in a trace with or without stacks: the program's own
+     ranges (utils/tracing.py), the innermost dt.* range open at each
+     kernel's launch (on a thread with none open, the main thread's),
+     beside each span's host self time (its duration less its child
+     spans), the device's idle time while it was the main thread's
+     innermost span, and the host syncs (as in 2) under it;
+     "(no span)" holds what ran outside the program's entry points;
+  4. the top kernels, merged across steps, with TF/s where the trace
      gives FLOPs for the op that launched them.
 
 The device's idle share is taken over the profiled steps' spans (one
@@ -71,13 +79,17 @@ NAME_CATEGORIES = (
 
 # Python frames of these files run inside a stage for every stage: their
 # time and launches go to the caller's file.
-HELPER_FILES = ("ops/cuda/", "models/layers.py", "utils/collections.py")
+HELPER_FILES = ("ops/cuda/", "models/layers.py", "utils/collections.py",
+                "utils/tracing.py")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 SYNC_NAMES = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 STEP_SPAN = "profile_net step"
 NO_FRAME = "(no repo frame)"
+# The program's own ranges (utils/tracing.py).
+SPAN_PREFIX = "dt."
+NO_SPAN = "(no span)"
 PACKAGE = "detectron_tpu_torch/"
 
 
@@ -268,15 +280,7 @@ def summarize(events, device="cuda"):
     index = SpanIndex([(e, (st, e["ts"])) for e, st in frames],
                       (NO_FRAME, None))
 
-    card = None if device in ("cuda", "cpu") else int(device.split(":")[1])
-    dev = [] if device == "cpu" else [
-        e for e in X if e.get("cat") in DEVICE_CATS and card in (
-            None, (e.get("args") or {}).get("device"))]
-    launches = {}
-    for e in X:
-        a = e.get("args") or {}
-        if e.get("cat") in LAUNCH_CATS and "correlation" in a:
-            launches[a["correlation"]] = e
+    dev, measured, anchor = measured_events(X, device)
     flops_of = {}
     for e in X:
         a = e.get("args") or {}
@@ -287,13 +291,6 @@ def summarize(events, device="cuda"):
     # and (host fallback) each host op's start.
     syncs = [e for e in X if e.get("cat") in LAUNCH_CATS
              and e.get("name") in SYNC_NAMES]
-    if dev:
-        measured = dev
-        anchor = {id(e): launches.get((e.get("args") or {})
-                                      .get("correlation")) for e in dev}
-    else:
-        measured = [e for e in X if e.get("cat") == "cpu_op"]
-        anchor = {id(e): e for e in measured}
     hosts = [e for e in list(anchor.values()) + syncs if e is not None]
     where = {k: st for k, (st, _) in place(index, hosts).items()}
     where.update(backward_stages(X, index, hosts))
@@ -356,7 +353,124 @@ def summarize(events, device="cuda"):
             "busy_ms": busy_ms,
             "idle_share": (1.0 - busy_ms / window_ms) if dev and window_ms
             else None,
-            "steps_seen": len(spans)}
+            "steps_seen": len(spans),
+            "by_span": span_table(X, measured, anchor, dev, lo, hi)}
+
+
+def measured_events(X, device="cuda"):
+    """(dev, measured, anchor) for `device` as summarize() takes it: the
+    device events (every card's for "cuda", card N's for "cuda:N", none
+    for "cpu"); the events measured, those or, where there are none, the
+    host ops; {id(event): the host event that places it}, a device
+    event's launch found by its correlation id (None where the trace
+    lacks it), a host op itself."""
+    card = None if device in ("cuda", "cpu") else int(device.split(":")[1])
+    dev = [] if device == "cpu" else [
+        e for e in X if e.get("cat") in DEVICE_CATS and card in (
+            None, (e.get("args") or {}).get("device"))]
+    if not dev:
+        measured = [e for e in X if e.get("cat") == "cpu_op"]
+        return dev, measured, {id(e): e for e in measured}
+    launches = {}
+    for e in X:
+        a = e.get("args") or {}
+        if e.get("cat") in LAUNCH_CATS and "correlation" in a:
+            launches[a["correlation"]] = e
+    return dev, dev, {id(e): launches.get((e.get("args") or {})
+                                          .get("correlation"))
+                      for e in dev}
+
+
+def innermost_segments(spans, lo, hi):
+    """[(start, end, name)]: [lo, hi] cut where the innermost of `spans`
+    (one thread's ranges, which nest) changes, each piece named by it,
+    NO_SPAN where none is open."""
+    out, stack, t = [], [], lo
+
+    def upto(x):
+        nonlocal t
+        x = min(max(x, lo), hi)
+        if x > t:
+            out.append((t, x, stack[-1][1] if stack else NO_SPAN))
+            t = x
+
+    for e in sorted(spans, key=lambda e: (e["ts"], -e["dur"])):
+        while stack and stack[-1][0] <= e["ts"]:
+            upto(stack[-1][0])
+            stack.pop()
+        upto(e["ts"])
+        stack.append((e["ts"] + e["dur"], e["name"]))
+    while stack:
+        upto(stack[-1][0])
+        stack.pop()
+    upto(hi)
+    return out
+
+
+def idle_intervals(dev, lo, hi):
+    """The gaps in [lo, hi] where no event of `dev` runs, sorted."""
+    out, t = [], lo
+    for start, end in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
+        if start > t:
+            out.append((t, min(start, hi)))
+        t = max(t, end)
+        if t >= hi:
+            break
+    if t < hi:
+        out.append((t, hi))
+    return [(s, e) for s, e in out if e > s]
+
+
+def span_table(X, measured, anchor, dev, lo, hi):
+    """{innermost dt.* span (or NO_SPAN): {"device_ms", "host_ms",
+    "idle_ms", "syncs"}} from the program's ranges, with or without
+    stacks: the measured events' self time by the innermost stage span
+    open at their launch (on a thread that has none open, as autograd's
+    on the card, the span open then on the main thread: the one that
+    holds the longest span), each span's host self time (its duration
+    less its child stage spans), the device's idle time in [lo, hi] by
+    the span open on the main thread, and the host syncs (SYNC_NAMES
+    runtime calls) by the span open at them. {} for a trace without the
+    program's ranges."""
+    spans = [e for e in X if e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith(SPAN_PREFIX)]
+    if not spans:
+        return {}
+    main = _lane_ts(max(spans, key=lambda e: e["dur"]))[0]
+    index = SpanIndex([(e, e["name"]) for e in spans], NO_SPAN)
+    syncs = [e for e in X if e.get("cat") in LAUNCH_CATS
+             and e.get("name") in SYNC_NAMES]
+    hosts = [h for h in anchor.values() if h is not None] + syncs
+    where = place(index, hosts)
+    stray = [k for k, name in where.items()
+             if name == NO_SPAN and k[0] != main]
+    on_main = index.lookup(main, [ts for _, ts in stray])
+    for lane, ts in stray:
+        where[(lane, ts)] = on_main[ts]
+    rows = collections.defaultdict(lambda: {
+        "device_ms": 0.0, "host_ms": 0.0, "idle_ms": 0.0, "syncs": 0})
+    for e, self_us in self_times(measured):
+        h = anchor[id(e)]
+        name = "(unlinked)" if h is None else where[_lane_ts(h)]
+        rows[name]["device_ms"] += self_us / 1000.0
+    for e, self_us in self_times(spans):
+        rows[e["name"]]["host_ms"] += self_us / 1000.0
+    for e in syncs:
+        rows[where[_lane_ts(e)]]["syncs"] += 1
+    if dev:
+        segs = innermost_segments(
+            [e for e in spans if _lane_ts(e)[0] == main], lo, hi)
+        gaps = idle_intervals(dev, lo, hi)
+        i = 0
+        for s, e, name in segs:
+            while i < len(gaps) and gaps[i][1] <= s:
+                i += 1
+            j = i
+            while j < len(gaps) and gaps[j][0] < e:
+                rows[name]["idle_ms"] += (min(e, gaps[j][1])
+                                          - max(s, gaps[j][0])) / 1000.0
+                j += 1
+    return dict(rows)
 
 
 def report(s, steps, top=30, like=None, walls=None, path=None):
@@ -367,8 +481,9 @@ def report(s, steps, top=30, like=None, walls=None, path=None):
     if path:
         print("trace:", path)
     if walls:
-        print("{}; step walls: unprofiled {} ms, profiled (stacks on) {} "
+        print("{}; step walls: unprofiled {} ms, profiled (stacks {}) {} "
               "ms".format(walls.get("card"), walls.get("unprofiled_ms"),
+                          "on" if walls.get("stacks", True) else "off",
                           walls.get("profiled_ms")))
     print("{} self time: {:.3f} ms total, {:.3f} ms/step over {} steps"
           .format(what, total, total * per, steps))
@@ -393,6 +508,18 @@ def report(s, steps, top=30, like=None, walls=None, path=None):
                   100.0 * s["by_stage"].get(st, 0.0) / max(total, 1e-9),
                   s["host_by_stage"].get(st, 0.0) * per,
                   s["sync_by_stage"].get(st, 0.0) * per))
+
+    if s["by_span"]:
+        print("\nby span (innermost dt.* range of utils/tracing.py, ms/step; "
+              "no stacks needed): {} self, host self, device idle, host "
+              "syncs a step".format("device" if s["device"] else "host op"))
+        for name, row in sorted(s["by_span"].items(),
+                                key=lambda kv: -kv[1]["device_ms"]):
+            print("  {:<34s} {:>9.3f}  host {:>9.3f}  idle {:>9.3f}  syncs "
+                  "{:>6.2f}".format(name, row["device_ms"] * per,
+                                    row["host_ms"] * per,
+                                    row["idle_ms"] * per,
+                                    row["syncs"] * per))
 
     def oprow(key, ms):
         name, cat, stage = key

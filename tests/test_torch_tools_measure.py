@@ -24,8 +24,10 @@ multiscale_bench) on the CPU at tiny shapes.
   Python frames, runtime launches, kernels with correlation ids on a
   device lane, 2 steps): exact self times by class and by stage, host
   self time and syncs by stage, instances merged across steps, the idle
-  share. Then profile_net --device cpu (inference and a training step)
-  and trace_summary on its trace: the host-op fallback.
+  share; on a second one, the program's dt.* spans without stacks: exact
+  device, host self and idle ms and syncs by span. Then profile_net
+  --device cpu (inference and a training step; inference again with
+  --no_stack) and trace_summary on its trace: the host-op fallback.
 - roi_bench at a tiny pyramid: the ladder, the level sweep and the gather
   agree within 1e-5 in float32.
 - stage_bench and multiscale_bench print their lines / JSON rows.
@@ -319,6 +321,59 @@ def test_trace_summary_on_a_hand_built_trace(tmp_path):
         "total"] == pytest.approx(0.74)
 
 
+def test_trace_summary_by_span_on_a_hand_built_trace(tmp_path):
+    """The table by span from the program's own ranges, no stacks: thread
+    1 runs a detection (body, proposals with an anchor sync, the RoI
+    transform with a fix-up sync, each sync a cudaStreamSynchronize
+    runtime call, the tail in dt.detect_graph itself),
+    then the readback outside every span; thread 2 opens no span and
+    launches a kernel while thread 1 is in dt.proposals; the device lane
+    carries the spans' own device-side copies too (ignored). Exact device
+    and host self ms, idle ms by the span open on the main thread (the
+    idle times sum to the window's), syncs by the span open at them."""
+    ua = "user_annotation"
+    events = [
+        _x(ua, "profile_net step", 1, 0, 1000),
+        _x(ua, "dt.detect_graph", 1, 0, 900),
+        _x(ua, "dt.body", 1, 10, 290),
+        _x(ua, "dt.proposals", 1, 300, 200),
+        _x("cuda_runtime", "cudaStreamSynchronize", 1, 350, 50),
+        _x(ua, "dt.roi_xform", 1, 500, 200),
+        _x("cuda_runtime", "cudaStreamSynchronize", 1, 600, 50),
+        _x("gpu_user_annotation", "dt.detect_graph", STREAM, 50, 800,
+           pid=DEV),
+    ]
+    for corr, (tid, launch, start, dur) in enumerate(
+            [(1, 20, 50, 230), (1, 310, 320, 20), (1, 510, 520, 80),
+             (1, 710, 720, 130), (2, 400, 410, 40)], 1):
+        events += [_x("cuda_runtime", "cudaLaunchKernel", tid, launch, 5,
+                      correlation=corr),
+                   _x("kernel", CONV, STREAM, start, dur, pid=DEV,
+                      correlation=corr, device=0)]
+    with gzip.open(tmp_path / "p.trace.json.gz", "wt") as f:
+        json.dump({"traceEvents": events}, f)
+    s = trace_summary.main([str(tmp_path), "--steps", "1"])
+    rows = s["by_span"]
+    assert set(rows) == {"dt.detect_graph", "dt.body", "dt.proposals",
+                         "dt.roi_xform", "(no span)"}
+
+    def col(key):
+        return {k: v[key] for k, v in rows.items() if v[key]}
+
+    assert col("device_ms") == pytest.approx(
+        {"dt.body": 0.23, "dt.proposals": 0.06, "dt.roi_xform": 0.08,
+         "dt.detect_graph": 0.13})
+    assert col("host_ms") == pytest.approx(
+        {"dt.detect_graph": 0.21, "dt.body": 0.29, "dt.proposals": 0.2,
+         "dt.roi_xform": 0.2})
+    assert col("idle_ms") == pytest.approx(
+        {"dt.detect_graph": 0.08, "dt.body": 0.06, "dt.proposals": 0.14,
+         "dt.roi_xform": 0.12, "(no span)": 0.1})
+    assert sum(col("idle_ms").values()) == pytest.approx(
+        s["window_ms"] - s["busy_ms"])
+    assert col("syncs") == {"dt.proposals": 1, "dt.roi_xform": 1}
+
+
 @pytest.mark.parametrize("mode", ["infer", "train"])
 def test_profile_net_on_the_cpu_then_trace_summary(tmp_path, mode, capsys):
     port_config.reset_cfg()
@@ -345,6 +400,27 @@ def test_profile_net_on_the_cpu_then_trace_summary(tmp_path, mode, capsys):
     # The ladder's host syncs on the card are its torch.nonzero calls.
     assert any(k[0] == "aten::nonzero" and k[2] == "ops/windowed_roi.py"
                for k in s["by_op"])
+
+
+def test_profile_net_without_stacks_then_trace_summary_by_span(tmp_path):
+    """profile_net --no_stack --device cpu: no Python frame in the trace,
+    so the table by stage has only "(no repo frame)", and the table by
+    span ties the host ops to the program's spans: the body's, the
+    proposals' and the ladder's; a CPU trace has no runtime sync call,
+    so no span counts a sync."""
+    port_config.reset_cfg()
+    got = profile_net.main([
+        "--device", "cpu", "--batch_size", "1", "--steps", "1", "--canvas",
+        "64", "64", "--no_stack", "--out", str(tmp_path), "--set"]
+        + TINY_SET)
+    assert got["walls"]["stacks"] is False
+    s = trace_summary.main([str(tmp_path), "--steps", "1"])
+    assert set(s["by_stage"]) == {trace_summary.NO_FRAME}
+    rows = s["by_span"]
+    assert rows["dt.body"]["device_ms"] > 0
+    assert rows["dt.proposals"]["device_ms"] > 0
+    assert rows["dt.roi_xform"]["device_ms"] > 0
+    assert not any(row["syncs"] for row in rows.values())
 
 
 # ---------------------------------------------------------------------------
