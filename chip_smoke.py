@@ -340,7 +340,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   "dryrun_rank<r>"); K1, K2 and (training) K4 must launch on every rank.
   Phase 2 also holds K1 at the C4 RPN's one-level lanes (2, 6000) and
   (2, 12000), K2 with the whole res4 map as its window (P = 14, N = 2000
-  and 200, bf16), K4 at the C4 training shapes (N = 1024 and 256), and
+  and 200, bf16), K4 at the C4 training shapes (N = 1024 and 256),
+  the conv epilogue (channel_epilogue: branch2c's AffineChannel, shortcut
+  and ReLU in one pass) at the FPN cell's res2 block (64, 208, 336, 256)
+  and the C4 cell's res5 block (16000, 7, 7, 2048), bf16, with the
+  identity and branch1's shortcut (within 1 ulp, bit-equal on 99.9%),
   the narrow ladder's shapes (TPU.ROI_LADDER_NARROW: K2 at its (32, 40)
   base window, P = 7, N = 2000, K3 at its whole-top-level (32, 48) rung
   over the RoIs that take it, K4 at both), and
@@ -587,7 +591,8 @@ def device_kernels(fn, reps=10):
                 prof.step()
         got = {e.key: (e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.count}
+               if e.device_type == DeviceType.CUDA and e.count
+               and not getattr(e, "is_user_annotation", False)}
         if got:
             return {k: (ms / n * math.ceil(n / reps), math.ceil(n / reps))
                     for k, (ms, n) in got.items()}
@@ -1096,6 +1101,7 @@ def check_kernels(device):
     check_narrow_window_kernels(device, rng, pool_check, record)
     check_c4_window_kernels(device, pool_check, record, det_accum_check)
     check_fused_kernels(device, rng, record)
+    check_channel_epilogue(device, record)
     check_tta_canvas_kernels(device, pool_check, record)
     return entries
 
@@ -1403,6 +1409,63 @@ def check_fused_kernels(device, rng, record):
                       cuda_ms(auto32, 20)))
 
 
+def check_channel_epilogue(device, record):
+    """Phase 2, the conv epilogue at the benchmark cells' shapes, bf16:
+    branch2c's output with its shortcut, identity and branch1's affine, of
+    an FPN res2 block at batch 64 on the 832 x 1344 canvas (64, 208, 336,
+    256) and of a C4 res5 block over 16 images' 1000 RoIs (16000, 7, 7,
+    2048), all with ReLU. Within 1 bf16 ulp of the plain version and
+    bit-equal on 99.9% of the elements (test_torch_cuda_kernels.py's
+    criterion). Entries: the FPN identity form, then under "branch1",
+    "c4" and "c4_branch1"."""
+    import torch
+
+    from detectron_tpu_torch.ops.cuda import channel_epilogue as ce
+
+    def ordered(t):
+        # bf16 bits as integers in the order of the values: two differ by
+        # the values' distance in ulps.
+        bits = t.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7fff), bits)
+
+    gen = torch.Generator(device).manual_seed(7)
+    for shape, cell in (((64, 208, 336, 256), ""), ((16000, 7, 7, 2048),
+                                                     "c4")):
+        C = shape[-1]
+        s, b, s_r, b_r = (torch.randn(C, generator=gen, device=device)
+                          * scale + base
+                          for scale, base in ((0.5, 1), (1, 0), (0.5, 1),
+                                              (1, 0)))
+        y, r = ((torch.randn(shape, generator=gen, device=device) * 4).to(
+            torch.bfloat16) for _ in range(2))
+        for form, more in (("identity", ()), ("branch1", (s_r, b_r))):
+            args = (y, s, b, r) + more
+            got = ce.channel_epilogue(*args, relu=True)
+            plain_ms, ref = cuda_call_ms(
+                lambda: ce.channel_epilogue_plain(*args, relu=True))
+            ulps = (ordered(got) - ordered(ref)).abs()
+            share = float((ulps == 0).float().mean())
+            if int(ulps.max()) > 1 or share < 0.999:
+                raise AssertionError(
+                    "channel_epilogue disagrees with its plain version at "
+                    "{} ({} shortcut): {} ulps, {:.5f} equal".format(
+                        shape, form, int(ulps.max()), share))
+            # Bytes: y and r read once, out written once, the (C,)
+            # vectors. Ops an element: the affine, the shortcut's add (and
+            # its affine), the ReLU.
+            record("channel_epilogue", "y={} bf16, {} shortcut (equal "
+                   "{:.5f})".format(shape, form, share),
+                   float((got.float() - ref.float()).abs().max()),
+                   lambda: ce.channel_epilogue(*args, relu=True), plain_ms,
+                   bound(3 * 2 * y.numel() + len(args) * 4 * C,
+                         (4 + len(more)) * y.numel(), "float32"),
+                   not cell and not more,
+                   "_".join(k for k in (cell, form if more else "") if k)
+                   or None)
+            del got, ref, ulps
+        del y, r
+
+
 # ---------------------------------------------------------------------------
 # Phases 3, 4 and 5
 # ---------------------------------------------------------------------------
@@ -1633,7 +1696,8 @@ def _small_train_run(tree, dev, dtype, H, W, masks=None):
     the losses; the input of every layers.relu call, on the CPU, in call
     order). With `masks` (bool tensors, one per relu call, in that order),
     each relu keeps the elements of its mask instead of its positive
-    ones: x * mask, whose gradient is the mask."""
+    ones: x * mask, whose gradient is the mask. Only relus whose input
+    requires grad are recorded and masked."""
     import torch
 
     from detectron_tpu_torch.core.config import cfg
@@ -1655,6 +1719,12 @@ def _small_train_run(tree, dev, dtype, H, W, masks=None):
     relu_inputs = []
 
     def relu(x):
+        if not x.requires_grad:
+            # No gradient flows back through it (a frozen stage's ReLU), so
+            # its sign at an input near 0 moves the step by rounding only.
+            # The card runs these inside channel_epilogue, where no call
+            # reaches here; the CPU calls here, so neither records them.
+            return torch.relu(x)
         relu_inputs.append(x.detach().cpu())
         if masks is None:
             return torch.relu(x)
@@ -2013,7 +2083,7 @@ def run_main_path(device, extra=()):
     det.detect_graph(params, images, im_info)   # warm-up (cuDNN plans)
     torch.cuda.synchronize()
 
-    wrappers = reset_launches(MAIN_WRAPPERS + (
+    wrappers = reset_launches(MAIN_WRAPPERS + ("channel_epilogue",) + (
         ("stem_pool", "fused_res2") if cfg.TPU.FUSED_RES2 else ()))
     t0 = time.perf_counter()
     for _ in range(MAIN_RUNS):
@@ -2191,7 +2261,10 @@ def profile_call(label, fn, n_kernels=20, n_ops=15, by_name=None):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # The program's dt.* spans (utils/tracing.py) also appear on the
+    # device, as annotations that cover the kernels launched under them.
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if by_name is not None:
         by_name.update({e.key: (e.count, e.self_device_time_total / 1e3)
@@ -5651,16 +5724,20 @@ def main():
                       "detectron_tpu/ops/pallas/fused_stem_kernel.py:473"),
         "fused_res2": ("detectron_tpu_torch/csrc/fused_res2.cu",
                        "detectron_tpu/ops/pallas/fused_stem_kernel.py:328"),
+        "channel_epilogue": ("detectron_tpu_torch/csrc/channel_epilogue.cu",
+                             "none (XLA's fusion)"),
     }
     # The path each kernel's launches are read from: the main (inference)
     # path for K1-K3, training for K4, the deterministic training steps
-    # for K4's deterministic variant, TPU.FUSED_RES2 inference for K5/K6.
+    # for K4's deterministic variant, TPU.FUSED_RES2 inference for K5/K6,
+    # the main (inference) path for the conv epilogue.
     path_of = {"nms_keep_mask": "inference", "roi_window_pool": "inference",
                "roi_window_pool_seg": "inference",
                "roi_window_accum": "training",
                "roi_window_accum_det": "deterministic_train",
                "stem_pool": "inference_fused_res2",
-               "fused_res2": "inference_fused_res2"}
+               "fused_res2": "inference_fused_res2",
+               "channel_epilogue": "inference"}
     kernels = []
     for name, (src, rep) in meta.items():
         e = entries[name]
@@ -5678,7 +5755,7 @@ def main():
                 "atomic_", "det_over_atomic", "other_") + tuple(
                     d + "_" for d in DET_KERNELS))},
             **{k: dict(v, library_ms=None) for k, v in e.items()
-               if k.startswith(("c4", "tta", "f32", "narrow"))}})
+               if k.startswith(("c4", "tta", "f32", "narrow", "branch1"))}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

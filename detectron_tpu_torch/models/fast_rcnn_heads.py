@@ -32,10 +32,9 @@ def apply_roi_Xconv1fc_head(p, roi_feat, model_group=None):
     gathered after the ReLU."""
     x = roi_feat
     for i, cp in enumerate(p["convs"]):
-        x = L.conv2d(cp, x, stride=1, padding=1)
+        x = L.conv2d(cp, x, stride=1, padding=1, relu="gns" not in p)
         if "gns" in p:
-            x = L.group_norm_cfg(p["gns"][i], x)
-        x = L.relu(x)
+            x = L.relu(L.group_norm_cfg(p["gns"][i], x))
     x = comm.copy_to_model(x.reshape(x.shape[0], -1), model_group)
     return comm.gather_from_model(L.relu(L.fc(p["fc6"], x)), model_group)
 

@@ -23,7 +23,7 @@ def apply_pose_head(p, roi_feat):
     x = roi_feat
     pad = cfg.KRCNN.CONV_HEAD_KERNEL // 2
     for cp in p["convs"]:
-        x = L.relu(L.conv2d(cp, x, stride=1, padding=pad))
+        x = L.conv2d(cp, x, stride=1, padding=pad, relu=True)
     return x
 
 
@@ -45,8 +45,8 @@ def apply_keypoint_outputs(p, x):
     equivalent input-dilated conv (the kernel is symmetric)."""
     pad = int(cfg.KRCNN.DECONV_KERNEL / 2 - 1)
     if cfg.KRCNN.USE_DECONV:
-        x = L.relu(L.conv_transpose2d(p["kps_deconv"], x, stride=2,
-                                      torch_padding=pad))
+        x = L.conv_transpose2d(p["kps_deconv"], x, stride=2,
+                               torch_padding=pad, relu=True)
     if cfg.KRCNN.USE_DECONV_OUTPUT:
         x = L.conv_transpose2d(p["kps_score"], x, stride=2,
                                torch_padding=pad)

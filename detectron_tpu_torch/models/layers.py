@@ -7,13 +7,19 @@ is a channels_last tensor, which F.conv2d takes as it is, and its output
 permuted back is NHWC again, so no copy is made on either side. Params come
 from models/bridge.py (OIHW conv kernels, (in, out, kh, kw) deconv kernels,
 (in, out) FC kernels) and are cast to the activation dtype, as
-detectron_tpu's layers cast theirs.
+detectron_tpu's layers cast theirs. A conv's bias, and the ReLU that
+directly follows it (relu=True), run as one pass of the channel epilogue
+kernel (ops/cuda/channel_epilogue.py) into the conv's fresh output where
+that kernel takes them (channel_epilogue.fuses: a CUDA tensor with no
+autograd graph to record, so every inference path), in float32 with one
+rounding; elsewhere as torch ops in the activation dtype.
 """
 
 import torch
 import torch.nn.functional as F
 
 from detectron_tpu_torch.core.config import cfg
+from detectron_tpu_torch.ops.cuda import channel_epilogue as ce
 
 
 def _nchw(x):
@@ -24,28 +30,36 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-def conv2d(p, x, stride=1, padding=0, dilation=1, groups=1):
+def _bias_relu(p, y, with_relu):
+    """The conv output y's bias (where p has one), then ReLU where asked:
+    one channel_epilogue pass into y where it fuses, else torch ops."""
+    if "b" in p and ce.fuses(y, p["b"]):
+        return ce.channel_epilogue(y.contiguous(), None, p["b"],
+                                   relu=with_relu, inplace=True)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return relu(y) if with_relu else y
+
+
+def conv2d(p, x, stride=1, padding=0, dilation=1, groups=1, relu=False):
     """x: (B, H, W, C). padding: an int, or explicit ((top, bottom),
-    (left, right)) pairs."""
+    (left, right)) pairs. relu: a ReLU after the bias."""
     if not isinstance(padding, int):
         (pt, pb), (pl, pr) = padding
         x = F.pad(x, (0, 0, pl, pr, pt, pb))
         padding = 0
     y = _nhwc(F.conv2d(_nchw(x), p["w"].to(x.dtype), None, stride, padding,
                        dilation, groups))
-    if "b" in p:
-        y = y + p["b"].to(y.dtype)
-    return y
+    return _bias_relu(p, y, relu)
 
 
-def conv_transpose2d(p, x, stride=2, torch_padding=0):
+def conv_transpose2d(p, x, stride=2, torch_padding=0, relu=False):
     """Deconv with torch.nn.ConvTranspose2d padding semantics
-    (out = (in - 1) * stride - 2 * padding + kernel)."""
+    (out = (in - 1) * stride - 2 * padding + kernel). relu: a ReLU after
+    the bias."""
     y = _nhwc(F.conv_transpose2d(_nchw(x), p["w"].to(x.dtype), None, stride,
                                  torch_padding))
-    if "b" in p:
-        y = y + p["b"].to(y.dtype)
-    return y
+    return _bias_relu(p, y, relu)
 
 
 def fc(p, x):

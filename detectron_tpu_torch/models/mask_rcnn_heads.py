@@ -31,12 +31,12 @@ def apply_mask_head(p, roi_feat, shared_res5_params=None):
         x = roi_feat
         d = cfg.MRCNN.DILATION
         for i, cp in enumerate(p["convs"]):
-            x = L.conv2d(cp, x, stride=1, padding=d, dilation=d)
+            x = L.conv2d(cp, x, stride=1, padding=d, dilation=d,
+                         relu="gns" not in p)
             if "gns" in p:
-                x = L.group_norm_cfg(p["gns"][i], x)
-            x = L.relu(x)
-    return L.relu(L.conv_transpose2d(p["deconv"], x, stride=2,
-                                     torch_padding=0))
+                x = L.relu(L.group_norm_cfg(p["gns"][i], x))
+    return L.conv_transpose2d(p["deconv"], x, stride=2, torch_padding=0,
+                              relu=True)
 
 
 def apply_mask_outputs(p, x):

@@ -21,10 +21,20 @@ the stem post-ops and res2 run through kernels K5 and K6
 bodies with AffineChannel only), with the fused path's own rounding; on
 the CPU their plain versions. RESNETS.RES5_DILATION d != 1 runs res5
 (of a body, the res5 box head or the v0up mask head) at stride 1 with
-d-dilated 3x3 convs. TPU.S2D_STEM runs the 7x7/s2 stem conv as a 4x4/s1
-conv on 2x2 space-to-depth blocks of the padded image, the same sums in
-another order; with TPU.S2D_INPUT the caller feeds those blocks
-(utils/blob.space_to_depth) and the stem takes them as they are.
+d-dilated 3x3 convs. Where the channel epilogue kernel takes them
+(ops/cuda/channel_epilogue.py's `fuses`: a CUDA tensor, bf16 or f32,
+C % 8 == 0, no autograd graph to record) each AffineChannel runs with the
+ReLU after it, and branch2c's with the shortcut (branch1's affine
+included) and the ReLU, as one pass of that kernel into the conv's fresh
+output, in float32 with one rounding: every inference path, and the
+frozen stages of a training step. GN bodies and stages that train keep
+the torch ops. Under TPU.FUSED_RES2, K5 and K6 keep their own epilogues;
+the "auto" stem post-ops and res3-res5 take this kernel as without it.
+TPU.S2D_STEM runs the 7x7/s2
+stem conv as a 4x4/s1 conv on 2x2 space-to-depth blocks of the padded
+image, the same sums in another order; with TPU.S2D_INPUT the caller
+feeds those blocks (utils/blob.space_to_depth) and the stem takes them as
+they are.
 """
 
 import torch
@@ -33,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from detectron_tpu_torch.core.config import cfg
 from detectron_tpu_torch.models import layers as L
+from detectron_tpu_torch.ops.cuda import channel_epilogue as ce
 from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
 
 # (n2, n3, n4, n5) block counts
@@ -74,22 +85,35 @@ def _norm(p, x):
     return L.affine_channel(L.stop_gradient(p), x)
 
 
+def _norm_relu(p, h, sc=None, sc_bn=None):
+    """The norm of the conv output h, plus the shortcut sc (after its own
+    norm sc_bn, where given), then ReLU: one channel_epilogue pass into h
+    where it fuses (AffineChannel), else the torch ops."""
+    if not cfg.RESNETS.USE_GN and ce.fuses(h, sc):
+        return ce.channel_epilogue(
+            h.contiguous(), p["s"], p["b"],
+            None if sc is None else sc.contiguous(),
+            *((sc_bn["s"], sc_bn["b"]) if sc_bn else ()), relu=True,
+            inplace=True)
+    h = _norm(p, h)
+    if sc is not None:
+        h = h + (_norm(sc_bn, sc) if sc_bn else sc)
+    return L.relu(h)
+
+
 def apply_bottleneck(p, x, stride, dilation=1):
     s1 = stride if cfg.RESNETS.STRIDE_1X1 else 1
     s3 = 1 if cfg.RESNETS.STRIDE_1X1 else stride
     h = L.conv2d(p["branch2a"], x, stride=s1, padding=0)
-    h = L.relu(_norm(p["branch2a_bn"], h))
+    h = _norm_relu(p["branch2a_bn"], h)
     h = L.conv2d(p["branch2b"], h, stride=s3, padding=dilation,
                  dilation=dilation, groups=cfg.RESNETS.NUM_GROUPS)
-    h = L.relu(_norm(p["branch2b_bn"], h))
+    h = _norm_relu(p["branch2b_bn"], h)
     h = L.conv2d(p["branch2c"], h, stride=1, padding=0)
-    h = _norm(p["branch2c_bn"], h)
     if "branch1" in p:
-        sc = _norm(p["branch1_bn"],
-                   L.conv2d(p["branch1"], x, stride=stride, padding=0))
-    else:
-        sc = x
-    return L.relu(h + sc)
+        sc = L.conv2d(p["branch1"], x, stride=stride, padding=0)
+        return _norm_relu(p["branch2c_bn"], h, sc, p["branch1_bn"])
+    return _norm_relu(p["branch2c_bn"], h, x)
 
 
 def apply_stage(blocks, x, stride, dilation=1):
@@ -206,7 +230,7 @@ def apply_body(p, x, num_stages):
         bn = p["res_conv1_bn"]
         if freeze_at >= 2:
             bn = L.stop_gradient(bn)
-        h = L.relu(_norm(bn, h))
+        h = _norm_relu(bn, h)
         h = L.max_pool(h, window=3, stride=2, padding=1)
     outs = []
     for s in range(num_stages):

@@ -20,7 +20,7 @@ from detectron_tpu_torch.utils import tracing
 def apply_rpn_head(p, feat):
     """feat (B, H, W, C) -> (cls_logits (B, H, W, A), bbox_pred
     (B, H, W, 4A))."""
-    h = L.relu(L.conv2d(p["conv_rpn"], feat, stride=1, padding=1))
+    h = L.conv2d(p["conv_rpn"], feat, stride=1, padding=1, relu=True)
     return (L.conv2d(p["rpn_cls_logits"], h, stride=1, padding=0),
             L.conv2d(p["rpn_bbox_pred"], h, stride=1, padding=0))
 

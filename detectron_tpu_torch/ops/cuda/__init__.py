@@ -14,12 +14,13 @@ DET_KERNELS = ("roi_reach_kernel", "roi_tile_scan_kernel",
                "roi_tile_fill_kernel", "roi_window_accum_det_kernel")
 PORT_KERNELS = ("nms_iou_mask_kernel", "nms_scan", "roi_window_pool_kernel",
                 "roi_window_accum_kernel", "stem_pool",
-                "fused_res2") + DET_KERNELS
+                "fused_res2", "channel_epilogue_kernel") + DET_KERNELS
 
 
 def wrappers():
-    """{name: wrapper} of every kernel: K1-K6 and K4's deterministic
-    variant."""
+    """{name: wrapper} of every kernel: K1-K6, K4's deterministic variant
+    and the conv epilogue."""
+    from detectron_tpu_torch.ops.cuda import channel_epilogue as ce
     from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
     from detectron_tpu_torch.ops.cuda import nms_kernel
     from detectron_tpu_torch.ops.cuda import roi_align_kernel as rk
@@ -29,7 +30,8 @@ def wrappers():
             "roi_window_pool_seg": rk.roi_window_pool_seg,
             "roi_window_accum": rk.roi_window_accum,
             "roi_window_accum_det": rk.roi_window_accum_det,
-            "stem_pool": fk.stem_pool, "fused_res2": fk.fused_res2}
+            "stem_pool": fk.stem_pool, "fused_res2": fk.fused_res2,
+            "channel_epilogue": ce.channel_epilogue}
 
 
 def reset_launches(names=None):

@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "detectron_tpu_torch"
 SOURCES = ("nms_keep_mask.cu", "roi_window_pool.cu", "roi_window_accum.cu",
-           "roi_window_accum_det.cu", "stem_pool.cu", "fused_res2.cu")
+           "roi_window_accum_det.cu", "stem_pool.cu", "fused_res2.cu",
+           "channel_epilogue.cu")
 # No --use_fast_math: an approximate divide would flip NMS keep bits at
 # the IoU threshold. -Xptxas -v reports each kernel's registers, shared
 # memory and spills (kept in LOGS).

@@ -16,7 +16,12 @@ torch.use_deterministic_algorithms,
 K4's deterministic variant (roi_window_accum_det) gives equal bits in two
 calls, and two identical training steps equal gradients. The parallel
 step with its ranks sharing the card over gloo (parallel/dryrun) equals
-the one-process step, and NCCL runs a world of 1. Every test skips
+the one-process step, and NCCL runs a world of 1. The conv epilogue
+(channel_epilogue) is within 1 ulp of its plain version in each form and
+bit-equal on 99.9% of the elements, writes in place nothing beside its
+output, and launches once at each epilogue site of a Mask R-CNN
+detect_graph (R-50-FPN and R-50-C4) and only in the frozen stem and res2
+of a training step. Every test skips
 where no CUDA device is present. On a machine with an NVIDIA GPU (no
 JAX needed, so without the suite's conftest):
 
@@ -32,6 +37,7 @@ import torch
 
 from detectron_tpu_torch.ops import nms as nms_ops
 from detectron_tpu_torch.ops import windowed_roi as win
+from detectron_tpu_torch.ops.cuda import channel_epilogue as ce
 from detectron_tpu_torch.ops.cuda import fused_stem_kernel as fk
 from detectron_tpu_torch.ops.cuda import nms_kernel
 from detectron_tpu_torch.ops.cuda import roi_align_kernel as rk
@@ -1070,3 +1076,168 @@ def test_nccl_world_of_one(device):
           "mesh": (1, 1), "steps": 2},), timeout_s=600)
     assert len(got["stats"]) == 2 and np.isfinite(got["stats"][1]["loss"])
     assert got["launches"]["nms_keep_mask"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The conv epilogue (ops/cuda/channel_epilogue.py)
+# ---------------------------------------------------------------------------
+
+# Each form: (scale, shortcut (None, "identity" or "affine"), ReLU).
+EPILOGUE_FORMS = {"affine": (True, None, False),
+                  "affine_relu": (True, None, True),
+                  "identity_shortcut": (True, "identity", True),
+                  "branch1_shortcut": (True, "affine", True),
+                  "bias_relu": (False, None, True)}
+
+
+def _ordered(t):
+    """t's bits as integers in the order of its values (bfloat16 or
+    float32), so that two such integers differ by the values' distance
+    in ulps (+0 and -0 both 0)."""
+    if t.dtype == torch.bfloat16:
+        bits, mask = t.view(torch.int16).int(), 0x7fff
+    else:
+        bits, mask = t.view(torch.int32).long(), 0x7fffffff
+    mag = bits & mask
+    return torch.where(bits < 0, -mag, mag)
+
+
+def _epilogue_args(form, y, r, s, b, s_r, b_r):
+    scale, shortcut, relu = EPILOGUE_FORMS[form]
+    return (y, s if scale else None, b, r if shortcut else None,
+            *((s_r, b_r) if shortcut == "affine" else (None, None))), relu
+
+
+def _assert_within_an_ulp(got, ref, what):
+    d = (_ordered(got) - _ordered(ref)).abs()
+    share = float((d == 0).float().mean())
+    assert int(d.max()) <= 1 and share >= 0.999, (what, int(d.max()), share)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [64, 256, 1024, 2048, 1000])
+def test_channel_epilogue_matches_plain(device, C, dtype):
+    """Every form against the plain version, at a ragged shape (element
+    counts no multiple of the block) and at one of more vectors than the
+    grid holds threads, so the grid-stride loop turns (at C = 1000 its
+    channel step is not 0): within 1 ulp, and bit-equal on 99.9% of the
+    elements. In place, the result lands in y and nothing beside it, nor
+    any input, changes."""
+    gen = torch.Generator(device).manual_seed(C)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    s, b, s_r, b_r = randn(C, scale=0.5) + 1, randn(C), randn(C, scale=0.5) \
+        + 1, randn(C)
+    # The (C,) vectors in float32, in y's dtype (read as they are), and in
+    # two dtypes at once (read as float32 copies).
+    vector_sets = {"f32": (s, b, s_r, b_r),
+                   "y's": tuple(t.to(dtype) for t in (s, b, s_r, b_r)),
+                   "mixed": (s.bfloat16(), b, s_r, b_r.bfloat16())}
+    for shape in ((1, 3, 5, C), (5, 37, 41, C)):
+        y, r = randn(*shape, scale=4).to(dtype), randn(*shape,
+                                                       scale=4).to(dtype)
+        for form in EPILOGUE_FORMS:
+            for vectors, vecs in vector_sets.items():
+                args, relu = _epilogue_args(form, y, r, *vecs)
+                before = ce.channel_epilogue.launches
+                got = ce.channel_epilogue(*args, relu=relu)
+                assert ce.channel_epilogue.launches == before + 1
+                _assert_within_an_ulp(got, ce.channel_epilogue_plain(
+                    *args, relu=relu), (form, vectors, shape))
+
+    n = 3 * 5 * 7 * C
+    buf = randn(n + 16, scale=4).to(dtype)  # 8 guard elements a side
+    y = buf[8:8 + n].view(3, 5, 7, C)
+    r = randn(3, 5, 7, C, scale=4).to(dtype)
+    kept = [t.clone() for t in (buf, r, s, b, s_r, b_r)]
+    want = ce.channel_epilogue_plain(y, s, b, r, s_r, b_r, relu=True)
+    got = ce.channel_epilogue(y, s, b, r, s_r, b_r, relu=True, inplace=True)
+    assert got.data_ptr() == y.data_ptr()
+    _assert_within_an_ulp(y, want, "in place")
+    assert torch.equal(buf[:8], kept[0][:8])
+    assert torch.equal(buf[8 + n:], kept[0][8 + n:])
+    for t, k in zip((r, s, b, s_r, b_r), kept[1:]):
+        assert torch.equal(t, k)
+
+
+def test_channel_epilogue_raises_instead_of_falling_back(device):
+    y = torch.zeros((2, 3, 4, 64), dtype=torch.bfloat16, device=device)
+    s = torch.ones(64, device=device)
+    with pytest.raises(TypeError):
+        ce.channel_epilogue(y.half(), s, s)
+    with pytest.raises(ValueError):
+        ce.channel_epilogue(y[..., :60].contiguous(), s[:60], s[:60])
+    with pytest.raises(ValueError):
+        ce.channel_epilogue(y.transpose(1, 2), s, s)
+    with pytest.raises(ValueError):
+        ce.channel_epilogue(y, s, s, y.float())
+    with pytest.raises(ValueError):
+        ce.channel_epilogue(y, s, s.cpu())
+    with pytest.raises(ValueError):
+        ce.channel_epilogue(y.float().requires_grad_(), s, s)
+    with pytest.raises(ValueError):
+        ce.channel_epilogue(y, None, s, y)
+
+
+# Epilogue sites of R-50's stem and bottlenecks: the stem's affine + ReLU,
+# then each block's branch2a, branch2b and branch2c (with its shortcut).
+R50_BLOCKS = (3, 4, 6, 3)
+
+
+def _r50_sites(stages):
+    return 1 + 3 * sum(R50_BLOCKS[:stages])
+
+
+@pytest.mark.parametrize("model", ["fpn", "c4"])
+def test_channel_epilogue_sites(device, model):
+    """A tiny seeded Mask R-CNN's detect_graph (bf16) launches the epilogue
+    once at each site: R-50-FPN's body (49), its 4 lateral and 4 posthoc
+    conv biases, the RPN conv at each of its 5 levels, the mask head's 4
+    convs and deconv; R-50-C4's res2-res4 body (40), res5 once for the
+    boxes and once for the masks (9 each), the RPN conv, the RPN's box
+    deltas (4 x 12 anchors: 48 channels) and the deconv. Convs whose
+    channels are no multiple of 8 (the FPN RPN's 3 logits and 12 deltas,
+    C4's 12 logits, the 81 mask logits) keep the torch ops. A training
+    step launches it only in the frozen stem and res2 (RESNETS.FREEZE_AT
+    2): never in a stage or head that trains."""
+    from detectron_tpu_torch.core import config
+    from detectron_tpu_torch.core import test as det
+    from detectron_tpu_torch.core.configs_presets import (
+        mask_rcnn_r50_c4_keys, mask_rcnn_r50_fpn)
+    from detectron_tpu_torch.models import train_graph
+    from detectron_tpu_torch.parallel import optimizer as opt
+    from detectron_tpu_torch.parallel import train_step as ts
+    from detectron_tpu_torch.tools import measure
+    from detectron_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    config.reset_cfg()
+    if model == "fpn":
+        mask_rcnn_r50_fpn()
+        sites = _r50_sites(4) + 4 + 4 + 5 + 4 + 1
+    else:
+        config.merge_cfg_from_list(mask_rcnn_r50_c4_keys(True))
+        sites = _r50_sites(3) + 2 * 3 * R50_BLOCKS[3] + 1 + 1 + 1
+    config.merge_cfg_from_list([
+        "TEST.RPN_PRE_NMS_TOP_N", "256", "TEST.RPN_POST_NMS_TOP_N", "64",
+        "TEST.DETECTIONS_PER_IM", "20"])
+    config.assert_and_infer_cfg(make_immutable=False)
+    assert config.cfg.RESNETS.FREEZE_AT == 2
+    rng = np.random.RandomState(0)
+    params = measure.seeded_params(device, torch.bfloat16, True, rng)
+    images = torch.tensor(rng.randn(2, 256, 320, 3) * 20.0,
+                          dtype=torch.bfloat16, device=device)
+    im_info = torch.tensor([[250.0, 310.0, 1.0]] * 2, device=device)
+    before = ce.channel_epilogue.launches
+    det.detect_graph(params, images, im_info)
+    assert ce.channel_epilogue.launches - before == sites
+
+    params = measure.seeded_params(device, torch.bfloat16, False, rng)
+    batch = synthetic_train_batch(1, 128, 160, device, rng)
+    draws = train_graph.make_draws(torch.Generator().manual_seed(1), 1,
+                                   (128, 160), config.cfg.TPU.MAX_GT_BOXES,
+                                   device)
+    before = ce.channel_epilogue.launches
+    ts.train_step(params, opt.init_opt_state(params), batch, draws)
+    assert ce.channel_epilogue.launches - before == _r50_sites(1)

@@ -2,7 +2,9 @@
 against detectron_tpu/models/layers.py on the same numpy inputs, NHWC in
 and out, one parametrised test per op. float32 agrees to 1e-5 (sums in
 another order); bfloat16 to 2e-2 relative (both round activations to bf16,
-at different points inside a convolution)."""
+at different points inside a convolution). The conv epilogue's plain
+version (ops/cuda/channel_epilogue.py) equals the port's unfused ops in
+float32 exactly."""
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,7 @@ import torch
 from detectron_tpu.models import layers as jax_layers
 from detectron_tpu_torch.models import bridge
 from detectron_tpu_torch.models import layers as port_layers
+from detectron_tpu_torch.ops.cuda import channel_epilogue as ce
 
 torch.set_num_threads(2)
 
@@ -96,3 +99,27 @@ def test_max_pool(hw, dtype):
 def test_relu(dtype):
     _, jx, _, tx = _inputs(5, (2, 3, 4, 5), {}, dtype)
     _close(port_layers.relu(tx), jax_layers.relu(jx), dtype)
+
+
+def test_channel_epilogue_plain_is_the_unfused_ops():
+    """In float32 the epilogue's plain version (and its wrapper on the CPU,
+    in place too) gives the bits of the ops it fuses: AffineChannel, the
+    shortcut (identity, or branch1's AffineChannel), the conv bias, ReLU."""
+    rng = np.random.RandomState(6)
+    y, r = (torch.tensor(rng.randn(2, 3, 5, 16), dtype=torch.float32)
+            for _ in range(2))
+    bn, bn1 = ({k: torch.tensor(rng.randn(16), dtype=torch.float32)
+                for k in ("s", "b")} for _ in range(2))
+    L = port_layers
+    cases = [((y, bn["s"], bn["b"]), False, L.affine_channel(bn, y)),
+             ((y, bn["s"], bn["b"]), True, L.relu(L.affine_channel(bn, y))),
+             ((y, bn["s"], bn["b"], r), True,
+              L.relu(L.affine_channel(bn, y) + r)),
+             ((y, bn["s"], bn["b"], r, bn1["s"], bn1["b"]), True,
+              L.relu(L.affine_channel(bn, y) + L.affine_channel(bn1, r))),
+             ((y, None, bn["b"]), True, L.relu(y + bn["b"]))]
+    for args, relu, want in cases:
+        assert torch.equal(ce.channel_epilogue_plain(*args, relu=relu), want)
+        y2 = y.clone()
+        out = ce.channel_epilogue(y2, *args[1:], relu=relu, inplace=True)
+        assert out is y2 and torch.equal(y2, want)
